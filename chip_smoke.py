@@ -6,19 +6,33 @@
 1. Prints the device and `nvidia-smi`'s name and power limit.
 2. Builds the CUDA kernels from csrc/ with nvcc (-Xptxas -v report shown).
 3. Holds each kernel byte for byte against its plain PyTorch version on
-   the card, at (7 rows, 3 columns), (1000, 20 with DECIMAL128 and nulls),
-   (2^16, 212 with every third column nullable) and the main path's own
-   inputs (the flagship table and the bench table below).
+   the card.  Fixed-width to-rows and from-rows at (7 rows, 3 columns),
+   (1000, 20 with DECIMAL128 and nulls), (2^16, 212 with every third
+   column nullable) and the main paths' own inputs (the flagship table and
+   the bench table below); variable-width to-rows at (7, 3 with one
+   string), (1000, 20 with DECIMAL128, nulls, null strings that keep
+   their bytes and string offsets that start past 0), (2^16, 155) and the
+   JNI-door table below.
 4. Runs each main path once, with the launch counts set to 0 just before
-   it and read just after it: the flagship step (hashes, to-rows, bucketed
-   sums) on 2^22 rows, checked against the same step on the CPU, and the
-   bench shape (212 cycled fixed-width columns x 2^19 rows, as in
-   bench_impl.py): to-rows -> from-rows must give the input back, and the
-   to-rows bytes must equal the plain version's.  Each path must have
-   launched every kernel it runs.
-5. Times each kernel with CUDA events after warm-up at the bench shape,
-   beside its plain version and its device-memory bound, and each main
-   path's step (median wall time, synchronized).
+   it and read just after it:
+   - the flagship step (hashes, to-rows, bucketed sums) on 2^22 rows,
+     checked against the same step on the CPU;
+   - the bench shape (212 cycled fixed-width columns x 2^19 rows, as in
+     bench_impl.py): to-rows -> from-rows must give the input back, and
+     the to-rows bytes must equal the plain version's;
+   - the JNI-door round trip on a table with strings (155 columns cycling
+     INT8, INT32, INT16, INT64, INT32, BOOL8, STRING, UINT16, UINT8,
+     UINT64 x 2^20 rows; strings of 0-32 random bytes; every third column
+     nullable, about 10% nulls), built on the card with
+     interop.table_from_host and registered as handles: the shim's
+     murmur_hash3_32 and xx_hash_64 over columns 1, 3 and 6 must equal the
+     same calls on the CPU, convert_to_rows must equal the plain version
+     byte for byte, convert_from_rows must give every column back, and
+     every handle is released.
+   Each path must have launched every kernel it runs.
+5. Times each kernel with CUDA events after warm-up at its main path's
+   shape, beside its plain version and its device-memory bound, and each
+   main path's step (median wall time, synchronized).
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -30,14 +44,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from spark_rapids_tpu_torch.columns import dtypes
+from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.models import flagship as F
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
+from spark_rapids_tpu_torch.shim import jni_api
+from spark_rapids_tpu_torch.shim.handles import REGISTRY
 from spark_rapids_tpu_torch.utils import cuda_build
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
@@ -49,9 +66,22 @@ PLAIN_ITERS = 3
 STEP_ITERS = 5
 # (rows, columns, every n-th column nullable, every n-th column DECIMAL128)
 KERNEL_CASES = [(7, 3, 0, 0), (1000, 20, 3, 11), (1 << 16, 212, 3, 0)]
+# the string main path: the column cycle, after the upstream
+# benchmarks/row_conversion.cpp variable_or_fixed_width case with strings
+STRING_CYCLE = ["int8", "int32", "int16", "int64", "int32", "bool8",
+                "string", "uint16", "uint8", "uint64"]
+STRING_ROWS = 1 << 20
+STRING_COLS = 155
+STRING_MAX_LEN = 32
+HASH_KEYS = (1, 3, 6)   # INT32, INT64, STRING
+# (rows, columns, first cycle entry, every n-th column nullable, every
+# n-th column DECIMAL128, string offsets' start)
+VAR_KERNEL_CASES = [(7, 3, 5, 0, 0, 0), (1000, 20, 0, 3, 11, 5),
+                    (1 << 16, 155, 0, 3, 0, 0)]
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
-                "bench_round_trip": ("to_rows", "from_rows")}
+                "bench_round_trip": ("to_rows", "from_rows"),
+                "jni_door_round_trip": ("to_rows_var",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,6 +122,42 @@ def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0):
     return Table(cols)
 
 
+def string_host_specs(rows, ncols, seed, first=0, nullable_every=3,
+                      dec128_every=0, skew=0):
+    """Seeded host columns of STRING_CYCLE (from entry `first` on), drawn
+    with numpy: integers over their whole range, strings of 0-32 random
+    bytes whose offsets start at `skew`, and about 10% nulls in every
+    n-th column.  A null string keeps its bytes and length."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(ncols):
+        kind = STRING_CYCLE[(first + i) % len(STRING_CYCLE)]
+        if dec128_every and i % dec128_every == dec128_every - 1:
+            kind = "decimal128"
+        valid = None
+        if nullable_every and i % nullable_every == 0:
+            valid = (rng.random(rows) >= 0.1).astype(np.uint8)
+        if kind == "string":
+            offs = np.zeros(rows + 1, np.int64)
+            np.cumsum(rng.integers(0, STRING_MAX_LEN + 1, rows),
+                      out=offs[1:])
+            offs += skew
+            chars = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+            specs.append((kind, chars, valid, offs.astype(np.int32)))
+            continue
+        if kind == "decimal128":
+            data = rng.integers(-2**31, 2**31, (rows, 4)).astype(np.int32)
+        elif kind == "bool8":
+            data = rng.integers(0, 2, rows, dtype=np.uint8)
+        else:
+            dt = dtypes.DType(kind).np_dtype
+            info = np.iinfo(dt)
+            data = rng.integers(info.min, info.max, rows, dtype=dt,
+                                endpoint=True)
+        specs.append((kind, data, valid))
+    return specs
+
+
 def layout_of(table):
     """(field starts, validity offset, row size) of the table's rows."""
     schema = [c.dtype for c in table.columns]
@@ -127,6 +193,18 @@ def compare_kernels(table):
                 else (c.validity != 0).to(torch.uint8))
         check(torch.equal(kv[ci], want), f"round trip validity {ci}")
     return err_to, err_from
+
+
+def compare_var_kernel(table):
+    """Variable-width to-rows kernel vs its plain version on the card;
+    returns the largest byte error."""
+    cols = table.columns
+    starts, voff, fixed = RC.compute_layout([c.dtype for c in cols])
+    offsets, total = RC.var_row_offsets(cols, fixed)
+    kern = RA.assemble_var_rows(cols, starts, voff, fixed, offsets, total)
+    plain = RA.assemble_var_rows_plain(cols, starts, voff, fixed, offsets)
+    torch.cuda.synchronize()
+    return byte_err(kern, plain)
 
 
 def read_launches(path):
@@ -178,6 +256,72 @@ def run_bench_round_trip(table):
     return launches, ms, steady_ms, rows_col
 
 
+def jni_door_step(handles, type_ids, scales):
+    """The JNI-door calls a Spark executor makes on a batch: hash-partition
+    keys, then columnar -> rows -> columnar.  Returns the new handles."""
+    keys = [handles[k] for k in HASH_KEYS]
+    mm = jni_api.murmur_hash3_32(42, keys)
+    xx = jni_api.xx_hash_64(42, keys)
+    rows = jni_api.convert_to_rows(handles)
+    back = jni_api.convert_from_rows(rows, type_ids, scales)
+    return mm, xx, rows, back
+
+
+def release_all(*handles):
+    for h in handles:
+        for one in (h if isinstance(h, list) else [h]):
+            jni_api.release_column(one)
+
+
+def run_jni_door(table, cpu_keys):
+    """The JNI-door main path on `table` (on the card); `cpu_keys` are the
+    hash key columns on the CPU.  Returns (launches, first-call ms,
+    steady ms, max byte error of the rows against the plain version)."""
+    start = REGISTRY.live_count()
+    handles = [REGISTRY.register(c) for c in table.columns]
+    type_ids = [c.dtype.kind for c in table.columns]
+    scales = [c.dtype.scale for c in table.columns]
+    RA.reset_launches()
+    t0 = time.perf_counter()
+    mm, xx, rows, back = jni_door_step(handles, type_ids, scales)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("jni_door_round_trip")
+
+    cpu = [REGISTRY.register(c) for c in cpu_keys]
+    cmm = jni_api.murmur_hash3_32(42, cpu)
+    cxx = jni_api.xx_hash_64(42, cpu)
+    for name, got, want in (("murmur_hash3_32", mm, cmm),
+                            ("xx_hash_64", xx, cxx)):
+        g, w = REGISTRY.get(got).data, REGISTRY.get(want).data
+        check(g.shape == w.shape and torch.equal(g.cpu(), w),
+              f"JNI door {name} on the card == on the CPU")
+
+    cols = table.columns
+    starts, voff, fixed = RC.compute_layout([c.dtype for c in cols])
+    rows_col = REGISTRY.get(rows)
+    plain = RA.assemble_var_rows_plain(cols, starts, voff, fixed,
+                                       rows_col.offsets)
+    err = byte_err(rows_col.children[0].data, plain)
+    check(err == 0, "JNI door rows == plain version")
+    del plain
+    for ci, (a, h) in enumerate(zip(cols, back)):
+        b = REGISTRY.get(h)
+        want = (torch.ones_like(b.validity) if a.validity is None
+                else (a.validity != 0).to(torch.uint8))
+        check(torch.equal(b.validity, want), f"JNI door validity {ci}")
+        check(byte_err(a.data, b.data) == 0, f"JNI door column {ci} data")
+        if a.dtype.is_string:
+            check(torch.equal(a.offsets, b.offsets),
+                  f"JNI door column {ci} offsets")
+    release_all(mm, xx, rows, back, cpu, cmm, cxx)
+    steady_ms = host_ms(lambda: release_all(*jni_door_step(
+        handles, type_ids, scales)), STEP_ITERS)
+    release_all(handles)
+    check(REGISTRY.live_count() == start, "every JNI door handle released")
+    return launches, ms, steady_ms, err
+
+
 def event_ms(fn, iters):
     """Mean milliseconds per call on the card, after two warm-up calls."""
     fn()
@@ -218,7 +362,7 @@ def time_kernels(table, rows_col):
     col_bytes = sum(nbytes(c.data) for c in cols)
     valid_in = sum(nbytes(c.validity) for c in cols if c.validity is not None)
 
-    desc_to = RA.to_rows_descriptors(cols, starts)
+    desc_to, _ = RA.to_rows_descriptors(cols, starts)
     out = torch.empty_like(row_bytes)
     to_ms = event_ms(lambda: RA.launch_to_rows(desc_to, rows, row_size, voff,
                                                out), TIMED_ITERS)
@@ -245,6 +389,34 @@ def time_kernels(table, rows_col):
         "from_rows": dict(ms=from_ms, call_ms=from_call,
                           plain_ms=from_plain, bytes=from_bytes),
     }
+
+
+def time_var_kernel(table):
+    """The variable-width to-rows kernel at the JNI-door shape.  Its bytes
+    are what this table's rows need: the fixed-width columns, validity,
+    string offsets and the chars they span read once, the row offsets
+    read once, the rows written once."""
+    cols = table.columns
+    rows = table.num_rows
+    starts, voff, fixed = RC.compute_layout([c.dtype for c in cols])
+    offsets, total = RC.var_row_offsets(cols, fixed)
+    desc, str_idx = RA.to_rows_descriptors(cols, starts)
+    out = torch.empty((total,), dtype=torch.uint8, device=offsets.device)
+    ms = event_ms(lambda: RA.launch_to_rows_var(
+        desc, str_idx, rows, fixed, voff, offsets, out), TIMED_ITERS)
+    call = event_ms(lambda: RA.assemble_var_rows(
+        cols, starts, voff, fixed, offsets, total), TIMED_ITERS)
+    plain = event_ms(lambda: RA.assemble_var_rows_plain(
+        cols, starts, voff, fixed, offsets), PLAIN_ITERS)
+    read = nbytes(offsets)
+    for c in cols:
+        if c.validity is not None:
+            read += nbytes(c.validity)
+        if c.dtype.is_string:
+            read += nbytes(c.offsets) + int(c.offsets[-1] - c.offsets[0])
+        else:
+            read += nbytes(c.data)
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bytes=read + total)
 
 
 def main() -> int:
@@ -288,16 +460,43 @@ def main() -> int:
         errs["from_rows"] = max(errs["from_rows"], e_from)
     del cases, flagship_table
 
+    string_specs = string_host_specs(STRING_ROWS, STRING_COLS, seed=11)
+    string_table = interop.table_from_host(string_specs, device="cuda")
+    cpu_keys = interop.table_from_host(
+        [string_specs[k] for k in HASH_KEYS], device="cpu").columns
+    del string_specs
+    errs["to_rows_var"] = 0
+    for rows, ncols, first, nullable, dec, skew in VAR_KERNEL_CASES:
+        table = interop.table_from_host(string_host_specs(
+            rows, ncols, seed=rows + ncols, first=first,
+            nullable_every=nullable, dec128_every=dec, skew=skew), "cuda")
+        err = compare_var_kernel(table)
+        print(f"kernel vs plain: rows={rows} cols={ncols} with strings "
+              f"to_rows_var max_abs_err={err}", flush=True)
+        check(err == 0, "variable-width kernel byte-equal to plain")
+        errs["to_rows_var"] = max(errs["to_rows_var"], err)
+
     by_path = {}
     by_path["flagship_step"], flagship_ms, flagship_steady = run_flagship()
     (by_path["bench_round_trip"], bench_ms, bench_steady,
      rows_col) = run_bench_round_trip(bench)
+    (by_path["jni_door_round_trip"], jni_ms, jni_steady,
+     err) = run_jni_door(string_table, cpu_keys)
+    print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
+          f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
+    errs["to_rows_var"] = max(errs["to_rows_var"], err)
 
     times = time_kernels(bench, rows_col)
+    del rows_col, bench
+    times["to_rows_var"] = time_var_kernel(string_table)
     replaces = {
         "to_rows": "spark_rapids_tpu/ops/row_assembly_pallas.py:47",
         "from_rows": "spark_rapids_tpu/ops/row_assembly_pallas.py:136",
+        "to_rows_var": "spark_rapids_tpu/ops/row_assembly_pallas.py:281",
     }
+    shapes = {"to_rows": f"{BENCH_ROWS}x{BENCH_COLS}",
+              "from_rows": f"{BENCH_ROWS}x{BENCH_COLS}",
+              "to_rows_var": f"{STRING_ROWS}x{STRING_COLS}"}
     kernels = []
     for name, t in times.items():
         bound_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -312,7 +511,7 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None,
             "call_ms": t["call_ms"], "bytes": t["bytes"],
             "gb_per_s": t["bytes"] / t["ms"] / 1e6,
-            "shape": f"{BENCH_ROWS}x{BENCH_COLS}",
+            "shape": shapes[name],
         })
     print(json.dumps({"main_path": {
         "flagship_rows": FLAGSHIP_ROWS,
@@ -321,6 +520,9 @@ def main() -> int:
         "bench_shape": f"{BENCH_ROWS}x{BENCH_COLS}",
         "bench_round_trip_first_call_ms": bench_ms,
         "bench_round_trip_ms": bench_steady,
+        "jni_door_shape": f"{STRING_ROWS}x{STRING_COLS}",
+        "jni_door_first_call_ms": jni_ms,
+        "jni_door_round_trip_ms": jni_steady,
         "build_s": build_s}}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -3,13 +3,16 @@
 
     python3 scripts/torch_port_profile.py [--out DIR]
 
-Profiles, after one warm-up call each, the flagship step on 2^22 rows and
+Profiles, after one warm-up call each, the flagship step on 2^22 rows,
 the bench-shape round trip (212 cycled fixed-width columns x 2^19 rows,
-to-rows then from-rows) with torch.profiler.  For each it prints one JSON
-line: wall milliseconds (synchronized), summed device time of the kernels
-and copies, the device's busy share of the wall time, and the kernels
-that took the most device time.  The profiler's own table goes to
-DIR/torch_profile_<phase>.txt.  Exits non-zero without a CUDA device or
+to-rows then from-rows) and the JNI-door round trip on chip_smoke.py's
+string table (155 columns x 2^20 rows: the two hash entries, then
+convert_to_rows and convert_from_rows) with torch.profiler.  For each it
+prints one JSON line: wall milliseconds (synchronized), summed device
+time of the kernels and copies, the device's busy share of the wall
+time, the kernels that took the most device time and, for the JNI door,
+the host milliseconds of each entry (a record_function range around each
+call).  The profiler's own table goes to DIR/torch_profile_<phase>.txt.  Exits non-zero without a CUDA device or
 when the profiler records no device activity.
 """
 
@@ -38,8 +41,14 @@ def _profile(name, fn, out_dir):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel = collections.Counter()
+    ranges = collections.Counter()
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name.startswith("entry:"):
+            # this script's own ranges: host time only (the profiler also
+            # puts them on the device timeline, where they are no kernels)
+            if e.device_type == DeviceType.CPU:
+                ranges[e.name] += e.time_range.elapsed_us() / 1e3
+        elif e.device_type == DeviceType.CUDA:
             per_kernel[e.name[:90]] += e.time_range.elapsed_us()
     device_us = sum(per_kernel.values())
     if device_us == 0:
@@ -49,13 +58,43 @@ def _profile(name, fn, out_dir):
                                           row_limit=40))
     return {
         "phase": name, "wall_ms": wall_us / 1e3,
+        "entry_host_ms": dict(ranges),
         "device_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us,
         "device_kernels": sum(1 for e in prof.events()
-                              if e.device_type == DeviceType.CUDA),
+                              if e.device_type == DeviceType.CUDA
+                              and not e.name.startswith("entry:")),
         "top": [{"kernel": k, "ms": us / 1e3}
-                for k, us in per_kernel.most_common(8)],
+                for k, us in per_kernel.most_common(12)],
     }
+
+
+def _jni_door(chip_smoke):
+    """The JNI-door step on chip_smoke's string table, each entry in a
+    record_function range; it releases every handle it makes."""
+    from torch.profiler import record_function
+
+    from spark_rapids_tpu_torch.columns import interop
+    from spark_rapids_tpu_torch.shim import jni_api
+
+    table = interop.table_from_host(chip_smoke.string_host_specs(
+        chip_smoke.STRING_ROWS, chip_smoke.STRING_COLS, seed=11), "cuda")
+    handles = [jni_api.REGISTRY.register(c) for c in table.columns]
+    keys = [handles[k] for k in chip_smoke.HASH_KEYS]
+    kinds = [c.dtype.kind for c in table.columns]
+    scales = [c.dtype.scale for c in table.columns]
+
+    def step():
+        with record_function("entry:murmur_hash3_32"):
+            mm = jni_api.murmur_hash3_32(42, keys)
+        with record_function("entry:xx_hash_64"):
+            xx = jni_api.xx_hash_64(42, keys)
+        with record_function("entry:convert_to_rows"):
+            rows = jni_api.convert_to_rows(handles)
+        with record_function("entry:convert_from_rows"):
+            back = jni_api.convert_from_rows(rows, kinds, scales)
+        chip_smoke.release_all(mm, xx, rows, back)
+    return step
 
 
 def main() -> int:
@@ -79,6 +118,7 @@ def main() -> int:
         "flagship_step": lambda: F.flagship_step(*inputs),
         "bench_round_trip": lambda: RC.convert_from_rows(
             RC.convert_to_rows(bench), schema),
+        "jni_door_round_trip": _jni_door(chip_smoke),
     }
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in phases.items():

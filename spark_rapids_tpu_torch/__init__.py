@@ -10,6 +10,7 @@ first use (utils/cuda_build.py).
 
   columns.*  dtypes, Column, Table, host interop
   ops.*      Spark row hashes, JCUDF row conversion and its CUDA kernels
+  shim.*     the JNI door: handle registry and jni_api entry points
   models.*   the flagship columnar step
 
 Entry points run on the device of the tensors they are given; the

@@ -18,9 +18,17 @@ switch and no fallback from the card to the plain version.
     matrix; the plain version `disassemble_rows_plain` extracts (word,
     shift, nbits) fields from the (rows, W) word matrix
     (`build_extract_plan`) and rebuilds them.
+  * variable-width to-rows (`assemble_var_rows`, rows with strings)
+    replaces `paste_strings_pallas` (:281) together with the padded
+    (rows, max_row) matrix and the compaction around it: the kernel
+    writes each row straight to its offset.  Its plain version
+    `assemble_var_rows_plain` is the JAX package's path: the fixed
+    section into a zeroed (rows, max_row) matrix, each string column
+    pasted by `paste_strings_plain` (exactly B3's function), then
+    compacted to the row offsets.
 
-Both kernels are bound by device-memory bytes (see the source for the
-bounds at the bench shape).  `LAUNCHES` counts kernel launches only.
+The kernels are bound by device-memory bytes (see the source for the
+bounds at the main-path shapes).  `LAUNCHES` counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -32,19 +40,25 @@ import torch
 
 from spark_rapids_tpu_torch.columns.dtypes import DType, Kind
 from spark_rapids_tpu_torch.ops.row_conversion import (
-    _col_byte_size, field_word_slots)
+    JCUDF_ROW_ALIGNMENT, _col_byte_size, _round_up, field_word_slots)
 # the plain to-rows version: row_conversion's word-stack assembly
 from spark_rapids_tpu_torch.ops.row_conversion import \
     _assemble_fixed_words as assemble_rows_plain
 from spark_rapids_tpu_torch.utils import cuda_build
 
-LAUNCHES: Dict[str, int] = {"to_rows": 0, "from_rows": 0}
+LAUNCHES: Dict[str, int] = {"to_rows": 0, "from_rows": 0, "to_rows_var": 0}
 
 _SIGNATURES = {
     # (cols, ncols, rows, row_size, validity_offset, log2_tile, out, stream)
     "srt_to_rows": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    # (cols, ncols, str_idx, nstr, rows, fixed_size, validity_offset,
+    #  row_offsets, log2_tile, out, stream)
+    "srt_to_rows_var": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     # (rows_buf, rows, row_size, validity_offset, cols, ncols, valid_out,
     #  log2_tile, stream)
     "srt_from_rows": (ctypes.c_int, [
@@ -106,7 +120,7 @@ def assemble_rows(cols, starts: Sequence[int], validity_offset: int,
     device = cols[0].data.device
     if device.type == "cpu":
         return assemble_rows_plain(cols, starts, validity_offset, row_size)
-    desc_t = to_rows_descriptors(cols, starts)
+    desc_t, _str_idx = to_rows_descriptors(cols, starts)
     rows = cols[0].length
     out = torch.empty((rows * row_size,), dtype=torch.uint8, device=device)
     if rows:
@@ -114,27 +128,41 @@ def assemble_rows(cols, starts: Sequence[int], validity_offset: int,
     return out
 
 
-def to_rows_descriptors(cols, starts: Sequence[int]) -> torch.Tensor:
-    """Check the columns against what the to-rows kernel takes and return
-    its (ncols, 4) int64 descriptors (data ptr, validity ptr or 0, width,
-    start) on their device."""
+def to_rows_descriptors(cols, starts: Sequence[int]):
+    """Check the columns against what the to-rows kernels take and return
+    their descriptors on the columns' device, uploaded together: the
+    (ncols, 5) int64 rows (data or chars ptr, validity ptr or 0, width,
+    start, string offsets ptr or 0) and the (nstr,) int64 indices of the
+    string columns."""
     device = cols[0].data.device
     if device.type != "cuda":
         raise ValueError(f"no to-rows kernel for {device.type} tensors")
     rows = cols[0].length
     descs = []
+    str_idx = []
     for ci, (c, st) in enumerate(zip(cols, starts)):
         width = _col_byte_size(c.dtype)
-        shape = (rows, 4) if c.dtype.kind == Kind.DECIMAL128 else (rows,)
-        _check_cuda(c.data, f"column {ci} data", c.dtype.torch_dtype, shape,
-                    device, min(width, 8))
+        optr = 0
+        if c.dtype.is_string:
+            _check_cuda(c.data, f"column {ci} chars", torch.uint8,
+                        (c.data.shape[0],), device, 1)
+            _check_cuda(c.offsets, f"column {ci} offsets", torch.int32,
+                        (rows + 1,), device, 4)
+            optr = c.offsets.data_ptr()
+            str_idx.append(ci)
+        else:
+            shape = ((rows, 4) if c.dtype.kind == Kind.DECIMAL128
+                     else (rows,))
+            _check_cuda(c.data, f"column {ci} data", c.dtype.torch_dtype,
+                        shape, device, min(width, 8))
         vptr = 0
         if c.validity is not None:
             _check_cuda(c.validity, f"column {ci} validity", torch.uint8,
                         (rows,), device, 1)
             vptr = c.validity.data_ptr()
-        descs.append((c.data.data_ptr(), vptr, width, st))
-    return torch.tensor(descs, dtype=torch.int64).to(device)
+        descs.extend((c.data.data_ptr(), vptr, width, st, optr))
+    packed = torch.tensor(descs + str_idx, dtype=torch.int64).to(device)
+    return packed[:len(descs)].view(-1, 5), packed[len(descs):]
 
 
 def launch_to_rows(desc_t: torch.Tensor, rows: int, row_size: int,
@@ -150,6 +178,101 @@ def launch_to_rows(desc_t: torch.Tensor, rows: int, row_size: int,
     if err:
         raise _launch_error("to-rows", err)
     LAUNCHES["to_rows"] += 1
+
+
+# ------------------------------------------------ variable-width to-rows
+
+
+def paste_strings_plain(mat: torch.Tensor, chars: torch.Tensor,
+                        vstart: torch.Tensor,
+                        lens: torch.Tensor) -> torch.Tensor:
+    """B3's function (`paste_strings_pallas`): each byte p of row r of the
+    (rows, max_row) uint8 matrix becomes chars[r, p - vstart[r]] where
+    0 <= p - vstart[r] < min(lens[r], pad), and keeps mat[r, p]
+    elsewhere.  chars is (rows, pad) uint8; vstart and lens (rows,)."""
+    pad = chars.shape[1]
+    p = torch.arange(mat.shape[1], dtype=torch.int32, device=mat.device)
+    src = p[None, :] - vstart.to(torch.int32)[:, None]
+    in_span = (src >= 0) & (src < lens.to(torch.int32)[:, None]) & (src < pad)
+    gathered = chars.gather(1, src.clamp_(0, pad - 1).to(torch.int64))
+    return torch.where(in_span, gathered, mat)
+
+
+def _compact(mat: torch.Tensor, row_sizes: torch.Tensor) -> torch.Tensor:
+    """(rows, max_row) padded matrix -> flat uint8 of each row's first
+    row_sizes[r] bytes, rows in order."""
+    p = torch.arange(mat.shape[1], device=mat.device)
+    return mat[p[None, :] < row_sizes[:, None]]
+
+
+def assemble_var_rows_plain(cols, starts: Sequence[int],
+                            validity_offset: int, fixed_size: int,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """Plain variable-width to-rows: the fixed section (string fields as
+    (start in row, length) pairs) into a zeroed (rows, max_row) matrix,
+    each string column pasted with paste_strings_plain, then compacted to
+    the (rows+1,) int32 row offsets.  Returns the flat uint8 rows."""
+    rows = cols[0].length
+    device = cols[0].device
+    if not rows:
+        return torch.zeros((0,), dtype=torch.uint8, device=device)
+    str_cols = [c for c in cols if c.dtype.is_string]
+    pairs = []
+    vstart = torch.full((rows,), fixed_size, dtype=torch.int32, device=device)
+    for c in str_cols:
+        lens = c.string_lengths()
+        pairs.append((vstart, lens))
+        vstart = vstart + lens
+    fixed_row = _round_up(fixed_size, JCUDF_ROW_ALIGNMENT)
+    fixed = assemble_rows_plain(cols, starts, validity_offset, fixed_row,
+                                pairs).view(rows, fixed_row)
+    row_sizes = offsets[1:] - offsets[:-1]
+    mat = torch.nn.functional.pad(fixed,
+                                  (0, int(row_sizes.max()) - fixed_row))
+    for c, (vs, lens) in zip(str_cols, pairs):
+        chars, _ = c.to_padded_chars(max(1, c.max_string_length()))
+        mat = paste_strings_plain(mat, chars, vs, lens)
+    return _compact(mat, row_sizes)
+
+
+def assemble_var_rows(cols, starts: Sequence[int], validity_offset: int,
+                      fixed_size: int, offsets: torch.Tensor,
+                      total: int) -> torch.Tensor:
+    """Flat (total,) uint8 JCUDF rows of a table with strings, at the
+    (rows+1,) int32 row offsets that row_conversion.var_row_offsets
+    gives (total = offsets[-1])."""
+    device = cols[0].data.device
+    if device.type == "cpu":
+        return assemble_var_rows_plain(cols, starts, validity_offset,
+                                       fixed_size, offsets)
+    desc_t, str_idx = to_rows_descriptors(cols, starts)
+    rows = cols[0].length
+    _check_cuda(offsets, "row offsets", torch.int32, (rows + 1,), device, 4)
+    out = torch.empty((total,), dtype=torch.uint8, device=device)
+    if rows:
+        launch_to_rows_var(desc_t, str_idx, rows, fixed_size,
+                           validity_offset, offsets, out)
+    return out
+
+
+def launch_to_rows_var(desc_t: torch.Tensor, str_idx: torch.Tensor,
+                       rows: int, fixed_size: int, validity_offset: int,
+                       offsets: torch.Tensor, out: torch.Tensor) -> None:
+    """The variable-width to-rows kernel launch alone, on
+    `to_rows_descriptors`' output, checked row offsets and a uint8
+    buffer of offsets[-1] bytes on the same device."""
+    lib = _lib()
+    # a tile row is the fixed section plus the row's int32 payload end
+    tile_row = _round_up(fixed_size, JCUDF_ROW_ALIGNMENT) + 4
+    with torch.cuda.device(out.device):
+        err = lib.srt_to_rows_var(
+            desc_t.data_ptr(), desc_t.shape[0], str_idx.data_ptr(),
+            str_idx.shape[0], rows, fixed_size, validity_offset,
+            offsets.data_ptr(), tile_log2(tile_row), out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if err:
+        raise _launch_error("variable-width to-rows", err)
+    LAUNCHES["to_rows_var"] += 1
 
 
 # ----------------------------------------------------------- from-rows

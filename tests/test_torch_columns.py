@@ -24,6 +24,7 @@ def test_import_loads_no_jax():
             "import spark_rapids_tpu_torch.models.flagship\n"
             "import spark_rapids_tpu_torch.ops.row_assembly_cuda\n"
             "import spark_rapids_tpu_torch.columns.interop\n"
+            "import spark_rapids_tpu_torch.shim.jni_api\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'spark_rapids_tpu.')) or "
             "m == 'spark_rapids_tpu')\n"
@@ -90,7 +91,7 @@ def test_interop_matches_reference_host_view():
     (("int32", np.zeros(3, np.int64), None), ValueError),
     (("decimal128", np.zeros((3, 2), np.int32), None), ValueError),
     (("int8", np.zeros(3, np.int8), np.ones(4, np.uint8)), ValueError),
-    (("string", np.zeros(3, np.uint8), None), NotImplementedError),
+    (("string", np.zeros(3, np.uint8), None), ValueError),   # no offsets
 ])
 def test_interop_rejects_mismatched_host_data(spec, err):
     with pytest.raises(err):

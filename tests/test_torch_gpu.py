@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel byte for byte against its
-plain version (with chip_smoke.py's tables and comparison), launch counts,
-and the flagship step against the CPU.
+plain version (with chip_smoke.py's tables and comparisons), launch
+counts, the wrappers' input checks, and the flagship step and the
+JNI-door entries against the CPU.
 
 Marked `gpu`; each test skips without a CUDA device (decided in the
 `cuda` fixture, never at import).  The file imports no JAX, so on a GPU
@@ -12,12 +13,14 @@ host without JAX it runs alone:
 import pytest
 import torch
 
-from chip_smoke import KERNEL_CASES, compare_kernels, make_table
-from spark_rapids_tpu_torch.columns import dtypes
+from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, compare_kernels,
+                        compare_var_kernel, make_table, string_host_specs)
+from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.models import flagship as F
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
+from spark_rapids_tpu_torch.shim import jni_api
 
 
 @pytest.fixture
@@ -36,7 +39,7 @@ def test_kernels_match_plain_versions(cuda, rows, ncols, nullable_every,
                    nullable_every=nullable_every, dec128_every=dec128_every)
     RA.reset_launches()
     assert compare_kernels(t) == (0, 0)
-    assert RA.LAUNCHES == {"to_rows": 1, "from_rows": 1}
+    assert RA.LAUNCHES == {"to_rows": 1, "from_rows": 1, "to_rows_var": 0}
 
 
 @pytest.mark.gpu
@@ -58,3 +61,65 @@ def test_kernel_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         RA.disassemble_rows(torch.zeros(20, dtype=torch.uint8, device=cuda),
                             [dtypes.INT64], [0], 8, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "rows,ncols,first,nullable_every,dec128_every,skew",
+    VAR_KERNEL_CASES + [(0, 12, 0, 3, 0, 0), (513, 4, 6, 2, 3, 9)])
+def test_var_kernel_matches_plain_version(cuda, rows, ncols, first,
+                                          nullable_every, dec128_every,
+                                          skew):
+    t = interop.table_from_host(string_host_specs(
+        rows, ncols, seed=rows + ncols, first=first,
+        nullable_every=nullable_every, dec128_every=dec128_every,
+        skew=skew), device=cuda)
+    RA.reset_launches()
+    assert compare_var_kernel(t) == 0
+    assert RA.LAUNCHES["to_rows_var"] == (1 if rows else 0)
+
+
+@pytest.mark.gpu
+def test_jni_door_on_card_matches_cpu(cuda):
+    specs = string_host_specs(999, 23, seed=5, dec128_every=7, skew=2)
+    kinds = [s[0] for s in specs]
+    scales = [0] * len(specs)
+    out = {}
+    for dev in (cuda, "cpu"):
+        hs = [jni_api.REGISTRY.register(c) for c in
+              interop.table_from_host(specs, device=dev).columns]
+        mm = jni_api.murmur_hash3_32(42, hs[:7])
+        xx = jni_api.xx_hash_64(42, hs[:7])
+        rows = jni_api.convert_to_rows(hs)
+        back = jni_api.convert_from_rows(rows, kinds, scales)
+        out[str(dev)] = [jni_api.column_to_host(h)
+                         for h in [mm, xx, rows] + back]
+        for h in hs + [mm, xx, rows] + back:
+            jni_api.release_column(h)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_var_wrapper_checks_its_inputs(cuda):
+    t = interop.table_from_host(string_host_specs(16, 7, seed=3), cuda)
+    cols = t.columns
+    starts, voff, fixed = RC.compute_layout([c.dtype for c in cols])
+    offsets, total = RC.var_row_offsets(cols, fixed)
+    s = cols[6]
+    bad_cols = [
+        Column(dtypes.STRING, 16, data=s.data,
+               offsets=s.offsets.to(torch.int64)),        # offsets type
+        Column(dtypes.STRING, 16, data=s.data,
+               offsets=s.offsets[:-1]),                    # offsets shape
+        Column(dtypes.STRING, 16, data=s.data.view(torch.int8),
+               offsets=s.offsets),                         # chars type
+        Column(dtypes.STRING, 16, data=s.data.cpu(),
+               offsets=s.offsets),                         # chars device
+    ]
+    for bad in bad_cols:
+        with pytest.raises(ValueError):
+            RA.assemble_var_rows(cols[:6] + [bad], starts, voff, fixed,
+                                 offsets, total)
+    with pytest.raises(ValueError):
+        RA.assemble_var_rows(cols, starts, voff, fixed,
+                             offsets.to(torch.int64), total)

@@ -76,8 +76,7 @@ def test_spark_goldens():
         -1670924195, 1114849490, 904948192, 657182333, -57193045]
 
 
-@pytest.mark.parametrize("kind", ["string", "decimal128", "list",
-                                  "struct"])
+@pytest.mark.parametrize("kind", ["list", "struct"])
 def test_unported_kinds_raise(kind):
     col = Column(dtypes.DType(kind), 2,
                  data=torch.zeros((2, 4), dtype=torch.int32))

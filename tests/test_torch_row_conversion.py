@@ -81,13 +81,16 @@ def test_zero_rows():
 
 
 def test_unported_schemas_raise():
-    s = Column(dtypes.STRING, 1, data=torch.zeros(1, dtype=torch.uint8),
-               offsets=torch.tensor([0, 1], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RC.convert_to_rows(Table([s]))
+    child = Column(dtypes.INT32, 1, data=torch.zeros(1, dtype=torch.int32))
+    for nested in (Column(dtypes.LIST, 1, children=(child,),
+                          offsets=torch.tensor([0, 1], dtype=torch.int32)),
+                   Column(dtypes.STRUCT, 1, children=(child,))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RC.convert_to_rows(Table([nested]))
     rows = interop.rows_from_host(np.array([0, 8], np.int32), bytes(8), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RC.convert_from_rows(rows, [dtypes.STRING])
+    for kind in (dtypes.LIST, dtypes.STRUCT):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RC.convert_from_rows(rows, [kind])
 
 
 def test_from_rows_needs_uniform_rows():

@@ -2,7 +2,8 @@
 
 A table is a list of `(kind, data, validity)` triples laid out as the JAX
 package's Column holds them on the host (FLOAT64 as uint64 raw bits,
-DECIMAL128 as (rows, 4) int32 limbs).  The same triples build the JAX
+DECIMAL128 as (rows, 4) int32 limbs), and `("string", chars, validity,
+offsets)` 4-tuples for STRING columns.  The same tuples build the JAX
 table and, through spark_rapids_tpu_torch.columns.interop, the port's.
 """
 
@@ -41,9 +42,28 @@ F32_SPECIAL = np.array([0x7FC00000, 0x7F800001, 0xFFFFFFFF, 0x80000000,
                         0x00000000, 0x7F800000, 0xFF800000], np.uint32)
 
 
+def host_strings(rng, rows, max_len=32, nullable=False, skew=0, lens=None):
+    """A STRING host column of random bytes, lengths uniform in
+    [0, max_len] (or `lens`).  A null row keeps its bytes and length, and
+    the offsets start at `skew` (a sliced column)."""
+    if lens is None:
+        lens = rng.integers(0, max_len + 1, rows)
+    lens = np.asarray(lens, np.int64)
+    offs = np.zeros(rows + 1, np.int64)
+    offs[1:] = np.cumsum(lens)
+    offs += skew
+    chars = rng.integers(0, 256, int(offs[-1]) + skew).astype(np.uint8)
+    validity = None
+    if nullable:
+        validity = (rng.random(rows) >= 0.3).astype(np.uint8)
+    return "string", chars, validity, offs.astype(np.int32)
+
+
 def host_column(rng, kind, rows, nullable=False, specials=True):
     """One seeded host column; `specials` plants NaN payloads, +-0.0,
     infinities and integer extremes at random rows."""
+    if kind == "string":
+        return host_strings(rng, rows, nullable=nullable)
     if kind == "decimal128":
         data = rng.integers(-2**31, 2**31, (rows, 4)).astype(np.int32)
     elif kind == "float64":
@@ -95,8 +115,13 @@ def jax_table(specs):
     from spark_rapids_tpu.columns.table import Table
 
     cols = []
-    for kind, data, validity in specs:
+    for kind, data, validity, *offsets in specs:
         v = None if validity is None else jnp.asarray(validity)
+        if offsets:
+            cols.append(Column(DType(kind), offsets[0].shape[0] - 1,
+                               data=jnp.asarray(data), validity=v,
+                               offsets=jnp.asarray(offsets[0])))
+            continue
         cols.append(Column(DType(kind), data.shape[0],
                            data=jnp.asarray(data), validity=v))
     return Table(cols)
