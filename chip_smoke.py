@@ -11,8 +11,14 @@
    column nullable) and the main paths' own inputs (the flagship table and
    the bench table below); variable-width to-rows at (7, 3 with one
    string), (1000, 20 with DECIMAL128, nulls, null strings that keep
-   their bytes and string offsets that start past 0), (2^16, 155) and the
-   JNI-door table below.
+   their bytes and string offsets that start past 0), (2^16, 155),
+   (40, 150 with strings of up to 70000 bytes: every tile too long for
+   the kernel's shared row buffer), (3000, 20) and (2000, 10) with strings
+   of up to 2000 and 20000 bytes (some tiles too long), (4099, 31) (a row
+   count that no timed tile size divides), (300, 17) whose strings are
+   all empty, and the JNI-door table below.  Both of the kernel's paths
+   (tiles staged in shared memory, and tiles written straight to device
+   memory) must have been taken.
 4. Runs each main path once, with the launch counts set to 0 just before
    it and read just after it:
    - the flagship step (hashes, to-rows, bucketed sums) on 2^22 rows,
@@ -32,7 +38,9 @@
    Each path must have launched every kernel it runs.
 5. Times each kernel with CUDA events after warm-up at its main path's
    shape, beside its plain version and its device-memory bound, and each
-   main path's step (median wall time, synchronized).
+   main path's step (median wall time, synchronized).  The variable-width
+   kernel also at 16, 32, 64 and 128 rows a tile, and on the 70000-byte
+   strings case, where every tile takes its direct path.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -75,9 +83,15 @@ STRING_COLS = 155
 STRING_MAX_LEN = 32
 HASH_KEYS = (1, 3, 6)   # INT32, INT64, STRING
 # (rows, columns, first cycle entry, every n-th column nullable, every
-# n-th column DECIMAL128, string offsets' start)
-VAR_KERNEL_CASES = [(7, 3, 5, 0, 0, 0), (1000, 20, 0, 3, 11, 5),
-                    (1 << 16, 155, 0, 3, 0, 0)]
+# n-th column DECIMAL128, string offsets' start, longest string)
+LONG_STRINGS_CASE = (40, 150, 6, 3, 0, 0, 70000)
+VAR_KERNEL_CASES = [(7, 3, 5, 0, 0, 0, 32), (1000, 20, 0, 3, 11, 5, 32),
+                    (1 << 16, 155, 0, 3, 0, 0, 32), LONG_STRINGS_CASE,
+                    (3000, 20, 0, 3, 0, 0, 2000),
+                    (2000, 10, 6, 3, 0, 3, 20000),
+                    (4099, 31, 3, 3, 0, 7, 32), (300, 17, 0, 3, 0, 0, 0)]
+# rows per tile at which the variable-width kernel is timed (log2)
+VAR_TIMED_TILES = (4, 5, 6, 7)
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
@@ -123,11 +137,11 @@ def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0):
 
 
 def string_host_specs(rows, ncols, seed, first=0, nullable_every=3,
-                      dec128_every=0, skew=0):
+                      dec128_every=0, skew=0, max_len=STRING_MAX_LEN):
     """Seeded host columns of STRING_CYCLE (from entry `first` on), drawn
-    with numpy: integers over their whole range, strings of 0-32 random
-    bytes whose offsets start at `skew`, and about 10% nulls in every
-    n-th column.  A null string keeps its bytes and length."""
+    with numpy: integers over their whole range, strings of 0 to max_len
+    random bytes whose offsets start at `skew`, and about 10% nulls in
+    every n-th column.  A null string keeps its bytes and length."""
     rng = np.random.default_rng(seed)
     specs = []
     for i in range(ncols):
@@ -139,7 +153,7 @@ def string_host_specs(rows, ncols, seed, first=0, nullable_every=3,
             valid = (rng.random(rows) >= 0.1).astype(np.uint8)
         if kind == "string":
             offs = np.zeros(rows + 1, np.int64)
-            np.cumsum(rng.integers(0, STRING_MAX_LEN + 1, rows),
+            np.cumsum(rng.integers(0, max_len + 1, rows),
                       out=offs[1:])
             offs += skew
             chars = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
@@ -195,6 +209,15 @@ def compare_kernels(table):
     return err_to, err_from
 
 
+def var_case_table(case, device):
+    """The table of one VAR_KERNEL_CASES entry."""
+    rows, ncols, first, nullable, dec, skew, max_len = case
+    return interop.table_from_host(string_host_specs(
+        rows, ncols, seed=rows + ncols, first=first,
+        nullable_every=nullable, dec128_every=dec, skew=skew,
+        max_len=max_len), device)
+
+
 def compare_var_kernel(table):
     """Variable-width to-rows kernel vs its plain version on the card;
     returns the largest byte error."""
@@ -205,6 +228,19 @@ def compare_var_kernel(table):
     plain = RA.assemble_var_rows_plain(cols, starts, voff, fixed, offsets)
     torch.cuda.synchronize()
     return byte_err(kern, plain)
+
+
+def var_tiles(table):
+    """(tiles, tiles the variable-width kernel writes by its direct path,
+    rows per tile) for the table at the wrapper's tile."""
+    cols = table.columns
+    _starts, _voff, fixed = RC.compute_layout([c.dtype for c in cols])
+    offsets, total = RC.var_row_offsets(cols, fixed)
+    nstr = sum(c.dtype.is_string for c in cols)
+    log2_tile, buf = RA.var_tile(fixed, table.num_rows, total, len(cols),
+                                 nstr)
+    tiles = -(-table.num_rows >> log2_tile)
+    return tiles, RA.var_direct_tiles(offsets, log2_tile, buf), 1 << log2_tile
 
 
 def read_launches(path):
@@ -391,19 +427,26 @@ def time_kernels(table, rows_col):
     }
 
 
-def time_var_kernel(table):
-    """The variable-width to-rows kernel at the JNI-door shape.  Its bytes
-    are what this table's rows need: the fixed-width columns, validity,
-    string offsets and the chars they span read once, the row offsets
-    read once, the rows written once."""
+def time_var_kernel(table, log2_tiles=()):
+    """The variable-width to-rows kernel on `table`, at the wrapper's tile
+    and at each of `log2_tiles`.  Its bytes are what this table's rows
+    need: the fixed-width columns, validity, string offsets and the chars
+    they span read once, the row offsets read once, the rows written
+    once."""
     cols = table.columns
     rows = table.num_rows
     starts, voff, fixed = RC.compute_layout([c.dtype for c in cols])
     offsets, total = RC.var_row_offsets(cols, fixed)
     desc, str_idx = RA.to_rows_descriptors(cols, starts)
     out = torch.empty((total,), dtype=torch.uint8, device=offsets.device)
-    ms = event_ms(lambda: RA.launch_to_rows_var(
-        desc, str_idx, rows, fixed, voff, offsets, out), TIMED_ITERS)
+
+    def launch(log2_tile=None):
+        RA.launch_to_rows_var(desc, str_idx, rows, fixed, voff, offsets,
+                              out, log2_tile)
+
+    ms = event_ms(launch, TIMED_ITERS)
+    tile_ms = {str(1 << lg): event_ms(lambda: launch(lg), TIMED_ITERS)
+               for lg in log2_tiles}
     call = event_ms(lambda: RA.assemble_var_rows(
         cols, starts, voff, fixed, offsets, total), TIMED_ITERS)
     plain = event_ms(lambda: RA.assemble_var_rows_plain(
@@ -416,7 +459,8 @@ def time_var_kernel(table):
             read += nbytes(c.offsets) + int(c.offsets[-1] - c.offsets[0])
         else:
             read += nbytes(c.data)
-    return dict(ms=ms, call_ms=call, plain_ms=plain, bytes=read + total)
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bytes=read + total,
+                tile_ms=tile_ms)
 
 
 def main() -> int:
@@ -466,15 +510,24 @@ def main() -> int:
         [string_specs[k] for k in HASH_KEYS], device="cpu").columns
     del string_specs
     errs["to_rows_var"] = 0
-    for rows, ncols, first, nullable, dec, skew in VAR_KERNEL_CASES:
-        table = interop.table_from_host(string_host_specs(
-            rows, ncols, seed=rows + ncols, first=first,
-            nullable_every=nullable, dec128_every=dec, skew=skew), "cuda")
+    paths = {"staged": 0, "direct": 0}
+    for case in VAR_KERNEL_CASES:
+        table = var_case_table(case, "cuda")
         err = compare_var_kernel(table)
-        print(f"kernel vs plain: rows={rows} cols={ncols} with strings "
-              f"to_rows_var max_abs_err={err}", flush=True)
+        tiles, direct, tile_rows = var_tiles(table)
+        print(f"kernel vs plain: rows={case[0]} cols={case[1]} with strings "
+              f"of up to {case[6]} bytes, {tiles} tiles of {tile_rows} "
+              f"rows, {direct} direct: to_rows_var max_abs_err={err}",
+              flush=True)
         check(err == 0, "variable-width kernel byte-equal to plain")
         errs["to_rows_var"] = max(errs["to_rows_var"], err)
+        paths["staged"] += tiles - direct
+        paths["direct"] += direct
+        if case == LONG_STRINGS_CASE:
+            check(direct == tiles, "every long-strings tile went direct")
+            long_table = table
+    check(min(paths.values()) > 0,
+          f"both variable-width kernel paths taken: {paths}")
 
     by_path = {}
     by_path["flagship_step"], flagship_ms, flagship_steady = run_flagship()
@@ -488,7 +541,13 @@ def main() -> int:
 
     times = time_kernels(bench, rows_col)
     del rows_col, bench
-    times["to_rows_var"] = time_var_kernel(string_table)
+    times["to_rows_var"] = time_var_kernel(string_table, VAR_TIMED_TILES)
+    direct = time_var_kernel(long_table)
+    direct_path = {"shape": "x".join(map(str, LONG_STRINGS_CASE[:2])),
+                   "max_len": LONG_STRINGS_CASE[6], "ms": direct["ms"],
+                   "bound_ms": direct["bytes"] / HBM_BYTES_PER_S * 1e3,
+                   "plain_ms": direct["plain_ms"], "bytes": direct["bytes"]}
+    del long_table
     replaces = {
         "to_rows": "spark_rapids_tpu/ops/row_assembly_pallas.py:47",
         "from_rows": "spark_rapids_tpu/ops/row_assembly_pallas.py:136",
@@ -513,6 +572,9 @@ def main() -> int:
             "gb_per_s": t["bytes"] / t["ms"] / 1e6,
             "shape": shapes[name],
         })
+        if name == "to_rows_var":
+            kernels[-1].update(tile_rows=var_tiles(string_table)[2],
+                               tile_ms=t["tile_ms"], direct_path=direct_path)
     print(json.dumps({"main_path": {
         "flagship_rows": FLAGSHIP_ROWS,
         "flagship_first_call_ms": flagship_ms,

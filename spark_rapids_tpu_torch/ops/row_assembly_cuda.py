@@ -21,7 +21,10 @@ switch and no fallback from the card to the plain version.
   * variable-width to-rows (`assemble_var_rows`, rows with strings)
     replaces `paste_strings_pallas` (:281) together with the padded
     (rows, max_row) matrix and the compaction around it: the kernel
-    writes each row straight to its offset.  Its plain version
+    builds each tile of rows in shared memory and writes it as one
+    contiguous range, or, for a tile that outgrows its buffer
+    (`var_tile`, `var_direct_tiles`), writes its rows straight to their
+    offsets.  Its plain version
     `assemble_var_rows_plain` is the JAX package's path: the fixed
     section into a zeroed (rows, max_row) matrix, each string column
     pasted by `paste_strings_plain` (exactly B3's function), then
@@ -54,11 +57,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     # (cols, ncols, str_idx, nstr, rows, fixed_size, validity_offset,
-    #  row_offsets, log2_tile, out, stream)
+    #  row_offsets, log2_tile, buf_bytes, out, stream)
     "srt_to_rows_var": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     # (rows_buf, rows, row_size, validity_offset, cols, ncols, valid_out,
     #  log2_tile, stream)
     "srt_from_rows": (ctypes.c_int, [
@@ -70,6 +73,15 @@ _SIGNATURES = {
 _TILE_BYTES = 48 * 1024          # shared memory a tile aims for
 _MAX_TILE_BYTES = 227 * 1024     # shared memory one block can have
 _MAX_TILE_ROWS = 256
+# the variable-width kernel: row bytes a tile aims for (32 rows of the
+# JNI-door table's 1132-byte rows, the fastest of 16 to 128 on the H100,
+# PERF.md), and the least room its row buffer leaves above the tile's mean
+# rows
+_VAR_TILE_BYTES = 48 * 1024
+_VAR_SLACK = 1 / 16
+_SM_SHARED_BYTES = 228 * 1024    # shared memory of one SM
+_BLOCK_RESERVED = 1024           # of it, kept by the card for each block
+_MAX_BLOCKS_PER_SM = 8           # of 256 threads (2048 threads an SM)
 
 
 def reset_launches() -> None:
@@ -88,6 +100,62 @@ def tile_log2(row_size: int) -> int:
     while (2 << lg) <= _MAX_TILE_ROWS and (2 << lg) * row_size <= _TILE_BYTES:
         lg += 1
     return lg
+
+
+def var_smem_bytes(buf_bytes: int, ncols: int, nstr: int,
+                   tile_rows: int) -> int:
+    """Shared memory of one variable-width block: the row buffer, the
+    (ncols, 5) int64 descriptors and the int32 arrays of the tile
+    (csrc/row_assembly.cu, var_smem_layout)."""
+    return (buf_bytes + 40 * ncols
+            + 4 * ((nstr + 1) * (2 * tile_rows + 1) + 2 * nstr + 1))
+
+
+def var_tile(fixed_size: int, rows: int, total: int, ncols: int, nstr: int,
+             log2_tile=None) -> Tuple[int, int]:
+    """(log2 of the rows per block, bytes of the row buffer) of the
+    variable-width kernel for `rows` rows of `total` bytes in all.  The
+    tile holds the most rows (a power of two, at most 256) whose mean size
+    fits in _VAR_TILE_BYTES, at least one, unless `log2_tile` is given.
+    The buffer holds at least that many mean rows plus 1/16 and 16 bytes,
+    and the tile's fixed sections; it then grows to the share of an SM's
+    shared memory that leaves as many blocks on an SM, within one block's
+    limit.  A tile whose rows exceed it takes the kernel's direct path."""
+    fixed_row = _round_up(fixed_size, JCUDF_ROW_ALIGNMENT)
+    mean = max(total / max(rows, 1), fixed_row)
+    if log2_tile is None:
+        log2_tile = 0
+        while ((2 << log2_tile) <= _MAX_TILE_ROWS
+               and (2 << log2_tile) * mean <= _VAR_TILE_BYTES):
+            log2_tile += 1
+    tile_rows = 1 << log2_tile
+    extra = var_smem_bytes(0, ncols, nstr, tile_rows)
+    least = _round_up(tile_rows * fixed_row, 16)
+    room = (_MAX_TILE_BYTES - extra) // 16 * 16
+    if least > room:
+        raise ValueError(
+            f"{tile_rows} JCUDF fixed sections of {fixed_row} bytes and "
+            f"{ncols} column descriptors exceed one block's shared memory "
+            f"({_MAX_TILE_BYTES} bytes)")
+    want = max(_round_up(int(tile_rows * mean * (1 + _VAR_SLACK)) + 16, 16),
+               least)
+    blocks = max(1, min(_MAX_BLOCKS_PER_SM, _SM_SHARED_BYTES
+                        // (want + extra + _BLOCK_RESERVED)))
+    share = (_SM_SHARED_BYTES // blocks - _BLOCK_RESERVED - extra) // 16 * 16
+    return log2_tile, min(max(want, share), room)
+
+
+def var_direct_tiles(offsets: torch.Tensor, log2_tile: int,
+                     buf_bytes: int) -> int:
+    """How many tiles the variable-width kernel writes by its direct path:
+    those whose rows span more than buf_bytes - 8 bytes (the kernel's own
+    test on the (rows+1,) row offsets)."""
+    o = offsets.to(torch.int64)
+    rows = o.shape[0] - 1
+    t = 1 << log2_tile
+    first = torch.arange(0, rows, t, device=o.device)
+    span = o[torch.clamp(first + t, max=rows)] - o[first]
+    return int((span + 8 > buf_bytes).sum())
 
 
 def _lib() -> ctypes.CDLL:
@@ -257,18 +325,21 @@ def assemble_var_rows(cols, starts: Sequence[int], validity_offset: int,
 
 def launch_to_rows_var(desc_t: torch.Tensor, str_idx: torch.Tensor,
                        rows: int, fixed_size: int, validity_offset: int,
-                       offsets: torch.Tensor, out: torch.Tensor) -> None:
+                       offsets: torch.Tensor, out: torch.Tensor,
+                       log2_tile=None) -> None:
     """The variable-width to-rows kernel launch alone, on
     `to_rows_descriptors`' output, checked row offsets and a uint8
-    buffer of offsets[-1] bytes on the same device."""
+    buffer of offsets[-1] bytes on the same device.  The tile is
+    `var_tile`'s (`log2_tile` sets its rows)."""
     lib = _lib()
-    # a tile row is the fixed section plus the row's int32 payload end
-    tile_row = _round_up(fixed_size, JCUDF_ROW_ALIGNMENT) + 4
+    log2_tile, buf_bytes = var_tile(fixed_size, rows, out.shape[0],
+                                    desc_t.shape[0], str_idx.shape[0],
+                                    log2_tile)
     with torch.cuda.device(out.device):
         err = lib.srt_to_rows_var(
             desc_t.data_ptr(), desc_t.shape[0], str_idx.data_ptr(),
             str_idx.shape[0], rows, fixed_size, validity_offset,
-            offsets.data_ptr(), tile_log2(tile_row), out.data_ptr(),
+            offsets.data_ptr(), log2_tile, buf_bytes, out.data_ptr(),
             torch.cuda.current_stream(out.device).cuda_stream)
     if err:
         raise _launch_error("variable-width to-rows", err)

@@ -65,15 +65,15 @@ def test_kernel_wrappers_check_their_inputs(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "rows,ncols,first,nullable_every,dec128_every,skew",
-    VAR_KERNEL_CASES + [(0, 12, 0, 3, 0, 0), (513, 4, 6, 2, 3, 9)])
+    "rows,ncols,first,nullable_every,dec128_every,skew,max_len",
+    VAR_KERNEL_CASES + [(0, 12, 0, 3, 0, 0, 32), (513, 4, 6, 2, 3, 9, 32)])
 def test_var_kernel_matches_plain_version(cuda, rows, ncols, first,
                                           nullable_every, dec128_every,
-                                          skew):
+                                          skew, max_len):
     t = interop.table_from_host(string_host_specs(
         rows, ncols, seed=rows + ncols, first=first,
         nullable_every=nullable_every, dec128_every=dec128_every,
-        skew=skew), device=cuda)
+        skew=skew, max_len=max_len), device=cuda)
     RA.reset_launches()
     assert compare_var_kernel(t) == 0
     assert RA.LAUNCHES["to_rows_var"] == (1 if rows else 0)

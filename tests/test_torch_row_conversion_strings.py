@@ -44,12 +44,18 @@ def _var_specs(case):
                 ("int8", rng.integers(-9, 9, 40).astype(np.int8), None)]
     if case == "strings_only":
         return [host_strings(rng, 25, max_len=70, nullable=True, skew=1)]
+    if case == "long_strings":
+        # strings of a few KB, as in the rows the kernel writes straight
+        # to device memory when a tile outgrows its shared buffer
+        return [host_strings(rng, 12, max_len=6000, nullable=True, skew=3),
+                host_column(rng, "int32", 12, nullable=True),
+                host_strings(rng, 12, max_len=3000)]
     return host_table(rng, 300, [STRING_CYCLE[i % 10] for i in range(155)],
                       null_every=3)
 
 
 VAR_CASES = ["ragged", "zero_rows", "all_empty", "null_span_skew",
-             "strings_only", "cycle_155"]
+             "strings_only", "long_strings", "cycle_155"]
 
 
 def _port_rows(specs):
@@ -171,3 +177,57 @@ def test_var_wrapper_refuses_devices_without_a_kernel():
         RA.assemble_var_rows([s], [0], 8, 9,
                              torch.empty(3, dtype=torch.int32,
                                          device="meta"), 32)
+
+
+@pytest.mark.parametrize("fixed,rows,mean,ncols,nstr,log2_tile", [
+    (888, 1 << 20, 1132, 155, 15, None),   # the JNI-door table
+    (888, 1 << 20, 1132, 155, 15, 5),      # its timed tile sizes
+    (888, 1 << 20, 1132, 155, 15, 7),
+    (9, 7, 24, 3, 1, None),                # short rows: 256 a tile
+    (25, 40, 37000, 4, 1, None),           # long strings: one row a tile
+    (856, 40, 538981, 150, 15, None),      # rows past shared memory
+    (2000, 64, 2100, 700, 20, None),       # many descriptors
+])
+def test_var_tile_fits_shared_memory(fixed, rows, mean, ncols, nstr,
+                                     log2_tile):
+    """The variable-width kernel's tile: rows from the mean row, a buffer
+    of at least the tile's mean rows (when shared memory allows) and its
+    fixed sections, all within one block's shared memory."""
+    lg, buf = RA.var_tile(fixed, rows, rows * mean, ncols, nstr, log2_tile)
+    t = 1 << lg
+    if log2_tile is None:
+        assert t == 1 or t * mean <= RA._VAR_TILE_BYTES
+        assert t == 256 or 2 * t * mean > RA._VAR_TILE_BYTES
+    else:
+        assert lg == log2_tile
+    smem = RA.var_smem_bytes(buf, ncols, nstr, t)
+    assert buf % 16 == 0 and smem <= 227 * 1024
+    assert buf >= t * ((fixed + 7) // 8 * 8)
+    want = t * mean * (1 + RA._VAR_SLACK) + 16
+    assert buf >= want or smem > 227 * 1024 - 16
+
+
+def test_var_tile_keeps_four_blocks_an_sm_at_the_jni_door_shape():
+    lg, buf = RA.var_tile(888, 1 << 20, 1132 << 20, 155, 15)
+    assert lg == 5
+    assert buf >= 32 * 1132 * (1 + RA._VAR_SLACK)
+    assert 4 * (RA.var_smem_bytes(buf, 155, 15, 32) + 1024) <= 228 * 1024
+    assert 5 * (RA.var_smem_bytes(buf, 155, 15, 32) + 1024) > 228 * 1024
+
+
+def test_var_tile_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        RA.var_tile(16, 10, 160, 6000, 1)
+
+
+def test_var_direct_tiles_counts_tiles_past_the_buffer():
+    rng = np.random.default_rng(9)
+    sizes = rng.integers(1, 40, 203) * 8
+    sizes[[5, 77, 200]] = 4000
+    offsets = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32))
+    for lg, buf in ((0, 1024), (3, 2048), (5, 8192), (8, 1 << 20)):
+        t = 1 << lg
+        spans = [int(sizes[i:i + t].sum()) for i in range(0, 203, t)]
+        want = sum(s + 8 > buf for s in spans)
+        assert RA.var_direct_tiles(offsets, lg, buf) == want
