@@ -8,8 +8,11 @@
 3. Holds each kernel byte for byte against its plain PyTorch version on
    the card.  Fixed-width to-rows and from-rows at (7 rows, 3 columns),
    (1000, 20 with DECIMAL128 and nulls), (2^16, 212 with every third
-   column nullable) and the main paths' own inputs (the flagship table and
-   the bench table below); variable-width to-rows at (7, 3 with one
+   column nullable), (2^16 + 7, 212: a ragged last tile), (64, 3000:
+   rows too wide to stage), (1, 212), (4099, 212 with every column a
+   view one element into its buffer: bases off 16-byte alignment) and
+   the main paths' own inputs (the flagship table and the bench table
+   below); variable-width to-rows at (7, 3 with one
    string), (1000, 20 with DECIMAL128, nulls, null strings that keep
    their bytes and string offsets that start past 0), (2^16, 155),
    (40, 150 with strings of up to 70000 bytes: every tile too long for
@@ -38,15 +41,21 @@
    Each path must have launched every kernel it runs.
 5. Times each kernel with CUDA events after warm-up at its main path's
    shape, beside its plain version and its device-memory bound, and each
-   main path's step (median wall time, synchronized).  The variable-width
-   kernel also at 16, 32, 64 and 128 rows a tile, and on the 70000-byte
-   strings case, where every tile takes its direct path.
+   main path's step (median wall time, synchronized).  The fixed-width
+   to-rows kernel at three shapes (bench, flagship, and bench with every
+   third column nullable), each beside a device-to-device copy of as
+   many bytes (`copy_ms`), and at the TO_ROWS_TIMED tiles and ring
+   buffers (each checked byte-equal first; printed on a
+   `to_rows_variant_ms` line).  The variable-width kernel also at 16,
+   32, 64 and 128 rows a tile, and on the 70000-byte strings case, where
+   every tile takes its direct path.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
 result line is printed; so does a machine without a CUDA device.
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -72,8 +81,19 @@ FLAGSHIP_ROWS = 1 << 22
 TIMED_ITERS = 20
 PLAIN_ITERS = 3
 STEP_ITERS = 5
-# (rows, columns, every n-th column nullable, every n-th column DECIMAL128)
-KERNEL_CASES = [(7, 3, 0, 0), (1000, 20, 3, 11), (1 << 16, 212, 3, 0)]
+# (rows, columns, every n-th column nullable, every n-th column DECIMAL128,
+# columns as views one element into their buffers): the fixed-width
+# kernels' edges too, a ragged last tile, rows too wide to stage, one row,
+# and column bases that are width-aligned but not 16-byte aligned
+KERNEL_CASES = [(7, 3, 0, 0, 0), (1000, 20, 3, 11, 0),
+                (1 << 16, 212, 3, 0, 0), ((1 << 16) + 7, 212, 3, 0, 0),
+                (64, 3000, 0, 0, 0), (1, 212, 3, 11, 0),
+                (4099, 212, 3, 11, 1)]
+# (rows per tile (log2), ring buffers) at which the fixed-width to-rows
+# kernel is timed beside the wrapper's choice, at the bench and flagship
+# shapes
+TO_ROWS_TIMED = {"bench": ((4, 2), (5, 1), (5, 2), (6, 1)),
+                 "flagship": ((8, 2), (9, 1), (9, 2), (10, 2))}
 # the string main path: the column cycle, after the upstream
 # benchmarks/row_conversion.cpp variable_or_fixed_width case with strings
 STRING_CYCLE = ["int8", "int32", "int16", "int64", "int32", "bool8",
@@ -103,9 +123,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0):
+def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0,
+               view_offset=0):
     """Seeded table of the 8-dtype cycle bench_impl.py uses, drawn on the
-    device; optional DECIMAL128 columns and nullable columns."""
+    device; optional DECIMAL128 columns and nullable columns.  With
+    `view_offset`, each column's data and validity are views that many
+    elements into a longer buffer."""
     cycle = [dtypes.INT64, dtypes.INT32, dtypes.FLOAT64, dtypes.FLOAT32,
              dtypes.INT16, dtypes.INT8, dtypes.BOOL8,
              dtypes.TIMESTAMP_MICROS]
@@ -114,6 +137,14 @@ def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0):
     def ints(lo, hi, dtype, shape=(rows,)):
         return torch.randint(lo, hi, shape, generator=g, dtype=dtype,
                              device=device)
+
+    def at_offset(t):
+        if not view_offset:
+            return t
+        buf = torch.zeros((t.shape[0] + view_offset,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=device)
+        buf[view_offset:] = t
+        return buf[view_offset:]
 
     cols = []
     for i in range(ncols):
@@ -132,7 +163,9 @@ def make_table(rows, ncols, device, seed, nullable_every=0, dec128_every=0):
         valid = None
         if nullable_every and i % nullable_every == 0:
             valid = ints(0, 2, torch.uint8)
-        cols.append(Column(dt, rows, data=data, validity=valid))
+        cols.append(Column(dt, rows, data=at_offset(data),
+                           validity=None if valid is None
+                           else at_offset(valid)))
     return Table(cols)
 
 
@@ -179,10 +212,18 @@ def layout_of(table):
     return starts, voff, RC.row_size_of(schema)
 
 
+def raw_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes in row-major order, as int16.  Copied into fresh
+    storage first: torch counts a tensor whose only element has any
+    stride as contiguous, and such a tensor cannot be viewed as bytes."""
+    dense = torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+    return dense.view(torch.uint8).reshape(-1).to(torch.int16)
+
+
 def byte_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest absolute difference between two buffers' bytes."""
-    a8 = a.contiguous().view(torch.uint8).reshape(-1).to(torch.int16)
-    b8 = b.contiguous().view(torch.uint8).reshape(-1).to(torch.int16)
+    a8 = raw_bytes(a)
+    b8 = raw_bytes(b)
     check(a8.shape == b8.shape, f"byte lengths {a8.shape} vs {b8.shape}")
     return int((a8 - b8).abs().max()) if a8.numel() else 0
 
@@ -389,26 +430,65 @@ def nbytes(t):
     return t.numel() * t.element_size()
 
 
-def time_kernels(table, rows_col):
+def to_rows_bytes(table):
+    """Bytes the to-rows function must move: each column and validity
+    read once, the rows written once."""
+    cols = table.columns
+    return (sum(nbytes(c.data) for c in cols)
+            + sum(nbytes(c.validity) for c in cols if c.validity is not None)
+            + table.num_rows * layout_of(table)[2])
+
+
+def time_to_rows(table, variants=()):
+    """The to-rows kernel on `table` at the wrapper's tile, and at each
+    (log2 rows per tile, ring buffers) of `variants`, each checked
+    byte-equal to the plain version first; beside them the wrapper, the
+    plain version, and a device-to-device copy of as many bytes as the
+    function must move (half read, half written)."""
+    cols = table.columns
+    starts, voff, row_size = layout_of(table)
+    rows = table.num_rows
+    desc, _ = RA.to_rows_descriptors(cols, starts)
+    key = RA.schema_key(cols, starts, voff)
+    out = torch.empty((rows * row_size,), dtype=torch.uint8, device="cuda")
+    plain = RA.assemble_rows_plain(cols, starts, voff, row_size)
+    variant_ms = {}
+    for lg, stages in variants:
+        out.zero_()
+        RA.launch_to_rows(desc, key, rows, row_size, out, lg, stages)
+        torch.cuda.synchronize()
+        check(torch.equal(out, plain),
+              f"to-rows at {1 << lg} rows x {stages} buffers == plain")
+        variant_ms[f"{1 << lg}x{stages}"] = event_ms(
+            lambda: RA.launch_to_rows(desc, key, rows, row_size, out, lg,
+                                      stages), TIMED_ITERS)
+    del plain
+    plan, stages, flags = RA.to_rows_tile(key, row_size)
+    ms = event_ms(lambda: RA.launch_to_rows(desc, key, rows, row_size, out),
+                  TIMED_ITERS)
+    call = event_ms(lambda: RA.assemble_rows(cols, starts, voff, row_size),
+                    TIMED_ITERS)
+    plain_ms = event_ms(
+        lambda: RA.assemble_rows_plain(cols, starts, voff, row_size),
+        PLAIN_ITERS)
+    moved = to_rows_bytes(table)
+    src = torch.empty((moved // 2,), dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = event_ms(lambda: dst.copy_(src), TIMED_ITERS)
+    return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bytes=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, copy_ms=copy_ms,
+                tile_rows=1 << plan.log2_tile, stages=stages,
+                smem_bytes=RA.to_rows_smem_bytes(plan, row_size, stages,
+                                                 flags),
+                variant_ms=variant_ms)
+
+
+def time_from_rows(table, rows_col):
     cols = table.columns
     schema = [c.dtype for c in cols]
     starts, voff, row_size = layout_of(table)
     rows = table.num_rows
     row_bytes = rows_col.children[0].data
-    col_bytes = sum(nbytes(c.data) for c in cols)
-    valid_in = sum(nbytes(c.validity) for c in cols if c.validity is not None)
-
-    desc_to, _ = RA.to_rows_descriptors(cols, starts)
-    out = torch.empty_like(row_bytes)
-    to_ms = event_ms(lambda: RA.launch_to_rows(desc_to, rows, row_size, voff,
-                                               out), TIMED_ITERS)
-    to_call = event_ms(lambda: RA.assemble_rows(cols, starts, voff, row_size),
-                       TIMED_ITERS)
-    to_plain = event_ms(
-        lambda: RA.assemble_rows_plain(cols, starts, voff, row_size),
-        PLAIN_ITERS)
-    to_bytes = col_bytes + valid_in + nbytes(row_bytes)
-
     datas, valid, desc_from = RA.from_rows_outputs(schema, starts, rows,
                                                    row_bytes.device)
     from_ms = event_ms(lambda: RA.launch_from_rows(
@@ -419,12 +499,8 @@ def time_kernels(table, rows_col):
         row_bytes, schema, starts, voff, row_size), PLAIN_ITERS)
     from_bytes = (nbytes(row_bytes) + sum(nbytes(d) for d in datas)
                   + nbytes(valid))
-    return {
-        "to_rows": dict(ms=to_ms, call_ms=to_call, plain_ms=to_plain,
-                        bytes=to_bytes),
-        "from_rows": dict(ms=from_ms, call_ms=from_call,
-                          plain_ms=from_plain, bytes=from_bytes),
-    }
+    return dict(ms=from_ms, call_ms=from_call, plain_ms=from_plain,
+                bytes=from_bytes)
 
 
 def time_var_kernel(table, log2_tiles=()):
@@ -484,17 +560,18 @@ def main() -> int:
     print(f"build: row_assembly.cu in {build_s:.1f} s (0 = cached)")
     print(cuda_build.build_log("row_assembly"), flush=True)
 
-    # kernel vs plain: three schemas, then the main path's own inputs
+    # kernel vs plain: the edge cases, then the main path's own inputs
     bench = make_table(BENCH_ROWS, BENCH_COLS, "cuda", seed=7)
     a, b, c = F.example_inputs(FLAGSHIP_ROWS, device="cuda")
     flagship_table = Table([Column(dtypes.INT64, FLAGSHIP_ROWS, data=a),
                             Column(dtypes.INT32, FLAGSHIP_ROWS, data=b),
                             Column(dtypes.FLOAT64, FLAGSHIP_ROWS, data=c)])
-    cases = [make_table(rows, ncols, "cuda", seed=rows + ncols,
-                        nullable_every=nullable, dec128_every=dec)
-             for rows, ncols, nullable, dec in KERNEL_CASES]
     errs = {"to_rows": 0, "from_rows": 0}
-    for table in cases + [flagship_table, bench]:
+    cases = (make_table(rows, ncols, "cuda", seed=rows + ncols,
+                        nullable_every=nullable, dec128_every=dec,
+                        view_offset=off)
+             for rows, ncols, nullable, dec, off in KERNEL_CASES)
+    for table in itertools.chain(cases, [flagship_table, bench]):
         e_to, e_from = compare_kernels(table)
         print(f"kernel vs plain: rows={table.num_rows} "
               f"cols={table.num_columns} to_rows max_abs_err={e_to} "
@@ -502,7 +579,6 @@ def main() -> int:
         check(e_to == 0 and e_from == 0, "kernels byte-equal to plain")
         errs["to_rows"] = max(errs["to_rows"], e_to)
         errs["from_rows"] = max(errs["from_rows"], e_from)
-    del cases, flagship_table
 
     string_specs = string_host_specs(STRING_ROWS, STRING_COLS, seed=11)
     string_table = interop.table_from_host(string_specs, device="cuda")
@@ -539,8 +615,21 @@ def main() -> int:
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)
 
-    times = time_kernels(bench, rows_col)
+    times = {"to_rows": time_to_rows(bench, TO_ROWS_TIMED["bench"]),
+             "from_rows": time_from_rows(bench, rows_col)}
     del rows_col, bench
+    to_rows_shapes = {"flagship": time_to_rows(flagship_table,
+                                               TO_ROWS_TIMED["flagship"])}
+    del flagship_table
+    nullable = make_table(BENCH_ROWS, BENCH_COLS, "cuda", seed=8,
+                          nullable_every=3)
+    to_rows_shapes["bench_nullable"] = time_to_rows(nullable)
+    del nullable
+    shaped = [("bench", times["to_rows"])] + list(to_rows_shapes.items())
+    print(json.dumps({"to_rows_variant_ms": {
+        k: dict(t["variant_ms"], chosen={
+            key: t[key] for key in ("tile_rows", "stages", "smem_bytes")})
+        for k, t in shaped}}), flush=True)
     times["to_rows_var"] = time_var_kernel(string_table, VAR_TIMED_TILES)
     direct = time_var_kernel(long_table)
     direct_path = {"shape": "x".join(map(str, LONG_STRINGS_CASE[:2])),
@@ -572,6 +661,14 @@ def main() -> int:
             "gb_per_s": t["bytes"] / t["ms"] / 1e6,
             "shape": shapes[name],
         })
+        if name == "to_rows":
+            kernels[-1].update(
+                copy_ms=t["copy_ms"], tile_rows=t["tile_rows"],
+                stages=t["stages"], smem_bytes=t["smem_bytes"],
+                shapes={k: {key: v[key] for key in (
+                    "ms", "bound_ms", "plain_ms", "call_ms", "copy_ms",
+                    "bytes", "tile_rows", "stages")}
+                        for k, v in to_rows_shapes.items()})
         if name == "to_rows_var":
             kernels[-1].update(tile_rows=var_tiles(string_table)[2],
                                tile_ms=t["tile_ms"], direct_path=direct_path)

@@ -14,9 +14,13 @@
 // contiguous range they are in the output.
 //
 // All three are pure data movement, bound by device-memory bytes.  At the
-// bench shape (212 cycled fixed-width columns, 2^19 rows, 1096-byte rows):
-//   to-rows   reads 960 B/row of columns, writes 1096 B/row of rows:
-//             1.078 GB, at least 0.32 ms at 3.35 TB/s (H100 SXM).
+// main-path shapes of to-rows:
+//   bench (212 cycled fixed-width columns, 2^19 rows, 1096-byte rows):
+//             reads 960 B/row of columns, writes 1096 B/row of rows:
+//             1.078 GB, at least 0.32 ms at 3.35 TB/s (H100 SXM);
+//   flagship (INT64, INT32, FLOAT64, 2^22 rows, 32-byte rows): reads
+//             20 B/row, writes 32 B/row: 218 MB, at least 0.065 ms.
+// At the bench shape:
 //   from-rows reads 1096 B/row, writes 960 B/row of columns and 212 B/row
 //             of validity: 1.19 GB, at least 0.36 ms.
 // At the string main-path shape (155 cycled columns with 15 strings of
@@ -26,12 +30,16 @@
 //             row offsets, and writes about 1132 B/row of rows: about
 //             2.07 GB, at least about 0.62 ms (chip_smoke.py computes the
 //             exact bound from its data).
-// The design moves every byte through device memory once: one block owns
-// a tile of rows in shared memory; column traffic is coalesced (consecutive
-// threads take consecutive rows of one column, a string column's chars
-// for the tile are read as one run) and the tile's rows, which are
-// contiguous in the row buffer, move with 16-byte accesses.  Fields never
-// overlap, so no atomics or ORs are needed.
+// The design moves every byte through device memory once: column traffic
+// is coalesced (a tile's rows of one column are one run), the rows, which
+// are contiguous in the row buffer, move with 16-byte accesses, and
+// fields never overlap, so no atomics are needed.  What else bounds each
+// kernel is noted above it.  to-rows keeps its loads from stalling the
+// threads: a tile's fields are in flight as asynchronous copies
+// (cp.async) into a ring of shared-memory tile buffers, the wider fields
+// straight to their place in the rows and the narrow columns and the
+// validity as 16-byte runs of a column, while the block fills and stores
+// another tile; the rows' gaps are zeroed once a block, not once a tile.
 //
 // Plain C interface (bound with ctypes).  Kernels launch on the caller's
 // stream, do not synchronise, allocate nothing; each entry point returns
@@ -112,51 +120,296 @@ __device__ __forceinline__ void copy_block(uint8_t* dst, const uint8_t* src,
   for (int i = threadIdx.x; i < n8; i += blockDim.x) d[i] = s[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
-to_rows_kernel(const ToRowsCol* __restrict__ cols, int ncols,
-               long long rows, int row_size, int validity_offset,
-               int log2_tile, uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t tile[];
-  const int tile_rows = 1 << log2_tile;
-  const long long row0 = static_cast<long long>(blockIdx.x) << log2_tile;
-  const int n = static_cast<int>(min(static_cast<long long>(tile_rows),
-                                     rows - row0));
-  const int tile_bytes = n * row_size;
+// ------------------------------------------------------------ to-rows
+//
+// The fixed-width to-rows kernel follows a plan of int32s that the
+// wrapper builds once per schema and tile size (row_assembly_cuda.
+// to_rows_plan; `ToRowsShape` carries its counts):
+//   runs   [nruns] int4   the staged runs: each narrow (1- or 2-byte)
+//                         column, then each nullable column's validity:
+//                         (column, byte of the staging area where its
+//                         tile rows go, width or 0 for validity, start
+//                         in the row)
+//   pieces [npieces] int2 the wider fields, in 4- or 8-byte pieces:
+//                         (column, start in the row << 8 | the second
+//                         half of a 16-byte field (bit 5) | log2 of the
+//                         column's width << 2 | 8-byte piece (bit 0))
+//   dyn    [ndyn] int2    validity bytes with a nullable column: (byte
+//                         in the row, constant bits | nullable mask << 8
+//                         | index of the byte << 16)
+//   cst    [ncst] int2    validity bytes without one: the same
+//   chunks [nchunks]      the staging area's 16-byte chunks: run << 8 |
+//                         chunk of the run
+//   vq     [ncols]        each column's validity run in the staging
+//                         area, -1 for none
+// to_rows_plan mirrors this layout.
+struct ToRowsShape {
+  long long rows;
+  int ncols, nruns, nnarrow, npieces, ndyn, ncst, nchunks;
+  int stage_bytes;  // staging area of one buffer (multiple of 16)
+  int row_size, log2_tile, stages, flags;
+};
 
-  // alignment gaps and the row's tail padding are zero
-  uint2* t8 = reinterpret_cast<uint2*>(tile);
-  for (int i = threadIdx.x; i < (tile_bytes >> 3); i += blockDim.x)
-    t8[i] = make_uint2(0u, 0u);
-  __syncthreads();
+constexpr int kPlanInShared = 1;
+constexpr int kDescInShared = 2;
+constexpr int kNarrowStaged = 4;
+constexpr int kMaxStages = 4;
 
-  // fields: thread i takes row i % tile_rows of column i / tile_rows
-  for (int i = threadIdx.x; i < (ncols << log2_tile); i += blockDim.x) {
-    const int r = i & (tile_rows - 1);
-    if (r >= n) continue;
-    const ToRowsCol col = cols[i >> log2_tile];
-    const int w = static_cast<int>(col.width);
-    copy_field(tile + r * row_size + col.start, col.data + (row0 + r) * w, w);
+struct ToRowsPlan {
+  int runs, pieces, dyn, cst, chunks, vq, end;
+};
+
+__host__ __device__ inline ToRowsPlan to_rows_plan_layout(
+    const ToRowsShape& s) {
+  ToRowsPlan p;
+  p.runs = 0;
+  p.pieces = 4 * s.nruns;
+  p.dyn = p.pieces + 2 * s.npieces;
+  p.cst = p.dyn + 2 * s.ndyn;
+  p.chunks = p.cst + 2 * s.ncst;
+  p.vq = p.chunks + s.nchunks;
+  p.end = p.vq + s.ncols;
+  return p;
+}
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// Shared memory of the to-rows kernel, in bytes from its start: a ring
+// of `stages` buffers, each a row-major tile then its staging area; the
+// plan and the descriptors where the flags say so.
+// row_assembly_cuda.to_rows_smem_bytes mirrors `end`.
+struct ToRowsSmem {
+  int tile, buf, plan, desc, end;
+};
+
+__host__ __device__ inline ToRowsSmem to_rows_smem_layout(
+    const ToRowsShape& s) {
+  ToRowsSmem l;
+  l.tile = align16(s.row_size << s.log2_tile);
+  l.buf = l.tile + ((s.flags & kNarrowStaged) ? s.stage_bytes : 0);
+  l.plan = s.stages * l.buf;
+  l.desc = l.plan + ((s.flags & kPlanInShared)
+                         ? align16(4 * to_rows_plan_layout(s).end) : 0);
+  l.end = l.desc + ((s.flags & kDescInShared) ? 40 * s.ncols : 0);
+  return l;
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {  // the count is an immediate
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
+}
 
-  // validity: one thread per (validity byte, row) packs up to 8 bits
-  const int nvbytes = (ncols + 7) >> 3;
-  for (int i = threadIdx.x; i < (nvbytes << log2_tile); i += blockDim.x) {
-    const int r = i & (tile_rows - 1);
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+struct ToRowsCtx {
+  ToRowsShape s;
+  ToRowsPlan pl;
+  ToRowsSmem l;
+  const ToRowsCol* desc;  // in shared memory or device memory
+  const int* plan;        // the same
+};
+
+// Put the tile at row0 (n rows) in flight into `buf`: each wider field
+// straight to its place in the tile's rows, and each staged run (a
+// narrow column's or a validity's n bytes a width) into the staging
+// area in 16-byte chunks, by cp.async where the source is 16-byte
+// aligned and the chunk whole, else with ordinary loads.
+__device__ __forceinline__ void issue_tile(const ToRowsCtx& c,
+                                           long long row0, int n,
+                                           uint8_t* buf) {
+  const int lg = c.s.log2_tile;
+  const int mask = (1 << lg) - 1;
+  const int2* pieces = reinterpret_cast<const int2*>(c.plan + c.pl.pieces);
+  for (int i = threadIdx.x; i < (c.s.npieces << lg); i += blockDim.x) {
+    const int r = i & mask;
     if (r >= n) continue;
-    const int c0 = (i >> log2_tile) << 3;
-    unsigned bits = 0;
-    for (int k = 0; k < 8 && c0 + k < ncols; ++k) {
-      const uint8_t* v = cols[c0 + k].valid;
-      if (v == nullptr || v[row0 + r] != 0) bits |= 1u << k;
+    const int2 q = pieces[i >> lg];
+    const int w = 1 << ((q.y >> 2) & 7);
+    const uint8_t* src =
+        c.desc[q.x].data + (row0 + r) * w + ((q.y & 32) ? 8 : 0);
+    const unsigned dst = shared_addr(buf + r * c.s.row_size + (q.y >> 8));
+    if (q.y & 1) cp_async8(dst, src); else cp_async4(dst, src);
+  }
+  if (!(c.s.flags & kNarrowStaged)) return;
+  const int4* runs = reinterpret_cast<const int4*>(c.plan + c.pl.runs);
+  uint8_t* st = buf + c.l.tile;
+  for (int j = threadIdx.x; j < c.s.nchunks; j += blockDim.x) {
+    const int ck = c.plan[c.pl.chunks + j];
+    const int4 run = runs[ck >> 8];
+    const int off = (ck & 255) << 4;
+    const int w = run.z ? run.z : 1;
+    const int have = n * w - off;  // bytes of the run left
+    if (have <= 0) continue;
+    const uint8_t* src =
+        (run.z ? c.desc[run.x].data + row0 * w : c.desc[run.x].valid + row0) +
+        off;
+    uint8_t* dst = st + run.y + off;
+    if (have >= 16 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(shared_addr(dst), src);
+    } else {
+      for (int b = 0; b < min(have, 16); b += w)
+        copy_field(dst + b, src + b, w);
     }
-    tile[r * row_size + validity_offset + (c0 >> 3)] =
-        static_cast<uint8_t>(bits);
   }
-  __syncthreads();
+}
 
-  uint8_t* dst = out + row0 * row_size;
-  copy_block(dst, tile, tile_bytes,
-             (reinterpret_cast<uintptr_t>(dst) & 15) == 0);
+// The rest of the tile at row0, once its copies have landed: the narrow
+// fields from their staged runs (or device memory when not staged), and
+// the validity bytes of nullable columns, the eight loads in flight
+// together.
+__device__ __forceinline__ void fill_tile(const ToRowsCtx& c, long long row0,
+                                          int n, uint8_t* buf) {
+  const int lg = c.s.log2_tile;
+  const int mask = (1 << lg) - 1;
+  const bool staged = c.s.flags & kNarrowStaged;
+  const uint8_t* st = buf + c.l.tile;
+  const int4* runs = reinterpret_cast<const int4*>(c.plan + c.pl.runs);
+  for (int i = threadIdx.x; i < (c.s.nnarrow << lg); i += blockDim.x) {
+    const int r = i & mask;
+    if (r >= n) continue;
+    const int4 run = runs[i >> lg];
+    const uint8_t* src = staged ? st + run.y + r * run.z
+                                : c.desc[run.x].data + (row0 + r) * run.z;
+    copy_field(buf + r * c.s.row_size + run.w, src, run.z);
+  }
+  const int2* dyn = reinterpret_cast<const int2*>(c.plan + c.pl.dyn);
+  for (int i = threadIdx.x; i < (c.s.ndyn << lg); i += blockDim.x) {
+    const int r = i & mask;
+    if (r >= n) continue;
+    const int2 q = dyn[i >> lg];
+    const int c0 = (q.y >> 16) << 3;
+    const unsigned m = (q.y >> 8) & 0xff;
+    uint8_t v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = 0;
+      if ((m >> k) & 1)
+        v[k] = staged ? st[c.plan[c.pl.vq + c0 + k] + r]
+                      : c.desc[c0 + k].valid[row0 + r];
+    }
+    unsigned bits = q.y & 0xff;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (v[k] != 0) bits |= 1u << k;
+    buf[r * c.s.row_size + q.x] = static_cast<uint8_t>(bits);
+  }
+}
+
+// Fixed-width rows.  A persistent grid: each block stages the plan and
+// the descriptors once (where they fit), zeroes its ring of tile buffers
+// and writes the constant validity bytes into them once: no field covers
+// a gap, so gaps stay zero and no tile is zeroed again.  Then it walks
+// the tiles blockIdx.x, blockIdx.x + gridDim.x, ..., keeping the next
+// `stages` - 1 tiles' copies in flight while it fills the current tile's
+// narrow fields and validity in shared memory and stores its rows, one
+// contiguous range of the output, with 16-byte stores.
+//
+// What bounds it.  The parent kernel stalled on its loads: each thread
+// read a descriptor, then made one dependent load of 1 to 16 bytes,
+// about 26 times a tile, after a barrier on a whole-tile zero pass.
+// Here the loads are copies (cp.async) that cost no registers and stall
+// no thread until the tile is needed, and the narrow columns move as
+// 16-byte runs of a column; what remains is bytes and the three
+// barriers a tile.  The wrapper sizes the ring (to_rows_tile) for the
+// most tiles in flight on an SM: at the bench shape that is one buffer
+// a block and four blocks an SM, at the flagship shape two buffers.
+__global__ void __launch_bounds__(kThreads)
+to_rows_kernel(const ToRowsCol* __restrict__ cols,
+               const int* __restrict__ plan, ToRowsShape shape,
+               uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  ToRowsCtx c;
+  c.s = shape;
+  c.pl = to_rows_plan_layout(shape);
+  c.l = to_rows_smem_layout(shape);
+  c.desc = cols;
+  c.plan = plan;
+  if (shape.flags & kPlanInShared) {
+    int* d = reinterpret_cast<int*>(smem + c.l.plan);
+    for (int i = threadIdx.x; i < c.pl.end; i += blockDim.x) d[i] = plan[i];
+    c.plan = d;
+  }
+  if (shape.flags & kDescInShared) {
+    long long* d = reinterpret_cast<long long*>(smem + c.l.desc);
+    const long long* s = reinterpret_cast<const long long*>(cols);
+    for (int i = threadIdx.x; i < 5 * shape.ncols; i += blockDim.x)
+      d[i] = s[i];
+    c.desc = reinterpret_cast<const ToRowsCol*>(d);
+  }
+  uint4* z = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < (c.l.plan >> 4); i += blockDim.x)
+    z[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int lg = shape.log2_tile;
+  const int2* cst = reinterpret_cast<const int2*>(c.plan + c.pl.cst);
+  const int per_buf = shape.ncst << lg;
+  for (int i = threadIdx.x; i < shape.stages * per_buf; i += blockDim.x) {
+    const int b = i / per_buf;
+    const int e = i - b * per_buf;
+    const int2 q = cst[e >> lg];
+    smem[b * c.l.buf + (e & ((1 << lg) - 1)) * shape.row_size + q.x] =
+        static_cast<uint8_t>(q.y & 0xff);
+  }
+
+  const long long tile_rows = 1LL << lg;
+  const long long ntiles = (shape.rows + tile_rows - 1) >> lg;
+  for (int b = 0; b < shape.stages; ++b) {
+    const long long t = blockIdx.x + static_cast<long long>(b) * gridDim.x;
+    if (t < ntiles) {
+      const long long row0 = t << lg;
+      issue_tile(c, row0, static_cast<int>(min(tile_rows, shape.rows - row0)),
+                 smem + b * c.l.buf);
+    }
+    cp_async_commit();
+  }
+  int b = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long row0 = t << lg;
+    const int n = static_cast<int>(min(tile_rows, shape.rows - row0));
+    uint8_t* buf = smem + b * c.l.buf;
+    cp_async_wait(shape.stages - 1);
+    __syncthreads();
+    fill_tile(c, row0, n, buf);
+    __syncthreads();
+    uint8_t* dst = out + row0 * shape.row_size;
+    copy_block(dst, buf, n * shape.row_size,
+               (reinterpret_cast<uintptr_t>(dst) & 15) == 0);
+    __syncthreads();  // every thread is done with the buffer: refill it
+    const long long tn = t + static_cast<long long>(shape.stages) * gridDim.x;
+    if (tn < ntiles) {
+      const long long rn = tn << lg;
+      issue_tile(c, rn, static_cast<int>(min(tile_rows, shape.rows - rn)),
+                 buf);
+    }
+    cp_async_commit();
+    b = b + 1 == shape.stages ? 0 : b + 1;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -567,17 +820,36 @@ cudaError_t reserve_shared(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-extern "C" int srt_to_rows(const void* cols, int ncols, long long rows,
-                           int row_size, int validity_offset, int log2_tile,
+extern "C" int srt_to_rows(const void* cols, const void* plan, long long rows,
+                           int ncols, int nruns, int nnarrow, int npieces,
+                           int ndyn, int ncst, int nchunks, int stage_bytes,
+                           int row_size, int log2_tile, int stages, int flags,
                            void* out, void* stream) {
-  const size_t smem = static_cast<size_t>(row_size) << log2_tile;
+  const ToRowsShape s = {rows, ncols, nruns, nnarrow, npieces, ndyn, ncst,
+                         nchunks, stage_bytes, row_size, log2_tile, stages,
+                         flags};
+  if (stages < 1 || stages > kMaxStages || stage_bytes % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = to_rows_smem_layout(s).end;
   cudaError_t err = reserve_shared(to_rows_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (rows + (1LL << log2_tile) - 1) >> log2_tile;
-  to_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const ToRowsCol*>(cols), ncols, rows, row_size,
-      validity_offset, log2_tile, static_cast<uint8_t*>(out));
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, to_rows_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = (rows + (1LL << log2_tile) - 1) >> log2_tile;
+  const long long most = static_cast<long long>(sms) * per_sm;
+  to_rows_kernel<<<static_cast<unsigned>(tiles < most ? tiles : most),
+                   kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const ToRowsCol*>(cols), static_cast<const int*>(plan), s,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,9 @@ switch and no fallback from the card to the plain version.
   * to-rows replaces the TPU tile kernel `assemble_rows_pallas`
     (spark_rapids_tpu/ops/row_assembly_pallas.py:47); its plain version
     `assemble_rows_plain` is row_conversion._assemble_fixed_words (the
-    word-stack path).
+    word-stack path).  The kernel follows a per-schema plan
+    (`to_rows_plan`, `to_rows_tile`); `assemble_rows_by_plan` applies
+    the plan in plain PyTorch, for the CPU tests.
   * from-rows replaces `disassemble_rows_pallas` (:136) together with the
     table rebuild of `convert_from_rows_pallas` (:201): the kernel writes
     each column in its native width plus a (ncols, rows) uint8 validity
@@ -37,7 +39,8 @@ bounds at the main-path shapes).  `LAUNCHES` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -52,10 +55,11 @@ from spark_rapids_tpu_torch.utils import cuda_build
 LAUNCHES: Dict[str, int] = {"to_rows": 0, "from_rows": 0, "to_rows_var": 0}
 
 _SIGNATURES = {
-    # (cols, ncols, rows, row_size, validity_offset, log2_tile, out, stream)
+    # (cols, plan, rows, ncols, nruns, nnarrow, npieces, ndyn, ncst,
+    #  nchunks, stage_bytes, row_size, log2_tile, stages, flags, out, stream)
     "srt_to_rows": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        *[ctypes.c_int] * 12, ctypes.c_void_p, ctypes.c_void_p]),
     # (cols, ncols, str_idx, nstr, rows, fixed_size, validity_offset,
     #  row_offsets, log2_tile, buf_bytes, out, stream)
     "srt_to_rows_var": (ctypes.c_int, [
@@ -82,6 +86,16 @@ _VAR_SLACK = 1 / 16
 _SM_SHARED_BYTES = 228 * 1024    # shared memory of one SM
 _BLOCK_RESERVED = 1024           # of it, kept by the card for each block
 _MAX_BLOCKS_PER_SM = 8           # of 256 threads (2048 threads an SM)
+# the fixed-width to-rows kernel: row bytes and rows a tile aims for,
+# the most buffers in its ring (the fastest on the H100 at the bench and
+# flagship shapes, PERF.md), and its flags (csrc/row_assembly.cu:
+# kPlanInShared, kDescInShared, kNarrowStaged, kMaxStages)
+_TO_ROWS_TILE_BYTES = 48 * 1024
+_TO_ROWS_MAX_ROWS = 512
+_TO_ROWS_MAX_STAGES = 4
+PLAN_IN_SHARED = 1
+DESC_IN_SHARED = 2
+NARROW_STAGED = 4
 
 
 def reset_launches() -> None:
@@ -182,6 +196,153 @@ def _launch_error(kernel: str, err: int) -> RuntimeError:
 # ------------------------------------------------------------- to-rows
 
 
+class ToRowsPlan(NamedTuple):
+    """The fixed-width to-rows kernel's plan for one schema and tile
+    (layout in csrc/row_assembly.cu, above ToRowsShape): `ints` are the
+    int32s the kernel reads, the rest its counts."""
+    ints: Tuple[int, ...]
+    ncols: int
+    nruns: int
+    nnarrow: int
+    npieces: int
+    ndyn: int
+    ncst: int
+    nchunks: int
+    stage_bytes: int
+    log2_tile: int
+
+
+@functools.lru_cache(maxsize=64)
+def to_rows_plan(widths: Tuple[int, ...], starts: Tuple[int, ...],
+                 nullable: Tuple[bool, ...], validity_offset: int,
+                 log2_tile: int) -> ToRowsPlan:
+    """The plan of a schema (each column's field width and start, whether
+    it has validity, the row's validity offset) for tiles of 2^log2_tile
+    rows (at most 2048: a run's chunk index has 8 bits)."""
+    tile = 1 << log2_tile
+    if tile > 2048:
+        raise ValueError(f"to-rows tiles of {tile} rows exceed 2048")
+    ncols = len(widths)
+    narrow = [c for c in range(ncols) if widths[c] < 4]
+    vcols = [c for c in range(ncols) if nullable[c]]
+    runs, vq, chunks = [], [-1] * ncols, []
+    at = 0
+    for c, w in [(c, widths[c]) for c in narrow] + [(c, 0) for c in vcols]:
+        if not w:
+            vq[c] = at
+        runs += [c, at, w, starts[c] if w else 0]
+        chunks += [(len(runs) // 4 - 1) << 8 | k
+                   for k in range(-(-tile * max(w, 1) // 16))]
+        at += _round_up(tile * max(w, 1), 16)
+    pieces = []
+    for c, (w, st) in enumerate(zip(widths, starts)):
+        if w >= 4:
+            code = (w.bit_length() - 1) << 2 | (w >= 8)
+            pieces += [c, st << 8 | code]
+            if w == 16:
+                pieces += [c, (st + 8) << 8 | 32 | code]
+    dyn, cst = [], []
+    for j in range((ncols + 7) // 8):
+        const = mask = 0
+        for k, c in enumerate(range(8 * j, min(8 * j + 8, ncols))):
+            if nullable[c]:
+                mask |= 1 << k
+            else:
+                const |= 1 << k
+        (dyn if mask else cst).extend(
+            [validity_offset + j, const | mask << 8 | j << 16])
+    ints = runs + pieces + dyn + cst + chunks + vq
+    return ToRowsPlan(tuple(ints), ncols, len(runs) // 4, len(narrow),
+                      len(pieces) // 2, len(dyn) // 2, len(cst) // 2,
+                      len(chunks), at, log2_tile)
+
+
+def schema_key(cols, starts: Sequence[int], validity_offset: int):
+    """The to-rows plan's key of fixed-width columns: their widths,
+    starts, whether each has validity, and the validity offset."""
+    return (tuple(_col_byte_size(c.dtype) for c in cols), tuple(starts),
+            tuple(c.validity is not None for c in cols), validity_offset)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensor(plan: ToRowsPlan, device: torch.device) -> torch.Tensor:
+    return torch.tensor(plan.ints, dtype=torch.int32).to(device)
+
+
+def to_rows_smem_bytes(plan: ToRowsPlan, row_size: int, stages: int,
+                       flags: int) -> int:
+    """Shared memory of one to-rows block (csrc/row_assembly.cu,
+    to_rows_smem_layout): a ring of `stages` buffers, each a tile of rows
+    and, when narrow runs are staged, their staging area; then the plan
+    and the (ncols, 5) int64 descriptors as `flags` say."""
+    buf = _round_up(row_size << plan.log2_tile, 16)
+    if flags & NARROW_STAGED:
+        buf += plan.stage_bytes
+    size = stages * buf
+    if flags & PLAN_IN_SHARED:
+        size += _round_up(4 * len(plan.ints), 16)
+    if flags & DESC_IN_SHARED:
+        size += 40 * plan.ncols
+    return size
+
+
+def _blocks_per_sm(smem: int) -> int:
+    return min(_MAX_BLOCKS_PER_SM,
+               _SM_SHARED_BYTES // (smem + _BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=64)
+def to_rows_tile(key, row_size: int, log2_tile=None,
+                 stages=None) -> Tuple[ToRowsPlan, int, int]:
+    """(plan, ring buffers, flags) of the to-rows kernel for the schema
+    `key` (widths, starts, nullable, validity offset).  The tile holds
+    the most rows (a power of two, at most _TO_ROWS_MAX_ROWS) within
+    _TO_ROWS_TILE_BYTES, at least one.  Of the rings of 1 to
+    _TO_ROWS_MAX_STAGES buffers that fit one block, the one that keeps
+    the most tiles in flight on an SM (buffers x blocks an SM by shared
+    memory), the fewest buffers on a tie; narrow runs staged where that
+    fits (tiles of 16 rows or more), else read from device memory; else
+    half the rows.  The plan, then the descriptors, go to shared memory
+    where they fit.  `log2_tile` and `stages` set the tile and the most
+    buffers, taken when they fit (for timing)."""
+    if row_size > _MAX_TILE_BYTES:
+        raise ValueError(
+            f"JCUDF rows of {row_size} bytes exceed one block's shared "
+            f"memory ({_MAX_TILE_BYTES} bytes)")
+    lg = log2_tile
+    if lg is None:
+        lg = 0
+        while ((2 << lg) <= _TO_ROWS_MAX_ROWS
+               and (2 << lg) * row_size <= _TO_ROWS_TILE_BYTES):
+            lg += 1
+    counts = (range(1, _TO_ROWS_MAX_STAGES + 1) if stages is None
+              else range(stages, 0, -1))
+    while True:
+        plan = to_rows_plan(*key, lg)
+        best = None
+        for st in counts:
+            # staged runs are whole 16-byte chunks from 16 rows on
+            for flags in (NARROW_STAGED, 0) if lg >= 4 else (0,):
+                if to_rows_smem_bytes(plan, row_size, st,
+                                      flags) > _MAX_TILE_BYTES:
+                    continue
+                for f in (PLAN_IN_SHARED, DESC_IN_SHARED):
+                    if to_rows_smem_bytes(plan, row_size, st,
+                                          flags | f) <= _MAX_TILE_BYTES:
+                        flags |= f
+                in_flight = st * _blocks_per_sm(
+                    to_rows_smem_bytes(plan, row_size, st, flags))
+                score = (bool(flags & NARROW_STAGED), in_flight)
+                if best is None or score > best[0]:
+                    best = (score, st, flags)
+                break
+            if best is not None and stages is not None:
+                break
+        if best is not None:
+            return plan, best[1], best[2]
+        lg -= 1   # one row always fits: row_size <= _MAX_TILE_BYTES
+
+
 def assemble_rows(cols, starts: Sequence[int], validity_offset: int,
                   row_size: int) -> torch.Tensor:
     """Flat (rows * row_size,) uint8 JCUDF rows of fixed-width columns."""
@@ -192,7 +353,8 @@ def assemble_rows(cols, starts: Sequence[int], validity_offset: int,
     rows = cols[0].length
     out = torch.empty((rows * row_size,), dtype=torch.uint8, device=device)
     if rows:
-        launch_to_rows(desc_t, rows, row_size, validity_offset, out)
+        launch_to_rows(desc_t, schema_key(cols, starts, validity_offset),
+                       rows, row_size, out)
     return out
 
 
@@ -233,19 +395,89 @@ def to_rows_descriptors(cols, starts: Sequence[int]):
     return packed[:len(descs)].view(-1, 5), packed[len(descs):]
 
 
-def launch_to_rows(desc_t: torch.Tensor, rows: int, row_size: int,
-                   validity_offset: int, out: torch.Tensor) -> None:
-    """The to-rows kernel launch alone, on `to_rows_descriptors`' output
-    and a (rows * row_size,) uint8 buffer on the same device."""
+def launch_to_rows(desc_t: torch.Tensor, key, rows: int, row_size: int,
+                   out: torch.Tensor, log2_tile=None, stages=None) -> None:
+    """The to-rows kernel launch alone, on `to_rows_descriptors`' output,
+    the columns' schema key (`schema_key`) and a (rows * row_size,) uint8
+    buffer on the same device.  The tile is `to_rows_tile`'s."""
     lib = _lib()
+    plan, stages, flags = to_rows_tile(key, row_size, log2_tile, stages)
     with torch.cuda.device(out.device):
         err = lib.srt_to_rows(
-            desc_t.data_ptr(), desc_t.shape[0], rows, row_size,
-            validity_offset, tile_log2(row_size), out.data_ptr(),
+            desc_t.data_ptr(), _plan_tensor(plan, out.device).data_ptr(),
+            rows, plan.ncols, plan.nruns, plan.nnarrow, plan.npieces,
+            plan.ndyn, plan.ncst, plan.nchunks, plan.stage_bytes, row_size,
+            plan.log2_tile, stages, flags, out.data_ptr(),
             torch.cuda.current_stream(out.device).cuda_stream)
     if err:
         raise _launch_error("to-rows", err)
     LAUNCHES["to_rows"] += 1
+
+
+def assemble_rows_by_plan(cols, starts: Sequence[int], validity_offset: int,
+                          row_size: int, log2_tile: int,
+                          staged: bool) -> torch.Tensor:
+    """The to-rows kernel's steps in plain PyTorch on CPU tensors, a
+    mirror of its plan: per tile, a zeroed row-major tile with the
+    constant validity bytes, each wider field's pieces copied to their
+    place, the narrow and validity runs staged at the plan's offsets
+    (`staged`) or read from the columns, the narrow fields and the
+    nullable validity bytes filled in.  Gives assemble_rows_plain's
+    bytes."""
+    plan = to_rows_plan(*schema_key(cols, starts, validity_offset),
+                        log2_tile)
+    ints = list(plan.ints)
+    at = 0
+
+    def take(n, k):
+        nonlocal at
+        part = ints[at:at + n * k]
+        at += n * k
+        return [part[i:i + k] for i in range(0, len(part), k)]
+
+    runs = take(plan.nruns, 4)
+    pieces = take(plan.npieces, 2)
+    dyn = take(plan.ndyn, 2)
+    cst = take(plan.ncst, 2)
+    chunks = [x[0] for x in take(plan.nchunks, 1)]
+    vq = [x[0] for x in take(plan.ncols, 1)]
+    rows = cols[0].length
+    data = [c.data.contiguous().view(torch.uint8).reshape(rows, -1)
+            for c in cols]
+    out = torch.empty((rows, row_size), dtype=torch.uint8)
+    tile = 1 << log2_tile
+    for row0 in range(0, rows, tile):
+        n = min(tile, rows - row0)
+        buf = torch.zeros((tile, row_size), dtype=torch.uint8)
+        for pos, y in cst:
+            buf[:, pos] = y & 0xFF
+        for c, y in pieces:
+            size, lo = 8 if y & 1 else 4, 8 if y & 32 else 0
+            buf[:n, y >> 8:(y >> 8) + size] = data[c][row0:row0 + n,
+                                                      lo:lo + size]
+        st = torch.zeros((plan.stage_bytes,), dtype=torch.uint8)
+        for ck in chunks if staged else ():
+            c, q, w, _start = runs[ck >> 8]
+            src = (data[c][row0:row0 + n] if w
+                   else cols[c].validity[row0:row0 + n]).reshape(-1)
+            off = (ck & 255) * 16
+            piece = src[off:off + 16]
+            st[q + off:q + off + piece.numel()] = piece
+        for c, q, w, start in runs[:plan.nnarrow]:
+            src = (st[q:q + n * w].view(n, w) if staged
+                   else data[c][row0:row0 + n])
+            buf[:n, start:start + w] = src
+        for pos, y in dyn:
+            bits = torch.full((n,), y & 0xFF, dtype=torch.uint8)
+            for k in range(8):
+                if (y >> (8 + k)) & 1:
+                    c = (y >> 16) * 8 + k
+                    v = (st[vq[c]:vq[c] + n] if staged
+                         else cols[c].validity[row0:row0 + n])
+                    bits |= (v != 0).to(torch.uint8) << k
+            buf[:n, pos] = bits
+        out[row0:row0 + n] = buf[:n]
+    return out.reshape(-1)
 
 
 # ------------------------------------------------ variable-width to-rows

@@ -31,12 +31,14 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,ncols,nullable_every,dec128_every",
-                         KERNEL_CASES + [(300, 5, 3, 2)])
+@pytest.mark.parametrize(
+    "rows,ncols,nullable_every,dec128_every,view_offset",
+    KERNEL_CASES + [(300, 5, 3, 2, 0), (300, 5, 3, 2, 3)])
 def test_kernels_match_plain_versions(cuda, rows, ncols, nullable_every,
-                                      dec128_every):
+                                      dec128_every, view_offset):
     t = make_table(rows, ncols, "cuda", seed=rows + ncols,
-                   nullable_every=nullable_every, dec128_every=dec128_every)
+                   nullable_every=nullable_every, dec128_every=dec128_every,
+                   view_offset=view_offset)
     RA.reset_launches()
     assert compare_kernels(t) == (0, 0)
     assert RA.LAUNCHES == {"to_rows": 1, "from_rows": 1, "to_rows_var": 0}
@@ -61,6 +63,23 @@ def test_kernel_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         RA.disassemble_rows(torch.zeros(20, dtype=torch.uint8, device=cuda),
                             [dtypes.INT64], [0], 8, 16)
+
+
+@pytest.mark.gpu
+def test_to_rows_takes_columns_off_16_byte_alignment(cuda):
+    """A column whose base is aligned to its width but not to 16 bytes (a
+    view into a longer buffer) is taken, not refused."""
+    t = make_table(37, 9, "cuda", seed=4, nullable_every=2, dec128_every=4,
+                   view_offset=1)
+    assert any(c.data.data_ptr() % 16 for c in t.columns)
+    schema = [c.dtype for c in t.columns]
+    starts, voff, _ = RC.compute_layout(schema)
+    row_size = RC.row_size_of(schema)
+    RA.reset_launches()
+    got = RA.assemble_rows(t.columns, starts, voff, row_size)
+    assert RA.LAUNCHES["to_rows"] == 1
+    want = RA.assemble_rows_plain(t.columns, starts, voff, row_size)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
