@@ -50,29 +50,60 @@
    32, 64 and 128 rows a tile, and on the 70000-byte strings case, where
    every tile takes its direct path.
 
+6. Drives the TPC-DS stage path (plan/catalog.run_q5 and run_q72 through
+   the stage IR, its compiler and the device join probe) at TPC-DS
+   SF100's widths (BASELINE.json's north star): q5 over 2^25
+   store_sales and 2^22 store_returns rows (about one executor's share
+   of 8), 402 stores, a 14-day window of 60 days, join capacity 2^23;
+   q72 over 2^22 catalog_sales and 2^21 inventory rows, 204,000 items,
+   35 days, 16 weeks, join capacity 2^26.  q72's rows are cut below one
+   share of 8 (about 18.0M catalog_sales and 49.9M inventory rows):
+   there every catalog_sales row meets about 245 inventory rows of its
+   item, about 4.4 billion join pairs, more slots than the card's 80 GB
+   holds.  Each query runs in the fused engine (one
+   torch.compile'd program per stage) and op by op: the two must give
+   the same bytes, both must equal a vectorised numpy oracle over the
+   same seeded arrays, and each stage must compile once.  Prints the
+   pair totals, the capacity used, each stage's compile seconds, both
+   engines' median of 5 synchronized calls and their peak device memory.
+   A small q72 whose join capacity is far too small must double through
+   the capacity retry on the card.  The stage path launches none of the
+   hand-written kernels.
+
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
 result line is printed; so does a machine without a CUDA device.
 """
 
+import contextlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# compiled stages cache their programs inside the checkout
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                      os.path.join(_BUILD, "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_BUILD, "triton"))
 
-from spark_rapids_tpu_torch.columns import dtypes, interop
-from spark_rapids_tpu_torch.columns.column import Column
-from spark_rapids_tpu_torch.columns.table import Table
-from spark_rapids_tpu_torch.models import flagship as F
-from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
-from spark_rapids_tpu_torch.ops import row_conversion as RC
-from spark_rapids_tpu_torch.shim import jni_api
-from spark_rapids_tpu_torch.shim.handles import REGISTRY
-from spark_rapids_tpu_torch.utils import cuda_build
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from spark_rapids_tpu_torch.columns import dtypes, interop  # noqa: E402
+from spark_rapids_tpu_torch.columns.column import Column  # noqa: E402
+from spark_rapids_tpu_torch.columns.table import Table  # noqa: E402
+from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
+from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
+from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
+from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
+from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
+from spark_rapids_tpu_torch.plan.compiler import compile_stage  # noqa: E402
+from spark_rapids_tpu_torch.shim import jni_api  # noqa: E402
+from spark_rapids_tpu_torch.shim.handles import REGISTRY  # noqa: E402
+from spark_rapids_tpu_torch.utils import cuda_build  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 BENCH_ROWS = 1 << 19
@@ -112,10 +143,30 @@ VAR_KERNEL_CASES = [(7, 3, 5, 0, 0, 0, 32), (1000, 20, 0, 3, 11, 5, 32),
                     (4099, 31, 3, 3, 0, 7, 32), (300, 17, 0, 3, 0, 0, 0)]
 # rows per tile at which the variable-width kernel is timed (log2)
 VAR_TIMED_TILES = (4, 5, 6, 7)
+# the TPC-DS stage path at SF100's widths: 402 stores and 204,000 items
+# are SF100's; days=60 (q5) and the inventory at half the catalog_sales
+# rows over 35 days (q72) are the JAX package's registry entries
+# (spark_rapids_tpu/models/__init__.py).  q5's rows are about one
+# executor's share of 8 (SF100: 287,997,024 store_sales rows); q72's
+# are cut to about a quarter of catalog_sales' share (143,997,065 / 8)
+# and a 24th of inventory's (399,330,000 / 8), since a full share would
+# join into about 4.4 billion pair slots, beyond the card's memory
+Q5_DATA = dict(rows=1 << 25, stores=402, days=60, seed=5)
+Q5_CAPACITY = 1 << 23      # about 7.83M sales pairs: no doubling
+Q72_DATA = dict(cs_rows=1 << 22, inv_rows=1 << 21, items=204_000, days=35,
+                seed=72)
+Q72_CAPACITY = 1 << 26     # about 43.1M pairs: no doubling
+Q72_MAX_WEEK = 16
+Q72_WEEK0 = 11_000 // 7
+Q72_LIMIT = 100
+# far too small a join capacity: the retry must double it
+Q72_SMALL_DATA = dict(cs_rows=1200, inv_rows=1200, items=4, days=35)
+Q72_SMALL_CAPACITY = 1 << 12
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
-                "jni_door_round_trip": ("to_rows_var",)}
+                "jni_door_round_trip": ("to_rows_var",),
+                "tpcds_stage_path": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -539,6 +590,177 @@ def time_var_kernel(table, log2_tiles=()):
                 tile_ms=tile_ms)
 
 
+@contextlib.contextmanager
+def fusion(mode):
+    """Run the stage path's engine `mode` ("1" fused, "0" op by op)."""
+    old = os.environ.get("SPARK_RAPIDS_TPU_STAGE_FUSION")
+    os.environ["SPARK_RAPIDS_TPU_STAGE_FUSION"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SPARK_RAPIDS_TPU_STAGE_FUSION"]
+        else:
+            os.environ["SPARK_RAPIDS_TPU_STAGE_FUSION"] = old
+
+
+def same_bytes(got, want, what):
+    """Every output equal to `want` in dtype, shape and bytes."""
+    check(len(got) == len(want), f"{what}: output count")
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and g.tobytes() == w.tobytes(), f"{what}: output {i}")
+
+
+def q5_oracle(h, stores):
+    """q5 in vectorised numpy over host copies of the same arrays (int64
+    adds, so the sums are exact).  Returns (outputs, pair totals)."""
+    sales, rets, profit, seen = (np.zeros(stores, np.int64)
+                                 for _ in range(4))
+    ms = np.isin(h.s_date, h.d_date)
+    st = h.s_store[ms]
+    np.add.at(sales, st, h.s_price[ms])
+    np.add.at(profit, st, h.s_profit[ms])
+    np.add.at(seen, st, 1)
+    mr = np.isin(h.r_date, h.d_date)
+    rt = h.r_store[mr]
+    np.add.at(rets, rt, h.r_amt[mr])
+    np.add.at(profit, rt, -h.r_loss[mr])
+    np.add.at(seen, rt, 1)
+    key = np.where(seen > 0, h.st_id, 2**31 - 1).astype(np.int32)
+    order = np.argsort(key, kind="stable")
+    return ((key[order], sales[order], rets[order], profit[order],
+             np.bool_(False)), [int(ms.sum()), int(mr.sum())])
+
+
+def q72_oracle(h, items, max_week, week0, limit):
+    """q72 in vectorised numpy: every (catalog_sales, inventory) pair on
+    item, expanded from searchsorted runs, filtered, counted per (item,
+    week) in int64, then ORDER BY count DESC, group ASC LIMIT.  Returns
+    (outputs, [pair total])."""
+    order = np.argsort(h.inv_item, kind="stable")
+    lo = np.searchsorted(h.inv_item[order], h.cs_item, "left")
+    cnt = np.searchsorted(h.inv_item[order], h.cs_item, "right") - lo
+    total = int(cnt.sum())
+    li = np.repeat(np.arange(len(h.cs_item)), cnt)
+    ri = order[np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
+               + np.arange(total)]
+    ow = h.cs_date[li] // 7
+    wk = ow - week0
+    keep = ((h.inv_date[ri] // 7 == ow + 1)
+            & (h.inv_qty[ri] < h.cs_qty[li]) & (wk >= 0) & (wk < max_week))
+    gid = (h.item_id[h.cs_item[li[keep]]].astype(np.int64) * max_week
+           + wk[keep])
+    n_groups = items * max_week
+    counts = np.bincount(gid, minlength=n_groups).astype(np.int64)
+    skey = np.where(counts > 0, -counts, 2**62)
+    top = np.lexsort((np.arange(n_groups), skey))[:limit]
+    return ((top // max_week, top % max_week + week0, counts[top],
+             np.bool_(False)), [total])
+
+
+def capacity_used(initial, totals):
+    """The capacity the retry settles on: doubled until no join's true
+    pair total exceeds it."""
+    cap = initial
+    while max(totals) > cap:
+        cap *= 2
+    return cap
+
+
+def drive_query(name, run, want, plans):
+    """One stage-path query in both engines; checks them against each
+    other and against the oracle's outputs `want`, and that each stage of
+    `plans` compiled once.  Returns its measurements."""
+    res = {}
+    outs = {}
+    for engine, mode in (("fused", "1"), ("op_by_op", "0")):
+        with fusion(mode):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[engine] = run()
+            torch.cuda.synchronize()
+            res[f"{engine}_first_call_s"] = time.perf_counter() - t0
+            res[f"{engine}_ms"] = host_ms(run, STEP_ITERS)
+            res[f"{engine}_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        print(f"stage path {name} {engine}: first call "
+              f"{res[engine + '_first_call_s']:.2f} s, "
+              f"{res[engine + '_ms']:.3f} ms, peak "
+              f"{res[engine + '_peak_mb']:.0f} MiB", flush=True)
+    same_bytes(outs["fused"], outs["op_by_op"],
+               f"{name}: fused == op by op on the card")
+    same_bytes(outs["fused"], want, f"{name}: == numpy oracle")
+    res["compile_s"] = {}
+    for plan in plans:
+        st = compile_stage(plan)
+        check(st.compiles == 1 and len(st.compile_seconds) == 1,
+              f"{name}: stage {plan.name} compiled once "
+              f"({st.compiles} compiles)")
+        res["compile_s"][plan.name] = next(iter(st.compile_seconds.values()))
+    return res
+
+
+def run_stage_path():
+    """The TPC-DS stage path at full size (see the module docstring)."""
+    RA.reset_launches()
+    stores = Q5_DATA["stores"]
+    d5 = TT.gen_q5(device="cuda", **Q5_DATA)
+    want5, totals5 = q5_oracle(TT.Q5Data(*(x.cpu().numpy() for x in d5)),
+                               stores)
+    cap5 = capacity_used(Q5_CAPACITY, totals5)
+    q5 = drive_query("q5", lambda: TC.run_q5(d5, stores, Q5_CAPACITY),
+                     want5, [TC.q5_partials_plan(stores, cap5),
+                             TC.q5_finish_plan(stores)])
+    q5.update(pair_totals=totals5, capacity=cap5,
+              rows=[Q5_DATA["rows"], Q5_DATA["rows"] // 8])
+    del d5, want5
+    torch.cuda.empty_cache()
+
+    items = Q72_DATA["items"]
+    d72 = TT.gen_q72(device="cuda", **Q72_DATA)
+    want72, totals72 = q72_oracle(
+        TT.Q72Data(*(x.cpu().numpy() for x in d72)), items, Q72_MAX_WEEK,
+        Q72_WEEK0, Q72_LIMIT)
+    cap72 = capacity_used(Q72_CAPACITY, totals72)
+    q72 = drive_query(
+        "q72", lambda: TC.run_q72(d72, items, Q72_MAX_WEEK, Q72_CAPACITY,
+                                  Q72_LIMIT, Q72_WEEK0),
+        want72, [TC.q72_partials_plan(items, Q72_MAX_WEEK, cap72,
+                                      Q72_WEEK0),
+                 TC.q72_finish_plan(items, Q72_MAX_WEEK, Q72_LIMIT,
+                                    Q72_WEEK0)])
+    q72.update(pair_totals=totals72, capacity=cap72,
+               rows=[Q72_DATA["cs_rows"], Q72_DATA["inv_rows"]],
+               groups=items * Q72_MAX_WEEK)
+    del d72, want72
+    torch.cuda.empty_cache()
+
+    # the capacity retry on the card: op by op, so the doublings compile
+    # nothing
+    small = TT.gen_q72(device="cuda", **Q72_SMALL_DATA)
+    with fusion("0"):
+        (_counts, of), cap = TC.run_q72_partials(
+            small, 4, Q72_MAX_WEEK, Q72_SMALL_CAPACITY, Q72_WEEK0)
+        outs = TC.run_q72(small, 4, Q72_MAX_WEEK, Q72_SMALL_CAPACITY,
+                          week0=Q72_WEEK0)
+    check(cap > Q72_SMALL_CAPACITY and not bool(of) and not bool(outs[-1]),
+          f"small q72 doubled its join capacity ({cap})")
+    rows = [(int(i), int(w), int(c))
+            for i, w, c in zip(*(o.cpu().tolist() for o in outs[:3]))
+            if c > 0]
+    check(rows == TT.oracle_q72(small, 4, Q72_MAX_WEEK, week0=Q72_WEEK0),
+          "small q72 after the retry == oracle")
+    launches = read_launches("tpcds_stage_path")
+    from torch._inductor.async_compile import shutdown_compile_workers
+    shutdown_compile_workers()
+    return launches, {"q5": q5, "q72": q72,
+                      "retry": {"initial_capacity": Q72_SMALL_CAPACITY,
+                                "capacity": cap}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -611,6 +833,8 @@ def main() -> int:
      rows_col) = run_bench_round_trip(bench)
     (by_path["jni_door_round_trip"], jni_ms, jni_steady,
      err) = run_jni_door(string_table, cpu_keys)
+    by_path["tpcds_stage_path"], stage_path = run_stage_path()
+    print(json.dumps({"stage_path": stage_path}), flush=True)
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -5,9 +5,11 @@
 
 Profiles, after one warm-up call each, the flagship step on 2^22 rows,
 the bench-shape round trip (212 cycled fixed-width columns x 2^19 rows,
-to-rows then from-rows) and the JNI-door round trip on chip_smoke.py's
+to-rows then from-rows), the JNI-door round trip on chip_smoke.py's
 string table (155 columns x 2^20 rows: the two hash entries, then
-convert_to_rows and convert_from_rows) with torch.profiler.  For each it
+convert_to_rows and convert_from_rows), and one fused call each of the
+TPC-DS stage path's q5 and q72 at chip_smoke.py's sizes (the warm-up
+call compiles their stages) with torch.profiler.  For each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
 time, the kernels that took the most device time and, for the JNI door,
@@ -97,6 +99,22 @@ def _jni_door(chip_smoke):
     return step
 
 
+def _stage_query(chip_smoke, name):
+    """One fused call of q5 or q72 at chip_smoke's full size."""
+    from spark_rapids_tpu_torch.models import tpcds as TT
+    from spark_rapids_tpu_torch.plan import catalog as TC
+
+    os.environ["SPARK_RAPIDS_TPU_STAGE_FUSION"] = "1"
+    if name == "q5":
+        d = TT.gen_q5(device="cuda", **chip_smoke.Q5_DATA)
+        stores = chip_smoke.Q5_DATA["stores"]
+        return lambda: TC.run_q5(d, stores, chip_smoke.Q5_CAPACITY)
+    d = TT.gen_q72(device="cuda", **chip_smoke.Q72_DATA)
+    return lambda: TC.run_q72(
+        d, chip_smoke.Q72_DATA["items"], chip_smoke.Q72_MAX_WEEK,
+        chip_smoke.Q72_CAPACITY, chip_smoke.Q72_LIMIT, chip_smoke.Q72_WEEK0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
@@ -123,6 +141,15 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in phases.items():
         print(json.dumps(_profile(name, fn, args.out)), flush=True)
+    del phases, inputs, bench
+    for name in ("q5", "q72"):
+        fn = _stage_query(chip_smoke, name)
+        print(json.dumps(_profile(f"{name}_fused", fn, args.out)),
+              flush=True)
+        del fn
+        torch.cuda.empty_cache()
+    from torch._inductor.async_compile import shutdown_compile_workers
+    shutdown_compile_workers()
     return 0
 
 

@@ -8,10 +8,16 @@ the JAX package.  Plain tensor code is PyTorch; each TPU (Pallas) kernel
 becomes a hand-written Hopper kernel under `csrc/`, built with nvcc at
 first use (utils/cuda_build.py).
 
-  columns.*  dtypes, Column, Table, host interop
-  ops.*      Spark row hashes, JCUDF row conversion and its CUDA kernels
-  shim.*     the JNI door: handle registry and jni_api entry points
-  models.*   the flagship columnar step
+  columns.*   dtypes, Column, Table, host interop
+  ops.*       Spark row hashes, JCUDF row conversion and its CUDA
+              kernels, the fixed-capacity device join probe
+  shim.*      the JNI door: handle registry and jni_api entry points
+  models.*    the flagship columnar step; TPC-DS q5/q72 hand pipelines
+              and their seeded generators
+  plan.*      the stage IR, its compiler (fused and op-by-op engines)
+              and the catalog's q5/q72 stage pipelines
+  perf.*      row buckets and operand digests that key compiled stages
+  parallel.*  the capacity-doubling overflow retry
 
 Entry points run on the device of the tensors they are given; the
 constructors default to "cuda" and take `device="cpu"` explicitly.

@@ -1,1 +1,2 @@
-"""Composed pipelines: the flagship columnar step."""
+"""Composed pipelines: the flagship columnar step and the TPC-DS q5/q72
+hand pipelines."""

@@ -1,1 +1,2 @@
-"""Stateless columnar ops: Spark row hashes and JCUDF row conversion."""
+"""Stateless columnar ops: Spark row hashes, JCUDF row conversion and
+the fixed-capacity device join probe."""

@@ -613,8 +613,13 @@ def _rebuild(dt: DType, es: List[torch.Tensor]) -> torch.Tensor:
         u = (es[0].to(torch.int64) & 0xFFFFFFFF) | (es[1].to(torch.int64)
                                                     << 32)
         return u.view(dt.torch_dtype)
-    if size == 4:   # a strided column of the word matrix: copy it out
-        return es[0].contiguous().view(dt.torch_dtype)
+    if size == 4:
+        # a column of the word matrix: copy it into storage of its own.
+        # `.contiguous()` is not enough: a one-row column counts as
+        # contiguous whatever its stride, and would alias the rows.
+        dense = torch.empty(es[0].shape, dtype=torch.int32,
+                            device=es[0].device)
+        return dense.copy_(es[0]).view(dt.torch_dtype)
     narrow = torch.int16 if size == 2 else torch.uint8
     return es[0].to(narrow).view(dt.torch_dtype)
 

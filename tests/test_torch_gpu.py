@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel byte for byte against its
 plain version (with chip_smoke.py's tables and comparisons), launch
-counts, the wrappers' input checks, and the flagship step and the
-JNI-door entries against the CPU.
+counts, the wrappers' input checks, the flagship step and the JNI-door
+entries against the CPU, and the TPC-DS stage path (q5, q72) in both
+engines against its CPU run.
 
 Marked `gpu`; each test skips without a CUDA device (decided in the
 `cuda` fixture, never at import).  The file imports no JAX, so on a GPU
@@ -18,8 +19,10 @@ from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, compare_kernels,
 from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.models import flagship as F
+from spark_rapids_tpu_torch.models import tpcds as TT
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
+from spark_rapids_tpu_torch.plan import catalog as TC
 from spark_rapids_tpu_torch.shim import jni_api
 
 
@@ -142,3 +145,31 @@ def test_var_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError):
         RA.assemble_var_rows(cols, starts, voff, fixed,
                              offsets.to(torch.int64), total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fusion", ["1", "0"])
+def test_stage_path_on_card_matches_cpu(cuda, fusion, monkeypatch):
+    """q5 and q72 at the CPU tests' sizes (tests/test_torch_tpcds.py):
+    on the card, fused or op by op, byte-equal to the op-by-op run on the
+    CPU."""
+    week0 = 11_000 // 7
+
+    def q5(device):
+        d = TT.gen_q5(rows=4000, stores=16, days=60, device=device)
+        return TC.run_q5(d, 16, 1 << 13)
+
+    def q72(device):
+        d = TT.gen_q72(cs_rows=3000, inv_rows=3000, items=64, days=35,
+                       device=device)
+        return TC.run_q72(d, 64, 16, 1 << 18, week0=week0)
+
+    for query in (q5, q72):
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+        want = query("cpu")
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", fusion)
+        got = query(cuda)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)

@@ -70,6 +70,26 @@ def test_from_rows_columns_are_contiguous():
         c.data.view(torch.uint8)   # byte view needs unit stride
 
 
+@pytest.mark.parametrize("kinds", [["int32", "int64"],
+                                   CYCLE + EXTRA + ["decimal128"]])
+def test_one_row_from_rows_owns_its_columns(kinds):
+    """At one row a column of the row words counts as contiguous whatever
+    its stride: every decoded column must still be dense storage of its
+    own, not a view into the row buffer."""
+    specs = host_table(np.random.default_rng(3), 1, kinds, null_every=2)
+    t = interop.table_from_host(specs, "cpu")
+    rows = RC.convert_to_rows(t)
+    back = RC.convert_from_rows(rows, [c.dtype for c in t.columns])
+    want = [c.data.clone() for c in back.columns]
+    for c in back.columns:
+        if c.data.dim() == 1:
+            assert c.data.stride() == (1,)
+        c.data.view(torch.uint8)
+    rows.children[0].data.zero_()
+    for c, w, orig in zip(back.columns, want, t.columns):
+        assert torch.equal(c.data, w) and torch.equal(c.data, orig.data)
+
+
 def test_zero_rows():
     t = interop.table_from_host(
         [("int64", np.zeros(0, np.int64), None),
