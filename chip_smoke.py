@@ -67,8 +67,43 @@
    pair totals, the capacity used, each stage's compile seconds, both
    engines' median of 5 synchronized calls and their peak device memory.
    A small q72 whose join capacity is far too small must double through
-   the capacity retry on the card.  The stage path launches none of the
-   hand-written kernels.
+   the capacity retry on the card.  Then the catalog's other stage
+   queries, each over 2^25 fact rows (about one executor's share of 8
+   of SF100's 287,997,024 store_sales rows) at SF100's widths, in both
+   engines against vectorised oracles (models/tpcds.*_arrays): q3
+   (204,000 items, 1,825 days, 1,000 brands approximating i_brand_id's
+   distinct count; years=5, manufacturer 3 of the generator's 8, month
+   11, LIMIT 100), q9, q67 and CUBE (i_category_id's 10 by i_class_id's
+   16) and q89 (402 stores x 204,000 items: 82.0M dense groups, the
+   largest sort of the stage path).  The stage path launches none of
+   the hand-written kernels.
+7. The named query catalog: run_catalog_query for each of its eight
+   names at the default parameters on the card, equal to the same call
+   with device="cpu"; op by op on both (the fused engine on the card is
+   step 6's).  Each name with a cancelled QueryContext must raise
+   QueryCancelled and allocate no device memory.  A check of function
+   only, untimed: the defaults' few thousand rows are not a query size.
+8. GROUP BY and ORDER BY over one GPU batch of store_sales columns:
+   2^25 rows of ss_store_sk INT32 (402 values), ss_item_sk INT32
+   (204,000), ss_quantity INT32 (1-100), ss_sales_price INT64 cents and
+   ss_net_paid FLOAT64 (never negative), the last three about 4% null:
+   0.94 GB, near spark-rapids' default target batch size
+   (spark.rapids.sql.batchSizeBytes, 1 GiB).  groupby_aggregate on
+   (store, item), about 27M groups: sum(quantity), count(net_paid),
+   min and max(price), sum and mean(net_paid); its device group ids
+   against the host branch's on the same card data; sort_table by
+   (store ASC, price DESC nulls last).  A STRING-keyed group-by and
+   order_by at 2^22 rows (1,000 distinct keys of 8-50 bytes; the
+   group-by takes the device branch, order_by sorts the strings' device
+   key words) and the same group-by and order_by over 2^18 rows of
+   257-400-byte keys (the group-by's host rank branch; order_by sorts
+   the device words at any length).  Each equals the same call on a CPU copy, byte
+   for byte except the float sums and means, which the card adds with
+   atomics in a varying order: those are held to |card - cpu| <=
+   4 * count * 2^-53 * sum|x| per group (plus 2 ulps for a mean).
+   Prints the median of 5 synchronized calls (3 for the sorts), the
+   peak device memory and the branch each group-by took.  Ends with the
+   seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -81,6 +116,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # compiled stages cache their programs inside the checkout
@@ -95,10 +131,14 @@ import torch  # noqa: E402
 from spark_rapids_tpu_torch.columns import dtypes, interop  # noqa: E402
 from spark_rapids_tpu_torch.columns.column import Column  # noqa: E402
 from spark_rapids_tpu_torch.columns.table import Table  # noqa: E402
+from spark_rapids_tpu_torch import models as TM  # noqa: E402
 from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
 from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
+from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
+from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
+from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
 from spark_rapids_tpu_torch.plan.compiler import compile_stage  # noqa: E402
 from spark_rapids_tpu_torch.shim import jni_api  # noqa: E402
@@ -162,11 +202,44 @@ Q72_LIMIT = 100
 # far too small a join capacity: the retry must double it
 Q72_SMALL_DATA = dict(cs_rows=1200, inv_rows=1200, items=4, days=35)
 Q72_SMALL_CAPACITY = 1 << 12
+# the catalog's other stage queries, each over 2^25 fact rows (about
+# one executor's share of 8 of SF100's store_sales) at SF100's widths:
+# 204,000 items and 402 stores are SF100's; 1,825 days are the five
+# years of store_sales' date range; brands = 1,000 approximates
+# i_brand_id's distinct count at SF100; q67's 10 categories and 16
+# classes are i_category_id's 1-10 and i_class_id's 1-16.  The spreads
+# are the JAX package's generators' (q3: 8 manufacturers, prices
+# 100-49,999 cents; q9: quantities 1-100; q67: sales 100-49,999; q89:
+# sales 100-29,999)
+Q3_DATA = dict(rows=1 << 25, items=204_000, days=1_825, brands=1_000,
+               seed=3)
+Q3_BASE = 10_957
+Q3_PARAMS = dict(years=5, manufact=3, month=11, limit=100)
+Q9_DATA = dict(rows=1 << 25, seed=9)
+Q67_DATA = dict(rows=1 << 25, ncat=10, ncls=16, seed=67)
+Q89_DATA = dict(rows=1 << 25, stores=402, items=204_000, seed=89)
+# the named queries, at the JAX package's default parameters
+CATALOG_NAMES = ("tpcds_q3", "tpcds_q5", "tpcds_q7", "tpcds_q9",
+                 "tpcds_q72", "tpcds_q3_fused", "tpcds_q5_fused",
+                 "tpcds_q72_fused")
+# one GPU batch of store_sales columns for the operators: 2^25 rows,
+# 28 bytes a row (0.94 GB, near spark-rapids' default target batch of
+# 1 GiB, spark.rapids.sql.batchSizeBytes), about 4% nulls in each value
+# column
+OPS_ROWS = 1 << 25
+OPS_NULL_SHARE = 0.04
+STR_OPS_ROWS = 1 << 22      # brand-like STRING keys, 8-50 bytes
+STR_DISTINCT = 1_000
+LONG_STR_ROWS = 1 << 18     # keys of 257-400 bytes: the host rank branch
+LONG_STR_DISTINCT = 200
+U53 = 2.0 ** -53
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
                 "jni_door_round_trip": ("to_rows_var",),
-                "tpcds_stage_path": ()}
+                "tpcds_stage_path": (),
+                "tpcds_catalog_entry": (),
+                "operators_batch": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -684,6 +757,12 @@ def drive_query(name, run, want, plans):
             outs[engine] = run()
             torch.cuda.synchronize()
             res[f"{engine}_first_call_s"] = time.perf_counter() - t0
+            # the first call's peak against the card, before the timed
+            # calls (q89 sorts 82.0M groups)
+            total = torch.cuda.get_device_properties(0).total_memory
+            check(torch.cuda.max_memory_allocated() < 0.9 * total,
+                  f"{name} {engine}: first call's peak under 90% of the "
+                  f"card's memory")
             res[f"{engine}_ms"] = host_ms(run, STEP_ITERS)
             res[f"{engine}_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
         print(f"stage path {name} {engine}: first call "
@@ -753,12 +832,316 @@ def run_stage_path():
             if c > 0]
     check(rows == TT.oracle_q72(small, 4, Q72_MAX_WEEK, week0=Q72_WEEK0),
           "small q72 after the retry == oracle")
+    others = run_catalog_stages()
     launches = read_launches("tpcds_stage_path")
     from torch._inductor.async_compile import shutdown_compile_workers
     shutdown_compile_workers()
     return launches, {"q5": q5, "q72": q72,
                       "retry": {"initial_capacity": Q72_SMALL_CAPACITY,
-                                "capacity": cap}}
+                                "capacity": cap}, **others}
+
+
+def q3_want(d):
+    """q3's stage outputs from the oracle: the first LIMIT groups (all
+    live at this size) and the kept-row count."""
+    years, brands, sums, kept = TT.q3_arrays(
+        d, Q3_BASE, Q3_PARAMS["manufact"], Q3_PARAMS["month"])
+    limit = Q3_PARAMS["limit"]
+    check(len(years) >= limit, f"q3 has {limit} live groups")
+    return years[:limit], brands[:limit], sums[:limit], np.int64(kept)
+
+
+def q9_want(data):
+    rows = TT.oracle_q9(*data)
+    return (np.array([r[0] for r in rows], np.int64),
+            np.array([r[1] for r in rows], np.float64),
+            np.array([r[2] for r in rows], np.float64))
+
+
+def q67_want(d, ncat, ncls):
+    """q67's stage outputs from the oracle (every group live here)."""
+    cat, cls, s, rank, cnt, sum1, total = TT.q67_arrays(d, ncat, ncls)
+    check(len(cat) == ncat * ncls, "every q67 group is live")
+    return cat, cls, s, rank, cnt, sum1, np.int64(total)
+
+
+def q89_want(d, stores, items):
+    """q89's stage outputs from the oracle: live groups by (store,
+    item), then the empty ones in group order."""
+    sales, cnt, tot = TT.q89_arrays(d, stores, items)
+    g = np.concatenate([np.nonzero(cnt)[0], np.nonzero(cnt == 0)[0]])
+    return g // items, g % items, sales[g], tot[g // items], cnt[g]
+
+
+def run_catalog_stages():
+    """q3, q9, q67, CUBE and q89 through the stage path at full size,
+    each in both engines against its oracle."""
+    out = {}
+    d = TT.gen_q3(device="cuda", **Q3_DATA)
+    want = q3_want(d)
+    out["q3"] = drive_query(
+        "q3", lambda: TC.run_q3(d, Q3_BASE, brands=Q3_DATA["brands"],
+                                **Q3_PARAMS), want,
+        [TC.q3_plan(Q3_BASE, Q3_PARAMS["years"], Q3_DATA["brands"],
+                    Q3_PARAMS["manufact"], Q3_PARAMS["month"],
+                    Q3_PARAMS["limit"])])
+    out["q3"].update(rows=Q3_DATA["rows"], kept_rows=int(want[3]))
+    del d, want
+    data = TT.gen_q9(device="cuda", **Q9_DATA)
+    out["q9"] = drive_query("q9", lambda: TC.run_q9(*data), q9_want(data),
+                            [TC.q9_plan()])
+    out["q9"].update(rows=Q9_DATA["rows"])
+    del data
+    ncat, ncls = Q67_DATA["ncat"], Q67_DATA["ncls"]
+    d = TT.gen_q67(device="cuda", **Q67_DATA)
+    out["q67"] = drive_query("q67", lambda: TC.run_q67(d, ncat, ncls),
+                             q67_want(d, ncat, ncls),
+                             [TC.q67_plan(ncat, ncls)])
+    out["cube"] = drive_query("cube", lambda: TC.run_cube(d, ncat, ncls),
+                              TT.oracle_cube(d, ncat, ncls),
+                              [TC.cube_plan(ncat, ncls)])
+    for q in ("q67", "cube"):
+        out[q].update(rows=Q67_DATA["rows"], groups=ncat * ncls)
+    del d
+    stores, items = Q89_DATA["stores"], Q89_DATA["items"]
+    d = TT.gen_q89(device="cuda", **Q89_DATA)
+    want = q89_want(d, stores, items)
+    out["q89"] = drive_query("q89", lambda: TC.run_q89(d, stores, items),
+                             want, [TC.q89_plan(stores, items)])
+    out["q89"].update(rows=Q89_DATA["rows"], groups=stores * items,
+                      live_groups=int((want[4] > 0).sum()))
+    del d, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_catalog_entry():
+    """The eight named queries through run_catalog_query at their
+    default parameters, on the card and on the CPU, op by op; then
+    each with a cancelled context, which must raise before any work
+    (no device memory allocated)."""
+    RA.reset_launches()
+    res = {}
+    with fusion("0"):
+        for name in CATALOG_NAMES:
+            got = TM.run_catalog_query(name, {"device": "cuda"})
+            want = TM.run_catalog_query(name, {"device": "cpu"})
+            check(got == want, f"catalog {name} on the card == on the CPU")
+            res[name] = {"rows": len(got)}
+        cancelled = threading.Event()
+        cancelled.set()
+        for name in CATALOG_NAMES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            try:
+                TM.run_catalog_query(name, {"device": "cuda"},
+                                     TM.QueryContext(cancel_event=cancelled))
+                check(False, f"catalog {name} ran after a cancel")
+            except TM.QueryCancelled:
+                pass
+            check(torch.cuda.max_memory_allocated() == base,
+                  f"catalog {name} did no work after a cancel")
+    print(f"catalog entry: {json.dumps(res)}", flush=True)
+    return read_launches("tpcds_catalog_entry"), res
+
+
+def store_sales_batch(rows, seed):
+    """A store_sales batch on the card: ss_store_sk INT32 (402 stores),
+    ss_item_sk INT32 (204,000 items), ss_quantity INT32 (1-100),
+    ss_sales_price INT64 cents (100-19,999) and ss_net_paid FLOAT64
+    (quantity x price, less up to 20%, in dollars; never negative), the
+    last three about 4% null."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (rows,), generator=g, dtype=dtype,
+                             device="cuda")
+
+    def valid():
+        return (torch.rand(rows, generator=g, device="cuda")
+                >= OPS_NULL_SHARE).to(torch.uint8)
+
+    qty = ints(1, 101, torch.int32)
+    price = ints(100, 20_000, torch.int64)
+    net = ((qty * price).to(torch.float64) / 100 * (
+        1 - 0.2 * torch.rand(rows, generator=g, dtype=torch.float64,
+                             device="cuda")))
+    return Table([Column(dtypes.INT32, rows, data=ints(0, 402, torch.int32)),
+                  Column(dtypes.INT32, rows,
+                         data=ints(0, 204_000, torch.int32)),
+                  Column(dtypes.INT32, rows, data=qty, validity=valid()),
+                  Column(dtypes.INT64, rows, data=price, validity=valid()),
+                  Column(dtypes.FLOAT64, rows, data=net, validity=valid())],
+                 ["ss_store_sk", "ss_item_sk", "ss_quantity",
+                  "ss_sales_price", "ss_net_paid"])
+
+
+def string_key_column(rows, distinct, lo, hi, seed):
+    """A STRING column of `rows` drawn from `distinct` brand-like values
+    (lowercase letters, digits, spaces and '#') of lo to hi bytes,
+    gathered on the card from the pool."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789 #",
+                             np.uint8)
+    pool = [bytes(alphabet[rng.integers(0, len(alphabet), n)])
+            for n in rng.integers(lo, hi + 1, distinct)]
+    pool_col = Column.from_strings(pool, "cuda")
+    idx = torch.from_numpy(rng.integers(0, distinct, rows)).to("cuda")
+    return CP.gather(pool_col, idx)
+
+
+def on_cpu(col):
+    return Column(col.dtype, col.length,
+                  data=None if col.data is None else col.data.cpu(),
+                  validity=None if col.validity is None
+                  else col.validity.cpu(),
+                  offsets=None if col.offsets is None else col.offsets.cpu())
+
+
+def same_column(a, b, what):
+    """Card column == CPU column: data bytes, validity, offsets."""
+    check(a.dtype == b.dtype and a.length == b.length, f"{what}: type")
+    check(byte_err(a.data, b.data.to(a.data.device)) == 0,
+          f"{what}: data")
+    for x, y, part in ((a.validity, b.validity, "validity"),
+                       (a.offsets, b.offsets, "offsets")):
+        check((x is None) == (y is None)
+              and (x is None or torch.equal(x.cpu(), y)), f"{what}: {part}")
+
+
+def close_float_sums(a, b, counts, mean, what):
+    """A float SUM (or MEAN) on the card against the CPU's: the card adds
+    with atomics, whose order varies, so each group is held to
+    |card - cpu| <= 4 * count * 2^-53 * sum|x| (twice the worst error
+    of two summation orders; sum|x| = the CPU's sum, as x >= 0), and a
+    mean to that over count plus 2 ulps of the mean.  `counts` are the
+    groups' non-null counts.  Returns the largest difference in units
+    of the bound."""
+    check(torch.equal(a.validity.cpu(), b.validity), f"{what}: validity")
+    ga, gb = a.data.cpu(), b.data
+    tol = 4 * U53 * counts.to(torch.float64) * gb.abs()
+    if mean:
+        tol = tol + 2 * U53 * gb.abs()
+    diff = (ga - gb).abs()
+    check(bool((diff <= tol).all()), f"{what}: within the stated bound")
+    return float((diff / tol.clamp(min=1e-300)).max())
+
+
+@contextlib.contextmanager
+def branch_log():
+    """Record which group-id branch each groupby_aggregate takes."""
+    taken = []
+    real = {n: getattr(G, n) for n in ("_group_ids_device",
+                                       "_group_ids_host")}
+    for n, fn in real.items():
+        setattr(G, n, lambda k, n=n, fn=fn: taken.append(n[11:]) or fn(k))
+    try:
+        yield taken
+    finally:
+        for n, fn in real.items():
+            setattr(G, n, fn)
+
+
+def timed(fn, iters):
+    """(median synchronized ms, peak MiB over the calls)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(fn, iters)
+    return ms, torch.cuda.max_memory_allocated() / 2**20
+
+
+def run_operators():
+    """GROUP BY and ORDER BY over one store_sales batch on the card, each
+    against the same call on a CPU copy (see the module docstring)."""
+    RA.reset_launches()
+    res = {}
+    batch = store_sales_batch(OPS_ROWS, seed=29)
+    cols = batch.columns
+    keys = Table(cols[:2])
+    # sum(quantity), count(net_paid), min and max(price), sum and
+    # mean(net_paid)
+    values = [cols[2], cols[4], cols[3], cols[3], cols[4], cols[4]]
+    aggs = ["sum", "count", "min", "max", "sum", "mean"]
+    with branch_log() as taken:
+        out = G.groupby_aggregate(keys, values, aggs)
+    torch.cuda.synchronize()
+    # the device branch against the host branch on the same card data
+    ids_d, first_d, n_d = G._group_ids_device(keys)
+    ids_h, first_h, n_h = G._group_ids_host(keys)
+    check(n_d == n_h and torch.equal(ids_d, ids_h)
+          and torch.equal(first_d, first_h),
+          "device group ids == host group ids on the card")
+    del ids_d, first_d, ids_h, first_h
+    cpu_cols = [on_cpu(c) for c in cols]
+    want = G.groupby_aggregate(Table(cpu_cols[:2]),
+                               [cpu_cols[i] for i in (2, 4, 3, 3, 4, 4)],
+                               aggs)
+    for i in (0, 1, 2, 3, 4, 5):
+        same_column(out.columns[i], want.columns[i], f"groupby column {i}")
+    counts = want.columns[3].data
+    bound = max(close_float_sums(out.columns[6], want.columns[6], counts,
+                                 False, "groupby sum(net_paid)"),
+                close_float_sums(out.columns[7], want.columns[7], counts,
+                                 True, "groupby mean(net_paid)"))
+    ms, peak = timed(lambda: G.groupby_aggregate(keys, values, aggs),
+                     STEP_ITERS)
+    res["groupby"] = {"rows": OPS_ROWS, "groups": out.num_rows,
+                      "branch": taken, "ms": ms, "peak_mb": peak,
+                      "float_diff_of_bound": bound}
+    del out, want
+    order = S.sort_table(batch, [0, 3], [True, False])
+    want = S.sort_table(Table(cpu_cols), [0, 3], [True, False])
+    for i in range(len(cols)):
+        same_column(order.columns[i], want.columns[i],
+                    f"sort_table column {i}")
+    del order, want, cpu_cols
+    ms, peak = timed(lambda: S.sort_table(batch, [0, 3], [True, False]), 3)
+    res["sort_table"] = {"rows": OPS_ROWS, "ms": ms, "peak_mb": peak}
+    del batch, cols, keys, values
+    torch.cuda.empty_cache()
+
+    for name, rows, distinct, lo, hi in (
+            ("string", STR_OPS_ROWS, STR_DISTINCT, 8, 50),
+            ("long_string", LONG_STR_ROWS, LONG_STR_DISTINCT, 257, 400)):
+        brand = string_key_column(rows, distinct, lo, hi, seed=rows + lo)
+        vals = store_sales_batch(rows, seed=lo).columns[2:]
+        keys = Table([brand])
+        s_aggs = ["sum", "count", "max", "sum", "mean"]
+        s_vals = [vals[0], vals[2], vals[1], vals[2], vals[2]]
+        with branch_log() as taken:
+            out = G.groupby_aggregate(keys, s_vals, s_aggs)
+        cpu_vals = [on_cpu(c) for c in s_vals]
+        want = G.groupby_aggregate(Table([on_cpu(brand)]), cpu_vals, s_aggs)
+        for i in range(4):
+            same_column(out.columns[i], want.columns[i],
+                        f"{name} groupby column {i}")
+        counts = want.columns[2].data
+        bound = max(close_float_sums(out.columns[4], want.columns[4],
+                                     counts, False, f"{name} sum"),
+                    close_float_sums(out.columns[5], want.columns[5],
+                                     counts, True, f"{name} mean"))
+        ms, peak = timed(lambda: G.groupby_aggregate(keys, s_vals, s_aggs),
+                         STEP_ITERS)
+        res[f"{name}_groupby"] = {
+            "rows": rows, "groups": out.num_rows, "key_bytes": [lo, hi],
+            "branch": taken, "ms": ms, "peak_mb": peak,
+            "float_diff_of_bound": bound}
+        sort_keys = Table([brand, vals[0]])
+        got = S.order_by(sort_keys, [True, False])
+        check(torch.equal(got.cpu(), S.order_by(
+            Table([on_cpu(brand), on_cpu(vals[0])]), [True, False])),
+            f"{name} order_by on the card == on the CPU")
+        ms, peak = timed(lambda: S.order_by(sort_keys, [True, False]), 3)
+        res[f"{name}_order_by"] = {"rows": rows, "ms": ms, "peak_mb": peak}
+        del brand, vals, keys, s_vals, out, want, sort_keys, got
+    check(res["groupby"]["branch"] == ["device"]
+          and res["string_groupby"]["branch"] == ["device"]
+          and res["long_string_groupby"]["branch"] == ["host"],
+          "each group-by took its branch")
+    torch.cuda.empty_cache()
+    print(f"operators: {json.dumps(res)}", flush=True)
+    return read_launches("operators_batch"), res
 
 
 def main() -> int:
@@ -776,9 +1159,18 @@ def main() -> int:
     print(f"device: {kind}  torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     t0 = time.perf_counter()
     cuda_build.build("row_assembly")
     build_s = time.perf_counter() - t0
+    phase("build")
     print(f"build: row_assembly.cu in {build_s:.1f} s (0 = cached)")
     print(cuda_build.build_log("row_assembly"), flush=True)
 
@@ -826,15 +1218,26 @@ def main() -> int:
             long_table = table
     check(min(paths.values()) > 0,
           f"both variable-width kernel paths taken: {paths}")
+    phase("kernel_checks")
 
     by_path = {}
     by_path["flagship_step"], flagship_ms, flagship_steady = run_flagship()
+    phase("flagship_step")
     (by_path["bench_round_trip"], bench_ms, bench_steady,
      rows_col) = run_bench_round_trip(bench)
+    phase("bench_round_trip")
     (by_path["jni_door_round_trip"], jni_ms, jni_steady,
      err) = run_jni_door(string_table, cpu_keys)
+    phase("jni_door_round_trip")
     by_path["tpcds_stage_path"], stage_path = run_stage_path()
     print(json.dumps({"stage_path": stage_path}), flush=True)
+    phase("tpcds_stage_path")
+    by_path["tpcds_catalog_entry"], catalog = run_catalog_entry()
+    phase("tpcds_catalog_entry")
+    by_path["operators_batch"], operators = run_operators()
+    print(json.dumps({"catalog_entry": catalog, "operators": operators}),
+          flush=True)
+    phase("operators_batch")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)
@@ -907,6 +1310,9 @@ def main() -> int:
         "jni_door_first_call_ms": jni_ms,
         "jni_door_round_trip_ms": jni_steady,
         "build_s": build_s}}))
+    phase("kernel_timing")
+    print(json.dumps({"phase_s": phase_s,
+                      "total_s": sum(phase_s.values())}), flush=True)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

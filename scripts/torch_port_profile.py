@@ -7,9 +7,10 @@ Profiles, after one warm-up call each, the flagship step on 2^22 rows,
 the bench-shape round trip (212 cycled fixed-width columns x 2^19 rows,
 to-rows then from-rows), the JNI-door round trip on chip_smoke.py's
 string table (155 columns x 2^20 rows: the two hash entries, then
-convert_to_rows and convert_from_rows), and one fused call each of the
-TPC-DS stage path's q5 and q72 at chip_smoke.py's sizes (the warm-up
-call compiles their stages) with torch.profiler.  For each it
+convert_to_rows and convert_from_rows), one fused call each of the
+TPC-DS stage path's q5, q72 and q89 at chip_smoke.py's sizes (the
+warm-up call compiles their stages), and one `groupby_aggregate` on
+chip_smoke.py's 2^25-row store_sales batch, with torch.profiler.  For each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
 time, the kernels that took the most device time and, for the JNI door,
@@ -100,11 +101,16 @@ def _jni_door(chip_smoke):
 
 
 def _stage_query(chip_smoke, name):
-    """One fused call of q5 or q72 at chip_smoke's full size."""
+    """One fused call of q5, q72 or q89 at chip_smoke's full size."""
     from spark_rapids_tpu_torch.models import tpcds as TT
     from spark_rapids_tpu_torch.plan import catalog as TC
 
     os.environ["SPARK_RAPIDS_TPU_STAGE_FUSION"] = "1"
+    if name == "q89":
+        d = TT.gen_q89(device="cuda", **chip_smoke.Q89_DATA)
+        stores, items = (chip_smoke.Q89_DATA["stores"],
+                         chip_smoke.Q89_DATA["items"])
+        return lambda: TC.run_q89(d, stores, items)
     if name == "q5":
         d = TT.gen_q5(device="cuda", **chip_smoke.Q5_DATA)
         stores = chip_smoke.Q5_DATA["stores"]
@@ -113,6 +119,20 @@ def _stage_query(chip_smoke, name):
     return lambda: TC.run_q72(
         d, chip_smoke.Q72_DATA["items"], chip_smoke.Q72_MAX_WEEK,
         chip_smoke.Q72_CAPACITY, chip_smoke.Q72_LIMIT, chip_smoke.Q72_WEEK0)
+
+
+def _groupby_batch(chip_smoke):
+    """chip_smoke's group-by on its store_sales batch: (store, item)
+    keys, sum(quantity), count, min and max(price), sum and
+    mean(net_paid)."""
+    from spark_rapids_tpu_torch.columns.table import Table
+    from spark_rapids_tpu_torch.ops import groupby as G
+
+    cols = chip_smoke.store_sales_batch(chip_smoke.OPS_ROWS, seed=29).columns
+    keys = Table(cols[:2])
+    values = [cols[2], cols[4], cols[3], cols[3], cols[4], cols[4]]
+    aggs = ["sum", "count", "min", "max", "sum", "mean"]
+    return lambda: G.groupby_aggregate(keys, values, aggs)
 
 
 def main() -> int:
@@ -142,12 +162,14 @@ def main() -> int:
     for name, fn in phases.items():
         print(json.dumps(_profile(name, fn, args.out)), flush=True)
     del phases, inputs, bench
-    for name in ("q5", "q72"):
+    for name in ("q5", "q72", "q89"):
         fn = _stage_query(chip_smoke, name)
         print(json.dumps(_profile(f"{name}_fused", fn, args.out)),
               flush=True)
         del fn
         torch.cuda.empty_cache()
+    print(json.dumps(_profile("groupby_batch", _groupby_batch(chip_smoke),
+                              args.out)), flush=True)
     from torch._inductor.async_compile import shutdown_compile_workers
     shutdown_compile_workers()
     return 0

@@ -10,12 +10,15 @@ first use (utils/cuda_build.py).
 
   columns.*   dtypes, Column, Table, host interop
   ops.*       Spark row hashes, JCUDF row conversion and its CUDA
-              kernels, the fixed-capacity device join probe
+              kernels, the fixed-capacity device join probe, GROUP BY,
+              ORDER BY, 64-bit sum helpers, gather/slice/concat and the
+              key and rank helpers under them
   shim.*      the JNI door: handle registry and jni_api entry points
-  models.*    the flagship columnar step; TPC-DS q5/q72 hand pipelines
-              and their seeded generators
+  models.*    the named query catalog; the flagship columnar step; the
+              TPC-DS hand pipelines, seeded generators and oracles
   plan.*      the stage IR, its compiler (fused and op-by-op engines)
-              and the catalog's q5/q72 stage pipelines
+              and the catalog's stage pipelines (q3, q5, q9, q67, CUBE,
+              q72, q89)
   perf.*      row buckets and operand digests that key compiled stages
   parallel.*  the capacity-doubling overflow retry
 

@@ -1,9 +1,12 @@
-"""TPC-DS-shaped pipelines written by hand: q5 and q72.
+"""TPC-DS-shaped pipelines written by hand, their seeded generators
+and their numpy oracles.
 
-Each pipeline is eager PyTorch over tensors on one device — scan ->
-join(s) -> filter -> group-by -> order-by — with the shapes the real
+Each hand pipeline is eager PyTorch over tensors on one device — scan
+-> join(s) -> filter -> group-by -> order-by — with the shapes the real
 queries have:
 
+  * q9-shape : CASE-WHEN bucketed aggregates over store_sales (5
+               quantity ranges; count/avg per range).
   * q5-shape : sales & returns facts joined to a date-filtered
                date_dim and to a store dim, grouped by store with
                decimal sums, ordered by store — join -> join ->
@@ -13,14 +16,25 @@ queries have:
                shortage filter, item dim join, group by (item, week),
                count, order by count desc with a LIMIT — the long
                multi-join chain.
+  * q3-shape : store_sales through dense date and item dims, month and
+               manufacturer filters, GROUP BY (year, brand), ORDER BY
+               year, sum DESC, brand LIMIT.
+  * q7-shape : sales through three filtering dims, four AVGs per item.
+
+q67 and q89 have generators and oracles only: their pipelines are stage
+plans (plan/catalog.py).
 
 Joins are the fixed-capacity device probe
 (ops/device_join.inner_join_device), group-bys are integer segment
 sums over dictionary-encoded keys, order-bys stable sorts over the
 padded group table with sentinel keys for empty groups; decimal sums
-are exact int64 scaled arithmetic.  These hand pipelines are the port's
-oracles for the stage-IR versions in plan/catalog.py, and the numpy
-loops `oracle_q5`/`oracle_q72` define correctness for both.
+are exact int64 scaled arithmetic, promoted to f64 only for averages.
+These hand pipelines are the port's oracles for the stage-IR versions
+in plan/catalog.py, and the numpy `oracle_*` functions define
+correctness for both.  The JAX package's oracles loop in Python per
+row; these are vectorised (numpy, exact int64 sums) and give the same
+tuples, and each one's arrays come from a helper that callers at full
+size compare with the stage outputs directly.
 
 The generators make the JAX package's draws (`models/tpcds.py` there)
 from the same `np.random.default_rng(seed)` in the same order, so both
@@ -36,6 +50,7 @@ import torch
 
 from spark_rapids_tpu_torch.ops.device_join import inner_join_device
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
+from spark_rapids_tpu_torch.plan.compiler import sort_lex
 
 
 def _segment_sum(value: torch.Tensor, ids: torch.Tensor,
@@ -43,6 +58,19 @@ def _segment_sum(value: torch.Tensor, ids: torch.Tensor,
     """Integer sum per id; every id is in range here."""
     out = torch.zeros(num_segments, dtype=value.dtype, device=value.device)
     return out.index_add(0, ids, value)
+
+
+def _host(d):
+    """Host numpy copies of a data tuple's tensors."""
+    return type(d)(*(x.cpu().numpy() for x in d))
+
+
+def _exact_sums(ids: np.ndarray, n: int, values: np.ndarray) -> np.ndarray:
+    """int64 sum of ``values`` per id in [0, n): exact, wrapping as
+    the pipelines' int64 adds do."""
+    out = np.zeros(n, np.int64)
+    np.add.at(out, ids, values.astype(np.int64))
+    return out
 
 
 # ------------------------------------------------------------------ q5
@@ -187,6 +215,49 @@ def oracle_q5(d: Q5Data, stores: int):
     return rows
 
 
+# ------------------------------------------------------------------ q9
+
+
+def gen_q9(rows: int = 100_000, seed: int = 9, device="cuda"):
+    """(quantity i32 1-100, price i64 cents, profit i64 cents)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        rng.integers(1, 101, rows).astype(np.int32),
+        rng.integers(100, 30_000, rows).astype(np.int64),
+        rng.integers(-5_000, 20_000, rows).astype(np.int64)))
+
+
+_Q9_BUCKETS = ((1, 20), (21, 40), (41, 60), (61, 80), (81, 100))
+
+
+def run_q9(quantity: torch.Tensor, price: torch.Tensor,
+           profit: torch.Tensor):
+    """q9-shape: per-bucket count / avg(price) / avg(profit); sums exact
+    in int64, averages in f64 at the presentation edge."""
+    counts, avg_p, avg_n = [], [], []
+    for lo, hi in _Q9_BUCKETS:
+        m = (quantity >= lo) & (quantity <= hi)
+        c = m.to(torch.int64).sum()
+        sp = torch.where(m, price, 0).sum()
+        sn = torch.where(m, profit, 0).sum()
+        denom = c.clamp(min=1).to(torch.float64)
+        counts.append(c)
+        avg_p.append(sp.to(torch.float64) / denom)
+        avg_n.append(sn.to(torch.float64) / denom)
+    return torch.stack(counts), torch.stack(avg_p), torch.stack(avg_n)
+
+
+def oracle_q9(quantity, price, profit):
+    """[(count, avg price, avg profit)] per bucket."""
+    q, p, n = (x.cpu().numpy() for x in (quantity, price, profit))
+    out = []
+    for lo, hi in _Q9_BUCKETS:
+        m = (q >= lo) & (q <= hi)
+        c = int(m.sum())
+        out.append((c, p[m].sum() / max(c, 1), n[m].sum() / max(c, 1)))
+    return out
+
+
 # ------------------------------------------------------------------ q72
 
 
@@ -314,6 +385,312 @@ def oracle_q72(d: Q72Data, items: int, max_week: int,
                    for (iid, wk), c in counts.items()))
     return [(g // max_week, g % max_week + week0, -negc)
             for negc, g in rows[:limit]]
+
+
+# ------------------------------------------------------------------ q3
+
+
+class Q3Data(NamedTuple):
+    s_date: torch.Tensor      # i32 days (fact)
+    s_item: torch.Tensor      # i32 item key
+    s_price: torch.Tensor     # i64 decimal64(2) cents
+    d_moy: torch.Tensor       # i32 month-of-year per day index (dense
+    #                           date dim: day d's row lives at d - base)
+    d_year: torch.Tensor      # i32 year per day index
+    i_brand: torch.Tensor     # i32 brand id per item key (dense item dim)
+    i_manufact: torch.Tensor  # i32 manufacturer id per item key
+
+
+def gen_q3(rows: int = 50_000, items: int = 256, days: int = 730,
+           brands: int = 32, seed: int = 3, device="cuda") -> Q3Data:
+    rng = np.random.default_rng(seed)
+    base = 10_957  # 2000-01-01
+    day_idx = np.arange(days)
+    cols = (
+        rng.integers(base, base + days, rows).astype(np.int32),
+        rng.integers(0, items, rows).astype(np.int32),
+        rng.integers(100, 50_000, rows).astype(np.int64),
+        ((day_idx // 30) % 12 + 1).astype(np.int32),
+        (2000 + day_idx // 365).astype(np.int32),
+        rng.integers(0, brands, items).astype(np.int32),
+        rng.integers(0, 8, items).astype(np.int32),
+    )
+    return Q3Data(*(torch.from_numpy(a).to(device) for a in cols))
+
+
+def _q3_kernel(base, years, brands, manufact, month, limit, reduce_sum):
+    """The q3 body (see _q5_kernel)."""
+    n_groups = years * brands
+
+    def compute(s_date, s_item, s_price, d_moy, d_year, i_brand,
+                i_manufact):
+        di = s_date - base
+        year_idx = d_year[di] - d_year[0]
+        keep = ((d_moy[di] == month)
+                & (i_manufact[s_item] == manufact)
+                & (year_idx >= 0) & (year_idx < years))
+        brand = i_brand[s_item]
+        gid = torch.where(keep, year_idx * brands + brand, 0)
+        amt = torch.where(keep, s_price, 0)
+        sums = reduce_sum(_segment_sum(amt, gid, n_groups))
+        cnts = reduce_sum(_segment_sum(keep.to(torch.int64), gid,
+                                       n_groups))
+        gidx = torch.arange(n_groups, dtype=torch.int64,
+                            device=sums.device)
+        sentinel = 2**62
+        k1 = torch.where(cnts > 0, gidx // brands, sentinel)
+        # ORDER BY year, sum DESC, brand
+        _a, _b, _c, g_s, sum_s, cnt_s = sort_lex(
+            (k1, torch.where(cnts > 0, -sums, sentinel), gidx % brands,
+             gidx, sums, cnts), num_keys=3)
+        live = cnt_s[:limit] > 0
+        # dead slots sentinel their year (a zero-sum group is otherwise
+        # indistinguishable from padding)
+        return (torch.where(live, g_s[:limit] // brands + d_year[0],
+                            2**31 - 1),
+                g_s[:limit] % brands, sum_s[:limit], cnts.sum())
+
+    return compute
+
+
+def make_q3(base: int, years: int, brands: int, manufact: int,
+            month: int = 11, limit: int = 100):
+    """q3-shape pipeline: store_sales JOIN date_dim (dense lookup, d_moy
+    filter) JOIN item (dense lookup, manufacturer filter) GROUP BY
+    (d_year, brand) SUM(price) ORDER BY year ASC, sum DESC, brand ASC
+    LIMIT `limit`.  Rows outside the `years`-wide window starting at
+    d_year[0] are filtered; dead output slots carry the 2^31-1 year
+    sentinel.  Returns fn(Q3Data) -> (year i64, brand i64, sum i64,
+    kept-row total i64)."""
+    kernel = _q3_kernel(base, years, brands, manufact, month, limit,
+                        lambda x: x)
+
+    def run(d: Q3Data):
+        return kernel(*d)
+
+    return run
+
+
+def q3_arrays(d: Q3Data, base: int, manufact: int, month: int = 11):
+    """Every (year, brand) group of q3 over all the data's years, in
+    ORDER BY year, sum DESC, brand order: (years, brands, sums) int64
+    arrays and the kept-row count."""
+    h = _host(d)
+    di = h.s_date.astype(np.int64) - base
+    keep = (h.d_moy[di] == month) & (h.i_manufact[h.s_item] == manufact)
+    year = h.d_year[di[keep]].astype(np.int64)
+    brand = h.i_brand[h.s_item[keep]].astype(np.int64)
+    if not len(year):
+        empty = np.zeros(0, np.int64)
+        return empty, empty, empty, 0
+    y0, width = int(year.min()), int(brand.max()) + 1
+    uniq, inv = np.unique((year - y0) * width + brand,
+                          return_inverse=True)
+    sums = _exact_sums(inv, len(uniq), h.s_price[keep])
+    years, brands = uniq // width + y0, uniq % width
+    order = np.lexsort((brands, -sums, years))
+    return years[order], brands[order], sums[order], int(keep.sum())
+
+
+def oracle_q3(d: Q3Data, base: int, brands: int, manufact: int,
+              month: int = 11, limit: int = 100):
+    """[(year, brand, sum)] for the first `limit` groups."""
+    years, brands_, sums, _n = q3_arrays(d, base, manufact, month)
+    return [(int(y), int(b), int(s))
+            for y, b, s in zip(years[:limit], brands_[:limit],
+                               sums[:limit])]
+
+
+# ------------------------------------------------------------------ q7
+
+
+class Q7Data(NamedTuple):
+    s_item: torch.Tensor     # i32
+    s_cdemo: torch.Tensor    # i32 customer-demographics key
+    s_promo: torch.Tensor    # i32 promotion key
+    s_qty: torch.Tensor      # i64
+    s_list: torch.Tensor     # i64 decimal64(2)
+    s_coupon: torch.Tensor   # i64 decimal64(2)
+    s_sales: torch.Tensor    # i64 decimal64(2)
+    cd_match: torch.Tensor   # bool per cdemo key (gender/marital/edu)
+    p_match: torch.Tensor    # bool per promo key (no email/event)
+    item_id: torch.Tensor    # i32 dictionary id per item key
+
+
+def gen_q7(rows: int = 40_000, items: int = 128, demos: int = 512,
+           promos: int = 64, seed: int = 7, device="cuda") -> Q7Data:
+    rng = np.random.default_rng(seed)
+    cols = (
+        rng.integers(0, items, rows).astype(np.int32),
+        rng.integers(0, demos, rows).astype(np.int32),
+        rng.integers(0, promos, rows).astype(np.int32),
+        rng.integers(1, 100, rows).astype(np.int64),
+        rng.integers(100, 20_000, rows).astype(np.int64),
+        rng.integers(0, 5_000, rows).astype(np.int64),
+        rng.integers(100, 18_000, rows).astype(np.int64),
+        rng.random(demos) < 0.2,
+        rng.random(promos) < 0.5,
+        rng.permutation(items).astype(np.int32),
+    )
+    return Q7Data(*(torch.from_numpy(a).to(device) for a in cols))
+
+
+def _q7_kernel(items, limit, reduce_sum):
+    """The q7 body (see _q5_kernel)."""
+
+    def compute(s_item, s_cdemo, s_promo, s_qty, s_list, s_coupon,
+                s_sales, cd_match, p_match, item_id):
+        keep = cd_match[s_cdemo] & p_match[s_promo]
+        gid = torch.where(keep, item_id[s_item], 0)
+        cnt = reduce_sum(_segment_sum(keep.to(torch.int64), gid, items))
+        sums = [reduce_sum(_segment_sum(torch.where(keep, v, 0), gid,
+                                        items))
+                for v in (s_qty, s_list, s_coupon, s_sales)]
+        denom = cnt.clamp(min=1).to(torch.float64)
+        avgs = [s.to(torch.float64) / denom for s in sums]
+        key = torch.where(cnt > 0, torch.arange(items, dtype=torch.int64,
+                                                device=cnt.device), 2**62)
+        out = sort_lex((key, cnt, *avgs), num_keys=1)
+        return tuple(o[:limit] for o in out)
+
+    return compute
+
+
+def make_q7(items: int, limit: int = 100):
+    """q7-shape pipeline: sales JOIN customer_demographics (selective
+    filter) JOIN promotion (filter) JOIN item; four AVGs GROUP BY item
+    dictionary id, ORDER BY item id LIMIT `limit` — averages as exact
+    int64 sums with one f64 divide at the edge.  Returns fn(Q7Data) ->
+    (item id i64, count i64, 4 x avg f64); dead slots hold id 2^62."""
+    kernel = _q7_kernel(items, limit, lambda x: x)
+
+    def run(d: Q7Data):
+        return kernel(*d)
+
+    return run
+
+
+def q7_arrays(d: Q7Data):
+    """q7's live groups ordered by item id: (ids, counts, then the
+    quantity, list, coupon and sales sums), int64 arrays."""
+    h = _host(d)
+    keep = h.cd_match[h.s_cdemo] & h.p_match[h.s_promo]
+    iid = h.item_id[h.s_item[keep]].astype(np.int64)
+    n = int(iid.max()) + 1 if len(iid) else 0
+    cnt = np.bincount(iid, minlength=n).astype(np.int64)
+    sums = [_exact_sums(iid, n, v[keep])
+            for v in (h.s_qty, h.s_list, h.s_coupon, h.s_sales)]
+    live = np.nonzero(cnt)[0]
+    return (live.astype(np.int64), cnt[live], *(s[live] for s in sums))
+
+
+def oracle_q7(d: Q7Data, items: int, limit: int = 100):
+    """[(item id, count, avg qty, avg list, avg coupon, avg sales)]."""
+    ids, cnt, *sums = q7_arrays(d)
+    # f64 division equals python's int / int while both are exact
+    assert all(len(s) == 0 or int(np.abs(s).max()) < 2**53 for s in sums)
+    return [(int(i), int(c), *(float(s[k] / c) for s in sums))
+            for k, (i, c) in enumerate(zip(ids[:limit], cnt[:limit]))]
+
+
+# ------------------------------------- q67 / q89 (stage-IR shapes)
+# These two shapes have no hand pipeline: their pipelines are stage
+# plans (plan/catalog.py).  The seeded generators and oracles below
+# are their contract.
+
+
+class Q67Data(NamedTuple):
+    cat: torch.Tensor     # i32 category key
+    cls: torch.Tensor     # i32 class key
+    sales: torch.Tensor   # i64 decimal64(2) cents
+
+
+def gen_q67(rows: int = 20_000, ncat: int = 8, ncls: int = 16,
+            seed: int = 67, device="cuda") -> Q67Data:
+    rng = np.random.default_rng(seed)
+    cols = (rng.integers(0, ncat, rows).astype(np.int32),
+            rng.integers(0, ncls, rows).astype(np.int32),
+            rng.integers(100, 50_000, rows).astype(np.int64))
+    return Q67Data(*(torch.from_numpy(a).to(device) for a in cols))
+
+
+def _q67_finest(d: Q67Data, ncat: int, ncls: int):
+    """Dense (ncat * ncls) finest-level sums and counts."""
+    h = _host(d)
+    g = h.cat.astype(np.int64) * ncls + h.cls
+    return (_exact_sums(g, ncat * ncls, h.sales),
+            np.bincount(g, minlength=ncat * ncls).astype(np.int64))
+
+
+def q67_arrays(d: Q67Data, ncat: int, ncls: int):
+    """Live finest-level groups ordered by (cat, rank) — rank within
+    category by sum DESC, ties by class — as (cat, cls, sum, rank,
+    count) int64 arrays, with the per-category sums and the grand
+    total."""
+    sum0, cnt0 = _q67_finest(d, ncat, ncls)
+    g = np.nonzero(cnt0)[0]
+    g = g[np.lexsort((g % ncls, -sum0[g], g // ncls))]
+    cat = g // ncls
+    rank = np.arange(len(g), dtype=np.int64) - np.searchsorted(cat, cat)
+    sum1 = sum0.reshape(ncat, ncls).sum(axis=1)
+    return (cat, g % ncls, sum0[g], rank, cnt0[g], sum1,
+            int(sum0.sum()))
+
+
+def oracle_q67(d: Q67Data, ncat: int, ncls: int):
+    """q67-shape oracle: finest-level rows as [(cat, cls, sum, rank)]
+    ordered by (cat, rank), plus the per-category rollup sums and the
+    grand total."""
+    cat, cls, s, rank, _cnt, sum1, total = q67_arrays(d, ncat, ncls)
+    rows = [(int(a), int(b), int(c), int(r))
+            for a, b, c, r in zip(cat, cls, s, rank)]
+    return rows, [int(x) for x in sum1], total
+
+
+def oracle_cube(d: Q67Data, ncat: int, ncls: int):
+    """All four grouping sets of CUBE(cat, cls) as dense vectors."""
+    sum0, cnt0 = _q67_finest(d, ncat, ncls)
+    s2 = sum0.reshape(ncat, ncls)
+    c2 = cnt0.reshape(ncat, ncls)
+    return (sum0, cnt0, s2.sum(axis=1), c2.sum(axis=1),
+            int(sum0.sum()), int(cnt0.sum()),
+            s2.sum(axis=0), c2.sum(axis=0))
+
+
+class Q89Data(NamedTuple):
+    store: torch.Tensor   # i32 store key
+    item: torch.Tensor    # i32 item key
+    sales: torch.Tensor   # i64 decimal64(2) cents
+
+
+def gen_q89(rows: int = 20_000, stores: int = 8, items: int = 32,
+            seed: int = 89, device="cuda") -> Q89Data:
+    rng = np.random.default_rng(seed)
+    cols = (rng.integers(0, stores, rows).astype(np.int32),
+            rng.integers(0, items, rows).astype(np.int32),
+            rng.integers(100, 30_000, rows).astype(np.int64))
+    return Q89Data(*(torch.from_numpy(a).to(device) for a in cols))
+
+
+def q89_arrays(d: Q89Data, stores: int, items: int):
+    """Dense per-(store, item) sales and row counts (group id store *
+    items + item) and each store's total, int64 arrays."""
+    h = _host(d)
+    g = h.store.astype(np.int64) * items + h.item
+    return (_exact_sums(g, stores * items, h.sales),
+            np.bincount(g, minlength=stores * items).astype(np.int64),
+            _exact_sums(h.store, stores, h.sales))
+
+
+def oracle_q89(d: Q89Data, stores: int, items: int):
+    """q89-shape oracle: live (store, item) groups ordered by (store,
+    item) with each group's sales, its store's total (the
+    sum-over-partition window), and the group row count."""
+    sales, cnt, tot = q89_arrays(d, stores, items)
+    g = np.nonzero(cnt)[0]
+    return [(int(st), int(it), int(s), int(tot[st]), int(c))
+            for st, it, s, c in zip(g // items, g % items, sales[g],
+                                    cnt[g])]
 
 
 # --------------------------------------------------- capacity retry

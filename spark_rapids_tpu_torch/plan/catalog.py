@@ -1,13 +1,23 @@
-"""TPC-DS catalog stages expressed in the stage IR: q5 and q72.
+"""TPC-DS catalog stages expressed in the stage IR.
 
-The hand pipelines in models/tpcds.py are the byte-identity oracles;
-this module re-expresses the same queries as
+The hand pipelines in models/tpcds.py are the byte-identity oracles
+where a query has one; this module re-expresses the queries as
 :class:`~spark_rapids_tpu_torch.plan.ir.StagePlan` pipelines run by
-plan/compiler.py.  q5 and q72 are two stages each joined by a typed
-ShuffleBoundary (partials | finish); one process hands the carry
-straight across.  The plans are the JAX package's
-(`spark_rapids_tpu/plan/catalog.py`) node for node, so their digests
-are equal.
+plan/compiler.py:
+
+  * q3, q9     — one stage each: scan-bind -> project/filter ->
+                 segment aggregate -> sort/limit;
+  * q5, q72    — two stages joined by a typed ShuffleBoundary
+                 (partials | finish); one process hands the carry
+                 straight across;
+  * q67-shape  — GROUP BY ROLLUP(category, class) + rank() OVER
+                 (PARTITION BY category ORDER BY sales DESC), and its
+                 CUBE variant;
+  * q89-shape  — sum(sales) OVER (PARTITION BY store) broadcast back
+                 to each (store, item) group.
+
+The plans are the JAX package's (`spark_rapids_tpu/plan/catalog.py`)
+node for node, so their digests are equal.
 
 Every expression mirrors its hand-pipeline twin operation for
 operation (same dtypes, same literal promotion, exact int64
@@ -15,18 +25,20 @@ aggregates), which is what makes the results byte-identical.  Fact
 inputs pad their join-key columns with side-specific sentinels (-1
 left, -2 right) so bucket-pad rows can never match each other.
 
-q3, q9, q67 and q89 come next (ROADMAP A8); the generator-size row
-estimates (A14) and the multi-process fused stage factories (A10) later.
+The generator-size row estimates come with ROADMAP A14 and the
+multi-process fused stage factories with A10.
 """
 
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
 from spark_rapids_tpu_torch.plan.compiler import (compile_pipeline,
                                                   compile_stage)
 from spark_rapids_tpu_torch.plan.ir import (Arange, Bin, Col, ColSpec, Idx,
-                                            JoinProbe, Lit, Pipeline,
-                                            Project, Reduce, ScanBind,
-                                            SegmentSum, ShuffleBoundary, Sl,
-                                            Sort, StagePlan, Un, Where)
+                                            JoinProbe, Lit, Mask, Pipeline,
+                                            Project, Reduce, Rollup,
+                                            ScanBind, SegmentSum,
+                                            ShuffleBoundary, Sl, Sort,
+                                            Stack, StagePlan, Un, Where,
+                                            WindowRank, WindowSum)
 
 I64_SENTINEL = Lit(2 ** 62, "int64")
 
@@ -288,3 +300,238 @@ def run_q72_finish(counts, of, items: int, max_week: int, limit: int,
                    week0: int):
     st = compile_stage(q72_finish_plan(items, max_week, limit, week0))
     return st.run({"xchg": (counts, of)})
+
+
+# ------------------------------------------------------------------- q3
+
+
+def q3_plan(base: int, years: int, brands: int, manufact: int,
+            month: int = 11, limit: int = 100) -> StagePlan:
+    """q3 as ONE stage (mirrors models.tpcds._q3_kernel): dense date +
+    item dim lookups, month/manufacturer filters, (year, brand) sums,
+    three-key order-by with LIMIT."""
+    n_groups = years * brands
+    return StagePlan(
+        name="q3",
+        inputs=(
+            ScanBind("s", (ColSpec("s_date", pad=base),
+                           ColSpec("s_item"), ColSpec("s_price"))),
+            ScanBind("dims", (ColSpec("d_moy"), ColSpec("d_year"),
+                              ColSpec("i_brand"),
+                              ColSpec("i_manufact")), bucket=False),
+        ),
+        nodes=(
+            Project("di", Bin("sub", Col("s_date"), Lit(base))),
+            Project("year_idx", Bin("sub",
+                                    Idx(Col("d_year"), Col("di")),
+                                    Idx(Col("d_year"), Lit(0)))),
+            # Mask('s') last: pad rows (s_date=base -> a real day)
+            # must never reach the aggregates
+            Project("keep", _and(
+                Bin("eq", Idx(Col("d_moy"), Col("di")), Lit(month)),
+                Bin("eq", Idx(Col("i_manufact"), Col("s_item")),
+                    Lit(manufact)),
+                Bin("ge", Col("year_idx"), Lit(0)),
+                Bin("lt", Col("year_idx"), Lit(years)),
+                Mask("s"))),
+            Project("brand", Idx(Col("i_brand"), Col("s_item"))),
+            Project("gid", Where(
+                Col("keep"),
+                Bin("add", Bin("mul", Col("year_idx"), Lit(brands)),
+                    Col("brand")), Lit(0))),
+            Project("amt", Where(Col("keep"), Col("s_price"),
+                                 Lit(0))),
+            SegmentSum("sums0", Col("amt"), Col("gid"), n_groups),
+            Reduce("sums", Col("sums0")),
+            SegmentSum("cnts0", Un("i64", Col("keep")), Col("gid"),
+                       n_groups),
+            Reduce("cnts", Col("cnts0")),
+            Project("gidx", Arange(n_groups, "int64")),
+            Project("year_of_g", Bin("floordiv", Col("gidx"),
+                                     Lit(brands))),
+            Project("brand_of_g", Bin("mod", Col("gidx"),
+                                      Lit(brands))),
+            Project("k1", Where(_gt0(Col("cnts")), Col("year_of_g"),
+                                I64_SENTINEL)),
+            Project("k2", Where(_gt0(Col("cnts")),
+                                Un("neg", Col("sums")),
+                                I64_SENTINEL)),
+            Sort(("_a", "_b", "_c", "g_s", "sum_s", "cnt_s"),
+                 (Col("k1"), Col("k2"), Col("brand_of_g"),
+                  Col("gidx"), Col("sums"), Col("cnts")), num_keys=3),
+            Project("live", _gt0(Sl(Col("cnt_s"), 0, limit))),
+            Project("yrs", Where(
+                Col("live"),
+                Bin("add", Bin("floordiv", Sl(Col("g_s"), 0, limit),
+                               Lit(brands)),
+                    Idx(Col("d_year"), Lit(0))),
+                Lit(2 ** 31 - 1, "int64"))),
+            Project("brands_out", Bin("mod", Sl(Col("g_s"), 0, limit),
+                                      Lit(brands))),
+            Project("sums_out", Sl(Col("sum_s"), 0, limit)),
+            Project("total", Un("sum", Col("cnts"))),
+        ),
+        outputs=("yrs", "brands_out", "sums_out", "total"),
+    )
+
+
+def run_q3(d, base: int, years: int, brands: int, manufact: int,
+           month: int = 11, limit: int = 100):
+    """q3 on the device of ``d``'s tensors — same tuple as
+    models.tpcds.make_q3(...)(d).  The second ScanBind is unbucketed:
+    the date and item dims' exact lengths enter the compile key."""
+    # ROADMAP A14: the generator-size row estimates are noted here
+    st = compile_stage(q3_plan(base, years, brands, manufact, month,
+                               limit))
+    return st.run({"s": (d.s_date, d.s_item, d.s_price),
+                   "dims": (d.d_moy, d.d_year, d.i_brand,
+                            d.i_manufact)})
+
+
+# ------------------------------------------------------------------- q9
+
+_Q9_BUCKETS = ((1, 20), (21, 40), (41, 60), (61, 80), (81, 100))
+
+
+def q9_plan() -> StagePlan:
+    """q9 as ONE stage (mirrors models.tpcds.run_q9): five CASE-WHEN
+    quantity buckets, exact int64 sums, f64 avgs at the edge.  Pad
+    rows carry quantity 0, outside every bucket."""
+    nodes = []
+    cs, aps, ans = [], [], []
+    for k, (lo, hi) in enumerate(_Q9_BUCKETS):
+        m = f"m{k}"
+        nodes += [
+            Project(m, Bin("and",
+                           Bin("ge", Col("quantity"), Lit(lo)),
+                           Bin("le", Col("quantity"), Lit(hi)))),
+            Project(f"c{k}", Un("sum", Un("i64", Col(m)))),
+            Project(f"sp{k}", Un("sum", Where(Col(m), Col("price"),
+                                              Lit(0)))),
+            Project(f"sn{k}", Un("sum", Where(Col(m), Col("profit"),
+                                              Lit(0)))),
+            Project(f"ap{k}", Bin("div", Un("f64", Col(f"sp{k}")),
+                                  Un("f64", Bin("max", Col(f"c{k}"),
+                                                Lit(1))))),
+            Project(f"an{k}", Bin("div", Un("f64", Col(f"sn{k}")),
+                                  Un("f64", Bin("max", Col(f"c{k}"),
+                                                Lit(1))))),
+        ]
+        cs.append(Col(f"c{k}"))
+        aps.append(Col(f"ap{k}"))
+        ans.append(Col(f"an{k}"))
+    nodes += [Project("counts", Stack(tuple(cs))),
+              Project("avg_p", Stack(tuple(aps))),
+              Project("avg_n", Stack(tuple(ans)))]
+    return StagePlan(
+        name="q9",
+        inputs=(ScanBind("f", (ColSpec("quantity"), ColSpec("price"),
+                               ColSpec("profit"))),),
+        nodes=tuple(nodes),
+        outputs=("counts", "avg_p", "avg_n"),
+    )
+
+
+def run_q9(quantity, price, profit):
+    st = compile_stage(q9_plan())
+    return st.run({"f": (quantity, price, profit)})
+
+
+# ------------------------------------------- q67-shape (rollup + rank)
+
+
+def q67_plan(ncat: int, ncls: int) -> StagePlan:
+    """q67-shape: sum(sales) GROUP BY ROLLUP(category, class), then
+    rank() OVER (PARTITION BY category ORDER BY sum DESC) on the
+    finest level, presented sorted by (category, rank).  Dead groups
+    sort last under int sentinels."""
+    n = ncat * ncls
+    return StagePlan(
+        name="q67",
+        inputs=(ScanBind("f", (ColSpec("cat"), ColSpec("cls"),
+                               ColSpec("sales"))),),
+        nodes=(
+            Rollup("r", (Col("cat"), Col("cls")), (ncat, ncls),
+                   Col("sales"), Mask("f"), mode="rollup"),
+            Project("part", Bin("floordiv", Arange(n, "int64"),
+                                Lit(ncls))),
+            Project("okey", Where(_gt0(Col("r.cnt0")),
+                                  Un("neg", Col("r.sum0")),
+                                  I64_SENTINEL)),
+            WindowRank("rank", Col("part"), Col("okey")),
+            Project("kcat", Where(_gt0(Col("r.cnt0")), Col("part"),
+                                  Lit(2 ** 31 - 1, "int64"))),
+            Sort(("cat_s", "rank_s", "gid_s", "sum_s", "cnt_s"),
+                 (Col("kcat"), Col("rank"), Arange(n, "int64"),
+                  Col("r.sum0"), Col("r.cnt0")), num_keys=2),
+            Project("cls_s", Bin("mod", Col("gid_s"), Lit(ncls))),
+        ),
+        outputs=("cat_s", "cls_s", "sum_s", "rank_s", "cnt_s",
+                 "r.sum1", "r.sumt"),
+    )
+
+
+def run_q67(d, ncat: int, ncls: int):
+    st = compile_stage(q67_plan(ncat, ncls))
+    return st.run({"f": (d.cat, d.cls, d.sales)})
+
+
+def cube_plan(ncat: int, ncls: int) -> StagePlan:
+    """The CUBE variant of the grouping-sets node: all four grouping
+    sets of (cat, cls) as exact int64 folds of the finest level."""
+    return StagePlan(
+        name="cube2",
+        inputs=(ScanBind("f", (ColSpec("cat"), ColSpec("cls"),
+                               ColSpec("sales"))),),
+        nodes=(Rollup("r", (Col("cat"), Col("cls")), (ncat, ncls),
+                      Col("sales"), Mask("f"), mode="cube"),),
+        outputs=("r.sum0", "r.cnt0", "r.sum1", "r.cnt1", "r.sumt",
+                 "r.cntt", "r.sum2", "r.cnt2"),
+    )
+
+
+def run_cube(d, ncat: int, ncls: int):
+    st = compile_stage(cube_plan(ncat, ncls))
+    return st.run({"f": (d.cat, d.cls, d.sales)})
+
+
+# ------------------------------------ q89-shape (sum-over-partition)
+
+
+def q89_plan(stores: int, items: int) -> StagePlan:
+    """q89-shape: per-(store, item) sales vs the whole store's total —
+    sum(sales) OVER (PARTITION BY store) broadcast back to each group
+    row, presented sorted by (store, item), live groups first."""
+    n = stores * items
+    return StagePlan(
+        name="q89",
+        inputs=(ScanBind("f", (ColSpec("store"), ColSpec("item"),
+                               ColSpec("sales"))),),
+        nodes=(
+            Project("gid", Where(
+                Mask("f"),
+                Bin("add", Bin("mul", Un("i64", Col("store")),
+                               Lit(items)),
+                    Un("i64", Col("item"))), Lit(0))),
+            Project("w", Where(Mask("f"), Col("sales"), Lit(0))),
+            SegmentSum("g_sales", Col("w"), Col("gid"), n),
+            SegmentSum("g_cnt", Un("i64", Mask("f")), Col("gid"), n),
+            Project("part", Bin("floordiv", Arange(n, "int64"),
+                                Lit(items))),
+            WindowSum("tot", Col("part"), Col("g_sales"), stores),
+            Project("key", Where(_gt0(Col("g_cnt")),
+                                 Arange(n, "int64"), I64_SENTINEL)),
+            Sort(("key_s", "gid_s", "sales_s", "tot_s", "cnt_s"),
+                 (Col("key"), Arange(n, "int64"), Col("g_sales"),
+                  Col("tot"), Col("g_cnt")), num_keys=1),
+            Project("store_s", Bin("floordiv", Col("gid_s"),
+                                   Lit(items))),
+            Project("item_s", Bin("mod", Col("gid_s"), Lit(items))),
+        ),
+        outputs=("store_s", "item_s", "sales_s", "tot_s", "cnt_s"),
+    )
+
+
+def run_q89(d, stores: int, items: int):
+    st = compile_stage(q89_plan(stores, items))
+    return st.run({"f": (d.store, d.item, d.sales)})

@@ -44,6 +44,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch.ops.device_join import inner_join_device
+from spark_rapids_tpu_torch.ops.joins import _lex_order
 from spark_rapids_tpu_torch.perf.calibrate import operands_digest
 from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows
 from spark_rapids_tpu_torch.plan import ir
@@ -329,11 +330,7 @@ def sort_lex(operands: Sequence[torch.Tensor], num_keys: int) -> tuple:
     """lax.sort(operands, num_keys): the operands reordered by the
     first ``num_keys`` as a lexicographic key, ties kept in row order
     (one stable sort a key, the last key first)."""
-    perm = None
-    for key in reversed(operands[:num_keys]):
-        k = _sort_key(key if perm is None else key[perm])
-        order = torch.sort(k, stable=True).indices
-        perm = order if perm is None else perm[order]
+    perm = _lex_order([_sort_key(k) for k in operands[:num_keys]])
     return tuple(o[perm] for o in operands)
 
 

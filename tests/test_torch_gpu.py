@@ -1,8 +1,13 @@
 """PyTorch port on the card: each CUDA kernel byte for byte against its
 plain version (with chip_smoke.py's tables and comparisons), launch
 counts, the wrappers' input checks, the flagship step and the JNI-door
-entries against the CPU, and the TPC-DS stage path (q5, q72) in both
-engines against its CPU run.
+entries against the CPU, the TPC-DS stage path (q5, q72, q3, q9, q67,
+CUBE, q89) in both engines and the named catalog against their CPU
+runs, and GROUP BY / ORDER BY / copying on the card against the CPU
+(the device group-id branch also against the host branch on the same
+card data).  Float SUM/MEAN on the card add with atomics in a varying
+order, so they are held to chip_smoke.close_float_sums's bound; every
+other output is byte-equal.
 
 Marked `gpu`; each test skips without a CUDA device (decided in the
 `cuda` fixture, never at import).  The file imports no JAX, so on a GPU
@@ -14,12 +19,19 @@ host without JAX it runs alone:
 import pytest
 import torch
 
-from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, compare_kernels,
-                        compare_var_kernel, make_table, string_host_specs)
+from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, close_float_sums,
+                        compare_kernels, compare_var_kernel, make_table,
+                        on_cpu, same_column, store_sales_batch,
+                        string_host_specs, string_key_column)
+from spark_rapids_tpu_torch import models as TM
 from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
+from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.models import flagship as F
 from spark_rapids_tpu_torch.models import tpcds as TT
+from spark_rapids_tpu_torch.ops import copying as CP
+from spark_rapids_tpu_torch.ops import groupby as G
+from spark_rapids_tpu_torch.ops import sorting as S
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
 from spark_rapids_tpu_torch.plan import catalog as TC
@@ -173,3 +185,130 @@ def test_stage_path_on_card_matches_cpu(cuda, fusion, monkeypatch):
         for g, w in zip(got, want):
             assert g.device.type == "cuda" and g.dtype == w.dtype
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fusion", ["1", "0"])
+def test_catalog_stages_on_card_match_cpu(cuda, fusion, monkeypatch):
+    """q3, q9, q67, CUBE and q89 at 3001 rows: on the card, fused or op
+    by op, byte-equal to the op-by-op run on the CPU."""
+    queries = (
+        lambda dev: TC.run_q3(TT.gen_q3(rows=3001, items=64, brands=8,
+                                        device=dev), 10_957, 3, 8, 2),
+        lambda dev: TC.run_q9(*TT.gen_q9(rows=3001, device=dev)),
+        lambda dev: TC.run_q67(TT.gen_q67(rows=3001, ncat=6, ncls=5,
+                                          device=dev), 6, 5),
+        lambda dev: TC.run_cube(TT.gen_q67(rows=3001, ncat=4, ncls=3,
+                                           device=dev), 4, 3),
+        lambda dev: TC.run_q89(TT.gen_q89(rows=3001, stores=9, items=400,
+                                          device=dev), 9, 400))
+    for query in queries:
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+        want = query("cpu")
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", fusion)
+        got = query(cuda)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_catalog_names_on_card_match_cpu(cuda, monkeypatch):
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+    for name in TM.catalog_queries():
+        for params in ({}, {"rows": 3001, "seed": 2}):
+            assert TM.run_catalog_query(name, dict(params, device="cuda")) \
+                == TM.run_catalog_query(name, dict(params, device="cpu"))
+
+
+def _check_groupby(keys, values, aggs, counts_at, floats_at):
+    """groupby_aggregate on the card == on the CPU (floats within the
+    bound); the device ids == the host ids on the card data."""
+    got = G.groupby_aggregate(keys, values, aggs)
+    want = G.groupby_aggregate(Table([on_cpu(c) for c in keys.columns]),
+                               [on_cpu(c) for c in values], aggs)
+    for i, (g, w) in enumerate(zip(got.columns, want.columns)):
+        if i in floats_at:
+            close_float_sums(g, w, want.columns[counts_at].data,
+                             floats_at[i], f"column {i}")
+        else:
+            same_column(g, w, f"column {i}")
+    d, h = G._group_ids_device(keys), G._group_ids_host(keys)
+    assert d[2] == h[2] and torch.equal(d[0], h[0]) and torch.equal(d[1],
+                                                                    h[1])
+
+
+@pytest.mark.gpu
+def test_groupby_on_card_matches_cpu(cuda):
+    t = store_sales_batch(1 << 16, seed=3)
+    c = t.columns
+    keys = Table([Column(dtypes.INT32, c[0].length,
+                         data=c[0].data % 7, validity=c[2].validity),
+                  c[1]])
+    _check_groupby(keys, [c[2], c[4], c[3], c[3], c[4], c[4], c[4], c[4]],
+                   ["sum", "count", "min", "max", "sum", "mean", "min",
+                    "max"], 3, {6: False, 7: True})
+    brand = string_key_column(1 << 15, 300, 0, 40, seed=4)
+    s = store_sales_batch(1 << 15, seed=5).columns
+    _check_groupby(Table([brand, s[0]]), [s[2], s[4], s[4]],
+                   ["sum", "count", "sum"], 3, {4: False})
+
+
+@pytest.mark.gpu
+def test_groupby_float_and_decimal_keys_on_card(cuda):
+    import numpy as np
+    rng = np.random.default_rng(8)
+    n = 5000
+    bits = np.array([0, 0x8000000000000000, 0x7FF8000000000000,
+                     0x7FF0000000000001, 0xFFF0000000000000,
+                     0x4004000000000000], np.uint64)[rng.integers(0, 6, n)]
+    limbs = rng.integers(-3, 3, (n, 4)).astype(np.int32)
+    keys = interop.table_from_host(
+        [("float64", bits, (rng.random(n) < 0.8).astype(np.uint8)),
+         ("decimal128", limbs, None)], device="cuda")
+    vals = interop.table_from_host(
+        [("float64", rng.normal(size=n).view(np.uint64), None)],
+        device="cuda").columns * 3
+    got = G.groupby_aggregate(keys, vals, ["min", "max", "count"])
+    want = G.groupby_aggregate(Table([on_cpu(c) for c in keys.columns]),
+                               [on_cpu(c) for c in vals],
+                               ["min", "max", "count"])
+    for i, (g, w) in enumerate(zip(got.columns, want.columns)):
+        same_column(g, w, f"column {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("asc,nulls_first", [(True, True), (True, False),
+                                             (False, True), (False, False)])
+def test_order_by_on_card_matches_cpu(cuda, asc, nulls_first):
+    t = store_sales_batch(1 << 15, seed=6)
+    brand = string_key_column(1 << 15, 100, 0, 20, seed=7)
+    for cols in ([t.columns[4], t.columns[0]], [brand, t.columns[3]],
+                 [t.columns[2]]):
+        keys = Table(cols)
+        a = [asc] * len(cols)
+        f = [nulls_first] * len(cols)
+        got = S.order_by(keys, a, f)
+        want = S.order_by(Table([on_cpu(c) for c in cols]), a, f)
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+    sorted_t = S.sort_table(t, [0, 3], [True, False])
+    want_t = S.sort_table(Table([on_cpu(c) for c in t.columns]), [0, 3],
+                          [True, False])
+    for i, (g, w) in enumerate(zip(sorted_t.columns, want_t.columns)):
+        same_column(g, w, f"sort_table column {i}")
+
+
+@pytest.mark.gpu
+def test_copying_on_card_matches_cpu(cuda):
+    brand = string_key_column(4000, 50, 0, 30, seed=9)
+    t = Table([brand, *store_sales_batch(4000, seed=10).columns])
+    cpu = Table([on_cpu(c) for c in t.columns])
+    idx = torch.randint(0, 4000, (3000,), device="cuda")
+    pairs = [(CP.gather_table(t, idx), CP.gather_table(cpu, idx.cpu())),
+             (CP.slice_table(t, 17, 2900), CP.slice_table(cpu, 17, 2900)),
+             (CP.concat_tables(CP.split_table(t, [5, 1000])),
+              CP.concat_tables(CP.split_table(cpu, [5, 1000])))]
+    for got, want in pairs:
+        for i, (g, w) in enumerate(zip(got.columns, want.columns)):
+            same_column(g, w, f"column {i}")

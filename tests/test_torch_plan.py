@@ -243,6 +243,13 @@ def _same(got, want):
     lambda m: m.q72_finish_plan(204_000, 16, 100, 11_000 // 7),
     lambda m: m.q72_pipeline(64, 16, 1 << 18, week0=11_000 // 7),
     lambda m: m.q72_pipeline(4, 16, 1 << 26, limit=7),
+    lambda m: m.q3_plan(10_957, 3, 8, 2),
+    lambda m: m.q3_plan(10_957, 5, 1000, 3, month=11, limit=100),
+    lambda m: m.q9_plan(),
+    lambda m: m.q67_plan(6, 5),
+    lambda m: m.q67_plan(10, 16),
+    lambda m: m.cube_plan(4, 3),
+    lambda m: m.q89_plan(402, 204_000),
 ])
 def test_catalog_digests_match_reference(build):
     ours, ref = build(TC), build(JC)

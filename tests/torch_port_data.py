@@ -186,3 +186,37 @@ def check_from_rows(rows, ncols, dec_every, br):
         assert d0.tobytes() == d.tobytes()
         want = np.ones_like(v) if v0 is None else (v0 != 0).astype(np.uint8)
         np.testing.assert_array_equal(want, v)
+
+
+# ------------------------------------------------- TPC-DS catalog cases
+# name -> (generator, its arguments, run(catalog module, data)): the
+# catalog's single-stage queries at the sizes of tests/test_stage_fusion.py,
+# 3001 rows so the bucket pad path runs, q67 also at 100 rows (dead groups)
+CATALOG_CASES = {
+    "q3": ("gen_q3", dict(rows=3001, items=64, days=730, brands=8),
+           lambda m, d: m.run_q3(d, 10_957, years=3, brands=8, manufact=2)),
+    "q9": ("gen_q9", dict(rows=3001), lambda m, d: m.run_q9(*d)),
+    "q67": ("gen_q67", dict(rows=3001, ncat=6, ncls=5),
+            lambda m, d: m.run_q67(d, 6, 5)),
+    "q67_sparse": ("gen_q67", dict(rows=100, ncat=10, ncls=16, seed=4),
+                   lambda m, d: m.run_q67(d, 10, 16)),
+    "cube": ("gen_q67", dict(rows=3001, ncat=4, ncls=3, seed=3),
+             lambda m, d: m.run_cube(d, 4, 3)),
+    "q89": ("gen_q89", dict(rows=3001, stores=9, items=400),
+            lambda m, d: m.run_q89(d, 9, 400)),
+}
+
+
+def np_of(x):
+    """A tensor's or an array's host numpy value."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def same_outputs(got, want):
+    """Equal output tuples: dtype, shape and bytes of each."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np_of(g), np_of(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, (i, g.dtype,
+                                                           w.dtype)
+        assert g.tobytes() == w.tobytes(), i
