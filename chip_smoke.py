@@ -102,7 +102,30 @@
    atomics in a varying order: those are held to |card - cpu| <=
    4 * count * 2^-53 * sum|x| per group (plus 2 ulps for a mean).
    Prints the median of 5 synchronized calls (3 for the sorts), the
-   peak device memory and the branch each group-by took.  Ends with the
+   peak device memory and the branch each group-by took.
+9. The join layer (ops/joins.py, ops/hash_join.py, perf/calibrate.py)
+   at one executor's share of 8 of TPC-DS SF100, each cell drawn on the
+   card from a seed: J1 store_sales (2^25 rows, ss_customer_sk INT32
+   about 4% null, NULL_UNEQUAL) x customer (SF100's 2,000,000 unique
+   keys); J2 store_sales x 2^22 store_returns drawn from the sales rows
+   on (ss_item_sk INT32, ss_ticket_number INT64); J3 q72's cut
+   catalog_sales (2^22) x inventory (2^21) on 204,000 items, about
+   43.1M pairs; J4 2^22 brand-like STRING keys of 8-50 bytes x a
+   1,000-row brand dim, and 2^18 keys of 257-400 bytes x 200.  Every
+   engine (host_rank, host_hash, device_sort, device_hash) runs by
+   name on every cell and must equal a numpy oracle byte for byte
+   (int32 pairs on the card); the device engines are timed as the
+   median of 5 synchronized calls, the host engines once, each with
+   the peak device memory its first call added to what was already
+   held (`peak_added_mb`); device_hash's first call must double its
+   pair capacity on J3 and its second start from the learned one.
+   Then the router unpinned, with its verdict file fresh under build/:
+   its engine, its verdict and calibration seconds, and its pairs
+   against the oracle (keys over 256 bytes must route host_rank).  The
+   JNI door's sort_merge_inner_join on J1 through handles, every
+   handle released; and models.query.simple_star_join_agg over 2^25
+   store_sales rows x 204,000 items grouped by i_brand_id (1,000), SUM
+   of INT64 cents and COUNT exact against numpy.  Ends with the
    seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -133,13 +156,17 @@ from spark_rapids_tpu_torch.columns.column import Column  # noqa: E402
 from spark_rapids_tpu_torch.columns.table import Table  # noqa: E402
 from spark_rapids_tpu_torch import models as TM  # noqa: E402
 from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
+from spark_rapids_tpu_torch.models import query as Q  # noqa: E402
 from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
 from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
 from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
+from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
+from spark_rapids_tpu_torch.ops import joins as J  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
 from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
+from spark_rapids_tpu_torch.perf import calibrate as CAL  # noqa: E402
 from spark_rapids_tpu_torch.plan.compiler import compile_stage  # noqa: E402
 from spark_rapids_tpu_torch.shim import jni_api  # noqa: E402
 from spark_rapids_tpu_torch.shim.handles import REGISTRY  # noqa: E402
@@ -233,13 +260,34 @@ STR_DISTINCT = 1_000
 LONG_STR_ROWS = 1 << 18     # keys of 257-400 bytes: the host rank branch
 LONG_STR_DISTINCT = 200
 U53 = 2.0 ** -53
+# the join layer at one executor's share of 8 of TPC-DS SF100: J1
+# store_sales x customer (SF100's 2,000,000 rows, unique keys) on
+# ss_customer_sk, about 4% null (dsdgen's nullable foreign key); J2
+# store_sales x store_returns drawn from the sales rows on (item,
+# ticket); J3 q72's catalog_sales x inventory on the item (q72's cut
+# sizes above); J4 brand-like STRING keys against a brand dim, and keys
+# over DEVICE_STR_KEY_MAX_LEN (the host_rank route); the star join
+# store_sales x item grouped by i_brand_id
+J1_ROWS = 1 << 25
+J1_CUSTOMERS = 2_000_000
+J1_NULL_SHARE = 0.04
+J2_RETURNS = 1 << 22
+J2_ITEMS_PER_TICKET = 10
+J3_DATA = dict(cs_rows=1 << 22, inv_rows=1 << 21, items=204_000)
+J4_DATA = dict(rows=STR_OPS_ROWS, distinct=STR_DISTINCT, lo=8, hi=50)
+J4_LONG_DATA = dict(rows=LONG_STR_ROWS, distinct=LONG_STR_DISTINCT, lo=257,
+                    hi=400)
+STAR_ITEMS = 204_000
+STAR_BRANDS = 1_000
+JOIN_ENGINES = ("host_rank", "host_hash", "device_sort", "device_hash")
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
                 "jni_door_round_trip": ("to_rows_var",),
                 "tpcds_stage_path": (),
                 "tpcds_catalog_entry": (),
-                "operators_batch": ()}
+                "operators_batch": (),
+                "joins_batch": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -977,18 +1025,24 @@ def store_sales_batch(rows, seed):
                   "ss_sales_price", "ss_net_paid"])
 
 
-def string_key_column(rows, distinct, lo, hi, seed):
-    """A STRING column of `rows` drawn from `distinct` brand-like values
-    (lowercase letters, digits, spaces and '#') of lo to hi bytes,
-    gathered on the card from the pool."""
+def string_keys(rows, distinct, lo, hi, seed):
+    """(pool, idx): `distinct` brand-like STRING values (lowercase
+    letters, digits, spaces and '#') of lo to hi bytes on the card, and
+    `rows` int64 indices into the pool on the card."""
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789 #",
                              np.uint8)
     pool = [bytes(alphabet[rng.integers(0, len(alphabet), n)])
             for n in rng.integers(lo, hi + 1, distinct)]
-    pool_col = Column.from_strings(pool, "cuda")
     idx = torch.from_numpy(rng.integers(0, distinct, rows)).to("cuda")
-    return CP.gather(pool_col, idx)
+    return Column.from_strings(pool, "cuda"), idx
+
+
+def string_key_column(rows, distinct, lo, hi, seed):
+    """A STRING column of `rows` drawn from string_keys' pool, gathered
+    on the card."""
+    pool, idx = string_keys(rows, distinct, lo, hi, seed)
+    return CP.gather(pool, idx)
 
 
 def on_cpu(col):
@@ -1144,6 +1198,250 @@ def run_operators():
     return read_launches("operators_batch"), res
 
 
+def int_key_oracle(lk, rk, lvalid=None):
+    """The inner join in numpy on int64 surrogate keys (equal values <=>
+    equal join keys): left rows ascending, each one's right rows
+    ascending."""
+    order = np.argsort(rk, kind="stable")
+    rs = rk[order]
+    lo = np.searchsorted(rs, lk, "left")
+    counts = np.searchsorted(rs, lk, "right") - lo
+    if lvalid is not None:
+        counts = np.where(lvalid, counts, 0)
+    li = np.repeat(np.arange(len(lk)), counts)
+    starts = np.cumsum(counts) - counts
+    ri = order[lo[li] + np.arange(len(li)) - starts[li]]
+    return (torch.from_numpy(li.astype(np.int32)).to("cuda"),
+            torch.from_numpy(ri.astype(np.int32)).to("cuda"))
+
+
+def host_int64(t):
+    return t.cpu().numpy().astype(np.int64)
+
+
+def join_cells(oracle=True):
+    """The join cells, one at a time, drawn on the card from a seed:
+    (name, left keys, right keys, null semantics, oracle pairs or None
+    without `oracle`)."""
+    g = torch.Generator(device="cuda").manual_seed(81)
+
+    def ints(lo, hi, n, dtype=torch.int32):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=dtype,
+                             device="cuda")
+
+    def int_oracle(*args):
+        return int_key_oracle(*args) if oracle else None
+
+    # J1: ss_customer_sk (4% null) x c_customer_sk (unique)
+    lk = ints(1, J1_CUSTOMERS + 1, J1_ROWS)
+    lv = (torch.rand(J1_ROWS, generator=g, device="cuda")
+          >= J1_NULL_SHARE).to(torch.uint8)
+    rk = (torch.randperm(J1_CUSTOMERS, generator=g, device="cuda")
+          + 1).to(torch.int32)
+    want = int_oracle(host_int64(lk), host_int64(rk),
+                      lv.cpu().numpy().astype(bool))
+    yield ("J1", Table([Column(dtypes.INT32, J1_ROWS, data=lk, validity=lv)]),
+           Table([Column(dtypes.INT32, J1_CUSTOMERS, data=rk)]),
+           J.NULL_UNEQUAL, want)
+    del lk, lv, rk, want
+    # J2: (ss_item_sk, ss_ticket_number) x store_returns drawn from sales
+    item = ints(1, J3_DATA["items"] + 1, J1_ROWS)
+    ticket = (torch.arange(J1_ROWS, dtype=torch.int64, device="cuda")
+              // J2_ITEMS_PER_TICKET + 1)
+    pick = torch.randperm(J1_ROWS, generator=g, device="cuda")[:J2_RETURNS]
+    surrogate = host_int64(item) << 32 | host_int64(ticket)
+    want = int_oracle(surrogate, surrogate[pick.cpu().numpy()])
+    del surrogate
+    yield ("J2", Table([Column(dtypes.INT32, J1_ROWS, data=item),
+                        Column(dtypes.INT64, J1_ROWS, data=ticket)]),
+           Table([Column(dtypes.INT32, J2_RETURNS, data=item[pick]),
+                  Column(dtypes.INT64, J2_RETURNS, data=ticket[pick])]),
+           J.NULL_EQUAL, want)
+    del item, ticket, pick, want
+    # J3: cs_item_sk x inv_item_sk, many to many
+    lk = ints(0, J3_DATA["items"], J3_DATA["cs_rows"])
+    rk = ints(0, J3_DATA["items"], J3_DATA["inv_rows"])
+    want = int_oracle(host_int64(lk), host_int64(rk))
+    yield ("J3", Table([Column(dtypes.INT32, lk.shape[0], data=lk)]),
+           Table([Column(dtypes.INT32, rk.shape[0], data=rk)]),
+           J.NULL_EQUAL, want)
+    del lk, rk, want
+    # J4: brand-like STRING keys x the brand dim, then keys of 257-400 B
+    for name, data in (("J4", J4_DATA), ("J4_long", J4_LONG_DATA)):
+        pool, idx = string_keys(seed=data["rows"] + data["lo"], **data)
+        check(len(set(pool.to_pylist())) == data["distinct"],
+              f"{name}: the dim's keys are distinct")
+        want = int_oracle(host_int64(idx),
+                          np.arange(data["distinct"], dtype=np.int64))
+        yield (name, Table([CP.gather(pool, idx)]), Table([pool]),
+               J.NULL_EQUAL, want)
+        del pool, idx, want
+
+
+@contextlib.contextmanager
+def join_route_log():
+    """Record the engine the router runs, and the verdict and seconds of
+    its calibration when it calibrates."""
+    log = {"engines": [], "verdict": None, "calibration_s": 0.0}
+    real_engines, real_pick = J._join_engines, CAL.pick_path
+
+    def engines():
+        return {n: (lambda *a, n=n, f=f: log["engines"].append(n) or f(*a))
+                for n, f in real_engines().items()}
+
+    def pick_path(*a, **k):
+        t0 = time.perf_counter()
+        log["verdict"] = real_pick(*a, **k)
+        log["calibration_s"] += time.perf_counter() - t0
+        return log["verdict"]
+
+    J._join_engines, CAL.pick_path = engines, pick_path
+    try:
+        yield log
+    finally:
+        J._join_engines, CAL.pick_path = real_engines, real_pick
+
+
+def same_pairs(got, want, what):
+    check(all(t.is_cuda and t.dtype == torch.int32 for t in got),
+          f"{what}: int32 pairs on the card")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what}: pairs == the oracle's")
+
+
+def run_join_cell(name, left, right, nulls, want):
+    """Every engine by name on one cell, each held to the oracle; the
+    device engines timed (median of 5 synchronized calls), the host
+    engines once; then the router unpinned."""
+    res = {"left_rows": left.num_rows, "right_rows": right.num_rows,
+           "nulls": nulls, "pairs": int(want[0].shape[0]), "engines": {}}
+    engines = J._join_engines()
+    for engine in JOIN_ENGINES:
+        fn = engines[engine]
+        if engine == "device_hash":
+            HJ._LEARNED_CAPACITY.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn(left, right, nulls)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        # the engine's own working set: the peak over what the inputs
+        # and earlier phases already held
+        r = {"first_ms": first_ms, "peak_added_mb":
+             (torch.cuda.max_memory_allocated() - before) / 2**20}
+        same_pairs(got, want, f"{name} {engine}")
+        del got
+        if engine == "device_hash":
+            r["doublings"] = [HJ.LAST_CAPACITY["doublings"]]
+            same_pairs(fn(left, right, nulls), want, f"{name} {engine} again")
+            r["doublings"].append(HJ.LAST_CAPACITY["doublings"])
+            r["capacity"] = HJ.LAST_CAPACITY["used"]
+        if engine.startswith("device"):
+            r["ms"] = host_ms(lambda: fn(left, right, nulls), STEP_ITERS)
+        res["engines"][engine] = r
+    CAL.forget()
+    with join_route_log() as log:
+        t0 = time.perf_counter()
+        got = J.sort_merge_inner_join(left, right, nulls)
+        torch.cuda.synchronize()
+        router_ms = (time.perf_counter() - t0) * 1e3
+    same_pairs(got, want, f"{name} router")
+    # the engines the calibration timed come first in the log; the
+    # router's own run is its last entry
+    res["router"] = {"engine": log["engines"][-1],
+                     "verdict": log["verdict"],
+                     "calibration_s": log["calibration_s"],
+                     "first_ms": router_ms}
+    print(f"join {name}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_star_join():
+    """simple_star_join_agg: store_sales (ss_item_sk, net paid cents)
+    x item (i_item_sk unique, i_brand_id of 1,000), SUM and COUNT by
+    brand, exact against numpy."""
+    g = torch.Generator(device="cuda").manual_seed(83)
+    item_sk = torch.randint(0, STAR_ITEMS, (J1_ROWS,), generator=g,
+                            dtype=torch.int32, device="cuda")
+    paid = torch.randint(100, 20_000, (J1_ROWS,), generator=g,
+                         dtype=torch.int64, device="cuda")
+    dim_sk = torch.randperm(STAR_ITEMS, generator=g, device="cuda").to(
+        torch.int32)
+    brand = torch.randint(1, STAR_BRANDS + 1, (STAR_ITEMS,), generator=g,
+                          dtype=torch.int32, device="cuda")
+    fact = Table([Column(dtypes.INT32, J1_ROWS, data=item_sk),
+                  Column(dtypes.INT64, J1_ROWS, data=paid)])
+    dim = Table([Column(dtypes.INT32, STAR_ITEMS, data=dim_sk),
+                 Column(dtypes.INT32, STAR_ITEMS, data=brand)])
+    with join_route_log() as log:
+        t0 = time.perf_counter()
+        out = Q.simple_star_join_agg(fact, dim)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    brand_of = np.empty(STAR_ITEMS, np.int64)
+    brand_of[dim_sk.cpu().numpy()] = brand.cpu().numpy()
+    b = brand_of[item_sk.cpu().numpy()]
+    v = paid.cpu().numpy()
+    check(int(v.sum()) < 2**53, "star join sums exact in float64")
+    keys = np.unique(b)
+    sums = np.bincount(b, weights=v.astype(np.float64)).astype(np.int64)
+    counts = np.bincount(b)
+    for col, want in zip(out.columns, (keys, sums[keys], counts[keys])):
+        check(np.array_equal(col.data.cpu().numpy().astype(np.int64), want),
+              "star join == numpy")
+    ms, peak = timed(lambda: Q.simple_star_join_agg(fact, dim), STEP_ITERS)
+    return {"fact_rows": J1_ROWS, "dim_rows": STAR_ITEMS,
+            "groups": out.num_rows, "engine": log["engines"][-1],
+            "verdict": log["verdict"], "calibration_s": log["calibration_s"],
+            "first_ms": first_ms, "ms": ms, "peak_mb": peak}
+
+
+def run_joins():
+    """The join layer on the card (see the module docstring)."""
+    RA.reset_launches()
+    calib = os.path.join(_BUILD, "join_calib.json")
+    if os.path.exists(calib):
+        os.unlink(calib)
+    saved = os.environ.get("SPARK_RAPIDS_TPU_CALIB_CACHE")
+    os.environ["SPARK_RAPIDS_TPU_CALIB_CACHE"] = calib
+    res = {}
+    try:
+        for name, left, right, nulls, want in join_cells():
+            res[name] = run_join_cell(name, left, right, nulls, want)
+            if name == "J1":
+                start = REGISTRY.live_count()
+                lh = REGISTRY.register(left.columns[0])
+                rh = REGISTRY.register(right.columns[0])
+                t0 = time.perf_counter()
+                out = jni_api.sort_merge_inner_join([lh], [rh], False)
+                torch.cuda.synchronize()
+                res["jni_door_J1_ms"] = (time.perf_counter() - t0) * 1e3
+                same_pairs([REGISTRY.get(h).data for h in out], want,
+                           "JNI-door sort_merge_inner_join")
+                release_all(lh, rh, out)
+                check(REGISTRY.live_count() == start,
+                      "every join handle released")
+            del left, right, want
+            torch.cuda.empty_cache()
+        j3 = res["J3"]["engines"]["device_hash"]["doublings"]
+        check(j3[0] > 0 and j3[1] == 0,
+              f"J3 device_hash doubled, then started learned: {j3}")
+        check(res["J4_long"]["router"]["engine"] == "host_rank"
+              and res["J4_long"]["router"]["verdict"] is None,
+              "keys over DEVICE_STR_KEY_MAX_LEN route host_rank")
+        res["star_join"] = run_star_join()
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("SPARK_RAPIDS_TPU_CALIB_CACHE", None)
+        else:
+            os.environ["SPARK_RAPIDS_TPU_CALIB_CACHE"] = saved
+    print(f"joins: {json.dumps(res)}", flush=True)
+    return read_launches("joins_batch"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1238,6 +1536,9 @@ def main() -> int:
     print(json.dumps({"catalog_entry": catalog, "operators": operators}),
           flush=True)
     phase("operators_batch")
+    by_path["joins_batch"], joins = run_joins()
+    print(json.dumps({"joins": joins}), flush=True)
+    phase("joins_batch")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -10,12 +10,20 @@ string table (155 columns x 2^20 rows: the two hash entries, then
 convert_to_rows and convert_from_rows), one fused call each of the
 TPC-DS stage path's q5, q72 and q89 at chip_smoke.py's sizes (the
 warm-up call compiles their stages), and one `groupby_aggregate` on
-chip_smoke.py's 2^25-row store_sales batch, with torch.profiler.  For each it
+chip_smoke.py's 2^25-row store_sales batch, and chip_smoke.py's join
+cells J2 (2^25 x 2^22 rows on (item, ticket)) and J3 (2^22 x 2^21 rows
+on 204,000 items, about 43.1M pairs) under the device_sort and
+device_hash engines, with torch.profiler.  For each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
 time, the kernels that took the most device time and, for the JNI door,
 the host milliseconds of each entry (a record_function range around each
-call).  The profiler's own table goes to DIR/torch_profile_<phase>.txt.  Exits non-zero without a CUDA device or
+call).  The join phases also give each step's range: host milliseconds
+(`entry_host_ms`) and the device span from its first kernel to its last
+(`range_device_ms`): the key ids, the pair count and the probe for
+device_sort; the key words, the hashes, the probe and the probe with its
+verify for device_hash.  The profiler's own table goes to
+DIR/torch_profile_<phase>.txt.  Exits non-zero without a CUDA device or
 when the profiler records no device activity.
 """
 
@@ -29,6 +37,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_RANGES = ("entry:", "stage:")
 
 
 def _profile(name, fn, out_dir):
@@ -45,12 +54,15 @@ def _profile(name, fn, out_dir):
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel = collections.Counter()
     ranges = collections.Counter()
+    device_ranges = collections.Counter()
     for e in prof.events():
-        if e.name.startswith("entry:"):
-            # this script's own ranges: host time only (the profiler also
-            # puts them on the device timeline, where they are no kernels)
+        if e.name.startswith(_RANGES):
+            # this script's own ranges: host time, and on the device
+            # timeline the span of the kernels launched inside (no kernel)
             if e.device_type == DeviceType.CPU:
                 ranges[e.name] += e.time_range.elapsed_us() / 1e3
+            else:
+                device_ranges[e.name] += e.time_range.elapsed_us() / 1e3
         elif e.device_type == DeviceType.CUDA:
             per_kernel[e.name[:90]] += e.time_range.elapsed_us()
     device_us = sum(per_kernel.values())
@@ -62,11 +74,12 @@ def _profile(name, fn, out_dir):
     return {
         "phase": name, "wall_ms": wall_us / 1e3,
         "entry_host_ms": dict(ranges),
+        "range_device_ms": dict(device_ranges),
         "device_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us,
         "device_kernels": sum(1 for e in prof.events()
                               if e.device_type == DeviceType.CUDA
-                              and not e.name.startswith("entry:")),
+                              and not e.name.startswith(_RANGES)),
         "top": [{"kernel": k, "ms": us / 1e3}
                 for k, us in per_kernel.most_common(12)],
     }
@@ -135,6 +148,48 @@ def _groupby_batch(chip_smoke):
     return lambda: G.groupby_aggregate(keys, values, aggs)
 
 
+def _stage(name, fn):
+    """``fn`` inside a record_function range named stage:<name>."""
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kwargs):
+        with record_function(f"stage:{name}"):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _join_stages():
+    """Wrap the join engines' steps in stage ranges (for this process
+    only): the profile then splits each engine's time by step."""
+    from spark_rapids_tpu_torch.ops import hash_join as HJ
+    from spark_rapids_tpu_torch.ops import joins as J
+
+    J._device_ids = _stage("key_ids", J._device_ids)
+    J._device_join_total = _stage("pair_count", J._device_join_total)
+    J.inner_join_device = _stage("probe", J.inner_join_device)
+    HJ.join_key_words = _stage("key_words", HJ.join_key_words)
+    HJ.key_hashes = _stage("hashes", HJ.key_hashes)
+    HJ.inner_join_device = _stage("probe", HJ.inner_join_device)
+    factory = HJ._device_step_factory
+    HJ._device_step_factory = lambda cap: _stage("probe_and_verify",
+                                                 factory(cap))
+
+
+def _join_batch(chip_smoke):
+    """(phase, step) for J2 and J3 under device_sort and device_hash."""
+    from spark_rapids_tpu_torch.ops import joins as J
+
+    engines = J._join_engines()
+    for name, left, right, nulls, _ in chip_smoke.join_cells(oracle=False):
+        if name in ("J2", "J3"):
+            for engine in ("device_sort", "device_hash"):
+                yield (f"join_{name}_{engine}",
+                       lambda f=engines[engine], l=left, r=right, n=nulls:
+                       f(l, r, n))
+        if name == "J3":
+            return
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
@@ -170,6 +225,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(json.dumps(_profile("groupby_batch", _groupby_batch(chip_smoke),
                               args.out)), flush=True)
+    torch.cuda.empty_cache()
+    _join_stages()
+    for name, fn in _join_batch(chip_smoke):
+        print(json.dumps(_profile(name, fn, args.out)), flush=True)
+    del fn
+    torch.cuda.empty_cache()
     from torch._inductor.async_compile import shutdown_compile_workers
     shutdown_compile_workers()
     return 0

@@ -10,16 +10,20 @@ first use (utils/cuda_build.py).
 
   columns.*   dtypes, Column, Table, host interop
   ops.*       Spark row hashes, JCUDF row conversion and its CUDA
-              kernels, the fixed-capacity device join probe, GROUP BY,
-              ORDER BY, 64-bit sum helpers, gather/slice/concat and the
-              key and rank helpers under them
+              kernels, the fixed-capacity device join probe, the inner
+              join router with its host and device engines and the
+              outer/semi/anti transforms, GROUP BY, ORDER BY, 64-bit
+              sum helpers, gather/slice/concat and the key and rank
+              helpers under them
   shim.*      the JNI door: handle registry and jni_api entry points
   models.*    the named query catalog; the flagship columnar step; the
-              TPC-DS hand pipelines, seeded generators and oracles
+              TPC-DS hand pipelines, seeded generators and oracles; the
+              star join
   plan.*      the stage IR, its compiler (fused and op-by-op engines)
               and the catalog's stage pipelines (q3, q5, q9, q67, CUBE,
               q72, q89)
-  perf.*      row buckets and operand digests that key compiled stages
+  perf.*      row buckets and digests that key compiled stages, and the
+              measured path pick with its verdict cache
   parallel.*  the capacity-doubling overflow retry
 
 Entry points run on the device of the tensors they are given; the

@@ -1,8 +1,8 @@
-"""Compile keying: power-of-two row buckets and operand digests.
+"""Compile keying and measured path picks.
 
-  jit_cache.py  bucket_rows
-  calibrate.py  operands_digest
+  jit_cache.py  bucket_rows, schema_digest
+  calibrate.py  operands_digest; pick_path and its verdict cache (the
+                join router's engine choice), keyed by torch device
 
-The process compile cache (JitCache, pad_axis0) and the measured
-engine calibration come with ROADMAP A14.
+The process compile cache (JitCache, pad_axis0) comes with ROADMAP A14.
 """

@@ -14,10 +14,12 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import DType
 from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.ops import hash as _hash
+from spark_rapids_tpu_torch.ops import joins as _joins
 from spark_rapids_tpu_torch.ops import row_conversion as _rc
 from spark_rapids_tpu_torch.shim.handles import REGISTRY
 
@@ -39,6 +41,8 @@ def column_to_host(handle: int):
 
 
 # --------------------------------------------------------------- ops
+# ROADMAP A16 and A14: the JAX package opens each export with a
+# fault-injection check (maybe_inject) and an NVTX-like op_range
 
 
 def murmur_hash3_32(seed: int, column_handles: Sequence[int]) -> int:
@@ -59,3 +63,17 @@ def convert_from_rows(rows_handle: int, type_ids: Sequence[str],
     schema = [DType(k, s) for k, s in zip(type_ids, scales)]
     out = _rc.convert_from_rows(REGISTRY.get(rows_handle), schema)
     return [REGISTRY.register(c) for c in out.columns]
+
+
+def sort_merge_inner_join(left_handles: Sequence[int],
+                          right_handles: Sequence[int],
+                          compare_nulls_equal: bool) -> List[int]:
+    """The inner join's gather maps as two INT32 column handles (left
+    indices, right indices)."""
+    li, ri = _joins.sort_merge_inner_join(
+        Table(_cols(left_handles)), Table(_cols(right_handles)),
+        _joins.NULL_EQUAL if compare_nulls_equal else _joins.NULL_UNEQUAL)
+    return [REGISTRY.register(Column(dtypes.INT32, int(li.shape[0]),
+                                     data=li)),
+            REGISTRY.register(Column(dtypes.INT32, int(ri.shape[0]),
+                                     data=ri))]

@@ -3,9 +3,12 @@ plain version (with chip_smoke.py's tables and comparisons), launch
 counts, the wrappers' input checks, the flagship step and the JNI-door
 entries against the CPU, the TPC-DS stage path (q5, q72, q3, q9, q67,
 CUBE, q89) in both engines and the named catalog against their CPU
-runs, and GROUP BY / ORDER BY / copying on the card against the CPU
+runs, GROUP BY / ORDER BY / copying on the card against the CPU
 (the device group-id branch also against the host branch on the same
-card data).  Float SUM/MEAN on the card add with atomics in a varying
+card data), and the join layer: each join engine on the card against
+host_rank, the router, the device hash join's learned capacity, the
+outer/semi/anti transforms, the star join and the JNI door's join
+against the CPU.  Float SUM/MEAN on the card add with atomics in a varying
 order, so they are held to chip_smoke.close_float_sums's bound; every
 other output is byte-equal.
 
@@ -16,24 +19,31 @@ host without JAX it runs alone:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import json
+
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, close_float_sums,
-                        compare_kernels, compare_var_kernel, make_table,
-                        on_cpu, same_column, store_sales_batch,
+                        compare_kernels, compare_var_kernel, join_route_log,
+                        make_table, on_cpu, same_column, store_sales_batch,
                         string_host_specs, string_key_column)
 from spark_rapids_tpu_torch import models as TM
 from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.models import flagship as F
+from spark_rapids_tpu_torch.models import query as Q
 from spark_rapids_tpu_torch.models import tpcds as TT
 from spark_rapids_tpu_torch.ops import copying as CP
 from spark_rapids_tpu_torch.ops import groupby as G
+from spark_rapids_tpu_torch.ops import hash_join as HJ
+from spark_rapids_tpu_torch.ops import joins as J
 from spark_rapids_tpu_torch.ops import sorting as S
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
+from spark_rapids_tpu_torch.perf import calibrate as CAL
 from spark_rapids_tpu_torch.plan import catalog as TC
 from spark_rapids_tpu_torch.shim import jni_api
 
@@ -312,3 +322,138 @@ def test_copying_on_card_matches_cpu(cuda):
     for got, want in pairs:
         for i, (g, w) in enumerate(zip(got.columns, want.columns)):
             same_column(g, w, f"column {i}")
+
+
+# ----------------------------------------------------------------- joins
+
+JOIN_KINDS = ("int32", "int64", "uint64", "float64", "decimal128", "string")
+F64_KEYS = np.array([0, 1 << 63, 0x7FF8000000000000, 0x7FF8000000000001,
+                     0x3FF8000000000000], np.uint64)
+
+
+def join_key_spec(rng, kind, n, nullable):
+    """A low-cardinality host key column (interop's layout)."""
+    validity = ((rng.random(n) < 0.8).astype(np.uint8) if nullable
+                else None)
+    if kind == "string":
+        pool = [b"", b"a", b"a\x00", b"\xffz", b"brand #7", b"Q" * 40]
+        rows = [pool[i] for i in rng.integers(0, len(pool), n)]
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum([len(b) for b in rows], out=offs[1:])
+        return ("string", np.frombuffer(b"".join(rows) or b"\0",
+                                        np.uint8)[:offs[-1]].copy(),
+                validity, offs.astype(np.int32))
+    if kind == "decimal128":
+        return kind, rng.integers(-2, 2, (n, 4)).astype(np.int32), validity
+    if kind == "float64":
+        return kind, rng.choice(F64_KEYS, n), validity
+    dt = np.dtype(dtypes.DType(kind).np_dtype)
+    pool = np.array([np.iinfo(dt).max, 0, 1, 2], dt)
+    return kind, rng.choice(pool, n), validity
+
+
+def join_tables(seed, kind, nullable, nl=3000, nr=2000, device="cuda"):
+    rng = np.random.default_rng(seed)
+    return (interop.table_from_host([join_key_spec(rng, kind, nl, nullable)],
+                                    device=device),
+            interop.table_from_host([join_key_spec(rng, kind, nr, nullable)],
+                                    device=device))
+
+
+def same_pairs(got, want):
+    assert all(t.is_cuda and t.dtype == torch.int32 for t in got)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["host_hash", "device_sort",
+                                    "device_hash"])
+def test_join_engines_on_card_match_host_rank(cuda, engine):
+    engines = J._join_engines()
+    for i, kind in enumerate(JOIN_KINDS):
+        for nullable in (False, True):
+            left, right = join_tables(i, kind, nullable)
+            for nulls in (J.NULL_EQUAL, J.NULL_UNEQUAL):
+                same_pairs(engines[engine](left, right, nulls),
+                           engines["host_rank"](left, right, nulls))
+
+
+@pytest.mark.gpu
+def test_join_router_on_card(cuda, tmp_path, monkeypatch):
+    """Small joins take device_sort on the card; a large one calibrates
+    and keys its verdict by the card's name."""
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
+                       str(tmp_path / "calib.json"))
+    monkeypatch.delenv("SPARK_RAPIDS_TPU_PATH_JOIN_INNER", raising=False)
+    CAL.forget()
+    left, right = join_tables(7, "int64", True)
+    with join_route_log() as log:
+        got = J.sort_merge_inner_join(left, right, J.NULL_UNEQUAL)
+    assert log["engines"] == ["device_sort"] and log["verdict"] is None
+    same_pairs(got, J._sort_merge_inner_join_host(left, right,
+                                                  J.NULL_UNEQUAL))
+    left, right = join_tables(8, "int32", False,
+                              nl=J.JOIN_CALIBRATE_MIN_ROWS, nr=20)
+    with join_route_log() as log:
+        got = J.sort_merge_inner_join(left, right)
+    assert log["verdict"] in J.JOIN_PATHS
+    same_pairs(got, J._sort_merge_inner_join_host(left, right))
+    (key,) = json.loads((tmp_path / "calib.json").read_text())
+    assert key.endswith("@torch-cuda:" + torch.cuda.get_device_name(0))
+
+
+@pytest.mark.gpu
+def test_device_hash_join_learns_capacity_on_card(cuda):
+    HJ._LEARNED_CAPACITY.clear()
+    left, right = join_tables(9, "int32", False, nl=500, nr=400)
+    words = HJ.join_key_words(left, right, J.NULL_EQUAL)
+    want = J._sort_merge_inner_join_host(left, right)
+    same_pairs(HJ.device_hash_join(*words), want)
+    assert HJ.LAST_CAPACITY["doublings"] > 0
+    same_pairs(HJ.device_hash_join(*words), want)
+    assert HJ.LAST_CAPACITY["doublings"] == 0
+
+
+@pytest.mark.gpu
+def test_join_transforms_on_card_match_cpu(cuda):
+    left, right = join_tables(10, "int32", True)
+    li, ri = J.sort_merge_inner_join(left, right, J.NULL_UNEQUAL)
+    nl, nr = left.num_rows, right.num_rows
+    pred = (li + ri) % 3 == 0
+    pairs = [(J.make_left_outer(li, ri, nl),
+              J.make_left_outer(li.cpu(), ri.cpu(), nl)),
+             (J.make_full_outer(li, ri, nl, nr),
+              J.make_full_outer(li.cpu(), ri.cpu(), nl, nr)),
+             ((J.make_semi(li, nl), J.make_anti(li, nl)),
+              (J.make_semi(li.cpu(), nl), J.make_anti(li.cpu(), nl))),
+             (J.filter_join_pairs(li, ri, pred),
+              J.filter_join_pairs(li.cpu(), ri.cpu(), pred.cpu()))]
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+    lo = J.make_left_outer(li, ri, nl)[1]
+    m = J.get_matched_rows(lo, nr)
+    assert m.data.is_cuda and torch.equal(
+        m.data.cpu(), J.get_matched_rows(lo.cpu(), nr).data)
+
+
+@pytest.mark.gpu
+def test_star_join_and_jni_join_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(11)
+    fact = [("int32", rng.integers(0, 600, 5000).astype(np.int32), None),
+            ("int64", rng.integers(-10**6, 10**6, 5000), None)]
+    dim = [("int32", rng.permutation(500).astype(np.int32), None),
+           ("int32", rng.integers(0, 40, 500).astype(np.int32), None)]
+    out = {}
+    for dev in (cuda, "cpu"):
+        got = Q.simple_star_join_agg(interop.table_from_host(fact, dev),
+                                     interop.table_from_host(dim, dev))
+        out[str(dev)] = [c.to_pylist() for c in got.columns]
+        left, right = join_tables(12, "string", True, device=dev)
+        lh = jni_api.REGISTRY.register(left.columns[0])
+        rh = jni_api.REGISTRY.register(right.columns[0])
+        hs = jni_api.sort_merge_inner_join([lh], [rh], False)
+        out[str(dev)] += [jni_api.column_to_host(h) for h in hs]
+        for h in [lh, rh] + hs:
+            jni_api.release_column(h)
+    assert out["cuda"] == out["cpu"]
