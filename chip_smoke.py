@@ -150,8 +150,50 @@
    synchronized calls, ms and GB/s of blob), the host writer and merger
    (one call, s), the partition step's hash, sort and gather (ms), the
    blob's bytes, the peak device memory each device call adds and the
-   nested hashes' ms, on a `shuffle` line.  Ends with the seconds each
-   phase took.
+   nested hashes' ms, on a `shuffle` line.
+11. The memory runtime (memory/, robustness/retry.py, ops/out_of_core.py,
+   CompiledStage.run_spilled), every batch drawn on the card from a
+   seed.  J2 (step 9: store_sales 2^25 x store_returns 2^22 on
+   (ss_item_sk, ss_ticket_number)) out of core at a budget of the build
+   side's bytes / 8, so 8 partitions, once on the host tier and once
+   with every partition demoted to disk under build/spill: the pairs
+   must equal the in-memory join on the card and the numpy oracle byte
+   for byte.  Step 8's group-by over its 2^25-row batch out of core at a
+   256 MiB budget (the keys and the six value columns it is given make
+   1.95 GB, so 8 partitions) against the in-memory call (float sums
+   within close_float_sums' bound).  A registered 2^25-row batch that
+   nothing else references: spilling it must lower
+   torch.cuda.memory_allocated() by at least 90% of its bytes, and
+   restoring it must give it back byte for byte on the card; a flipped
+   byte in a disk spill file of a 2^22-row batch must recompute from
+   source, and without a recompute raise KudoCorruptException naming
+   the file and the spill generation.  Four task threads (task ids
+   1-4), each reserving and registering its own 2^23-row store_sales
+   batch (B bytes), waiting until all four have (a stage barrier the
+   adaptor knows of, so memory pressure is certain), and grouping it
+   over four key partitions under split_and_retry, reserving B times
+   the share of partitions it groups for the working set an attempt:
+   first with no limit, then under
+   rmm_spark.set_event_handler(3 B) with the spill store installed, at
+   least one spill; each task's result must equal its unlimited run,
+   and afterwards no reservation, thread or handle may be left and
+   memory_allocated() must be back where it started; then one task with
+   force_retry_oom and one with force_split_and_retry_oom, each ending
+   in the same result.  Each thread is joined with a time limit, and a
+   thread still alive fails the run.  q5 at step 6's size, store_sales
+   and store_returns hash-partitioned by store key into 4 spilled
+   partitions: run_spilled runs q5_partials once per partition, fused;
+   the partials summed (int64; the overflow flags OR-ed) and q5_finish
+   run must equal run_q5 in one pass byte for byte, with at most one
+   compile per row bucket.  The JNI door's spill entries (install,
+   spill_ensure_headroom, spill_store_stats_json, uninstall) over a card
+   batch.  Prints a `memory` line: each cell's in-memory and out-of-core
+   ms (median of 3 synchronized calls), the kudo bytes spilled per tier,
+   the restores, the peak device memory each call adds, the spill write
+   and restore seconds and the freed bytes, each task's retries, split
+   retries and blocked ms and the four tasks' wall time with and
+   without the limit, the q5 spilled and single-pass ms and its
+   compiles.  Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -164,6 +206,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -181,6 +224,8 @@ import torch  # noqa: E402
 from spark_rapids_tpu_torch.columns import dtypes, interop  # noqa: E402
 from spark_rapids_tpu_torch.columns.column import Column  # noqa: E402
 from spark_rapids_tpu_torch.columns.table import Table  # noqa: E402
+from spark_rapids_tpu_torch.memory import rmm_spark  # noqa: E402
+from spark_rapids_tpu_torch.memory import spill as PS  # noqa: E402
 from spark_rapids_tpu_torch import models as TM  # noqa: E402
 from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
 from spark_rapids_tpu_torch.models import query as Q  # noqa: E402
@@ -190,12 +235,15 @@ from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash as H  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
 from spark_rapids_tpu_torch.ops import joins as J  # noqa: E402
+from spark_rapids_tpu_torch.ops import out_of_core as OOC  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
 from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
 from spark_rapids_tpu_torch.perf import calibrate as CAL  # noqa: E402
+from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows  # noqa: E402
 from spark_rapids_tpu_torch.plan.compiler import compile_stage  # noqa: E402
+from spark_rapids_tpu_torch.robustness import retry as RT  # noqa: E402
 from spark_rapids_tpu_torch.shim import jni_api  # noqa: E402
 from spark_rapids_tpu_torch.shim.handles import REGISTRY  # noqa: E402
 from spark_rapids_tpu_torch.shuffle import device_split as DS  # noqa: E402
@@ -322,6 +370,20 @@ SHUFFLE_PARTITIONS = 200
 SHUFFLE_SEED = 42
 NESTED_ROWS = 1 << 22
 NESTED_NULL_SHARE = 0.05
+# the memory runtime (step 11): J2 out of core at its build side's bytes
+# / 8; step 8's batch grouped at a 256 MiB budget; four task threads,
+# each with its own 2^23-row store_sales batch (B bytes), under a limit
+# of 3 B; q5 over 4 spilled partitions
+MEM_JOIN_PARTS = 8
+MEM_GROUPBY_BUDGET = 256 << 20
+MEM_CORRUPT_ROWS = 1 << 22
+MEM_TASKS = 4
+MEM_TASK_ROWS = 1 << 23
+MEM_TASK_PARTS = 4
+MEM_TASK_LIMIT_BATCHES = 3
+MEM_Q5_PARTS = 4
+MEM_THREAD_TIMEOUT_S = 300
+MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
@@ -330,7 +392,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "tpcds_catalog_entry": (),
                 "operators_batch": (),
                 "joins_batch": (),
-                "shuffle_batch": ()}
+                "shuffle_batch": (),
+                "memory": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1037,27 +1100,27 @@ def run_catalog_entry():
     return read_launches("tpcds_catalog_entry"), res
 
 
-def store_sales_batch(rows, seed):
-    """A store_sales batch on the card: ss_store_sk INT32 (402 stores),
-    ss_item_sk INT32 (204,000 items), ss_quantity INT32 (1-100),
-    ss_sales_price INT64 cents (100-19,999) and ss_net_paid FLOAT64
-    (quantity x price, less up to 20%, in dollars; never negative), the
-    last three about 4% null."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def store_sales_batch(rows, seed, device="cuda"):
+    """A store_sales batch on the card (or `device`): ss_store_sk INT32
+    (402 stores), ss_item_sk INT32 (204,000 items), ss_quantity INT32
+    (1-100), ss_sales_price INT64 cents (100-19,999) and ss_net_paid
+    FLOAT64 (quantity x price, less up to 20%, in dollars; never
+    negative), the last three about 4% null."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def ints(lo, hi, dtype):
         return torch.randint(lo, hi, (rows,), generator=g, dtype=dtype,
-                             device="cuda")
+                             device=device)
 
     def valid():
-        return (torch.rand(rows, generator=g, device="cuda")
+        return (torch.rand(rows, generator=g, device=device)
                 >= OPS_NULL_SHARE).to(torch.uint8)
 
     qty = ints(1, 101, torch.int32)
     price = ints(100, 20_000, torch.int64)
     net = ((qty * price).to(torch.float64) / 100 * (
         1 - 0.2 * torch.rand(rows, generator=g, dtype=torch.float64,
-                             device="cuda")))
+                             device=device)))
     return Table([Column(dtypes.INT32, rows, data=ints(0, 402, torch.int32)),
                   Column(dtypes.INT32, rows,
                          data=ints(0, 204_000, torch.int32)),
@@ -1242,21 +1305,29 @@ def run_operators():
     return read_launches("operators_batch"), res
 
 
-def int_key_oracle(lk, rk, lvalid=None):
+def int_key_oracle(lk, rk, lvalid=None, device="cuda"):
     """The inner join in numpy on int64 surrogate keys (equal values <=>
     equal join keys): left rows ascending, each one's right rows
-    ascending."""
+    ascending; the pairs on `device`."""
     order = np.argsort(rk, kind="stable")
     rs = rk[order]
-    lo = np.searchsorted(rs, lk, "left")
-    counts = np.searchsorted(rs, lk, "right") - lo
+    # each left key's run in the sorted right keys; searched with the
+    # left keys in sorted order, which walks `rs` once instead of at
+    # random, then put back in row order
+    lorder = np.argsort(lk)
+    ls = lk[lorder]
+    lo = np.empty(len(lk), np.int64)
+    counts = np.empty(len(lk), np.int64)
+    lo[lorder] = np.searchsorted(rs, ls, "left")
+    counts[lorder] = np.searchsorted(rs, ls, "right") - lo[lorder]
+    del lorder, ls
     if lvalid is not None:
         counts = np.where(lvalid, counts, 0)
     li = np.repeat(np.arange(len(lk)), counts)
     starts = np.cumsum(counts) - counts
     ri = order[lo[li] + np.arange(len(li)) - starts[li]]
-    return (torch.from_numpy(li.astype(np.int32)).to("cuda"),
-            torch.from_numpy(ri.astype(np.int32)).to("cuda"))
+    return (torch.from_numpy(li.astype(np.int32)).to(device),
+            torch.from_numpy(ri.astype(np.int32)).to(device))
 
 
 def host_int64(t):
@@ -1347,8 +1418,8 @@ def join_route_log():
 
 
 def same_pairs(got, want, what):
-    check(all(t.is_cuda and t.dtype == torch.int32 for t in got),
-          f"{what}: int32 pairs on the card")
+    check(all(t.device == want[0].device and t.dtype == torch.int32
+              for t in got), f"{what}: int32 pairs on the oracle's device")
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"{what}: pairs == the oracle's")
 
@@ -1726,6 +1797,550 @@ def run_shuffle():
     return read_launches("shuffle_batch"), res
 
 
+# ------------------------------------------------------------ memory (11)
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def allocated(device):
+    """Device bytes held by live tensors; None off the card."""
+    gc.collect()
+    sync(device)
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.memory_allocated()
+
+
+def wall_ms(fn, iters, device):
+    """Median wall milliseconds of `fn` followed by a synchronize."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def peak_added(fn, device):
+    """(fn's result, the peak device memory its call added in MiB; None
+    off the card)."""
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    return added_peak_mb(fn)
+
+
+def spill_store(tier):
+    """A spill store with its files under build/spill/<tier>: the host
+    tier, or every spill demoted to disk."""
+    return PS.SpillStore(spill_dir=os.path.join(_BUILD, "spill", tier),
+                         host_limit_bytes=0 if tier == "disk" else None)
+
+
+def store_numbers(store):
+    st = store.stats()
+    return {"spills_host": st["spills_host"], "spills_disk": st["spills_disk"],
+            "host_bytes": store.spill_bytes[PS.TIER_HOST],
+            "disk_bytes": store.spill_bytes[PS.TIER_DISK],
+            "restores": st["restores"], "handles_left": st["handles"]}
+
+
+def equal_columns(got, want, what):
+    """Columns equal byte for byte, on the same device."""
+    check(len(got) == len(want), f"{what}: column count")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.device == b.device, f"{what}: column {i} on its device")
+        for x, y, part in ((a.data, b.data, "data"),
+                           (a.validity, b.validity, "validity"),
+                           (a.offsets, b.offsets, "offsets")):
+            check((x is None) == (y is None)
+                  and (x is None or torch.equal(x, y)),
+                  f"{what}: column {i} {part}")
+
+
+def same_group_table(got, want, what):
+    """An out-of-core or task group-by (MEM_AGGS) against the in-memory
+    one: keys and integer aggregates byte for byte, the float sum and
+    mean within close_float_sums' bound."""
+    equal_columns(got.columns[:6], want.columns[:6], what)
+    counts = want.columns[3].data.cpu()
+    return max(close_float_sums(got.columns[6], on_cpu(want.columns[6]),
+                                counts, False, f"{what} sum"),
+               close_float_sums(got.columns[7], on_cpu(want.columns[7]),
+                                counts, True, f"{what} mean"))
+
+
+def j2_tables(rows, returns, device, seed):
+    """Step 9's J2 on `device`: store_sales (ss_item_sk INT32,
+    ss_ticket_number INT64) and store_returns drawn from its rows, with
+    the numpy oracle's pairs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    item = torch.randint(1, J3_DATA["items"] + 1, (rows,), generator=g,
+                         dtype=torch.int32, device=device)
+    ticket = (torch.arange(rows, dtype=torch.int64, device=device)
+              // J2_ITEMS_PER_TICKET + 1)
+    pick = torch.randperm(rows, generator=g, device=device)[:returns]
+    surrogate = host_int64(item) << 32 | host_int64(ticket)
+    want = int_key_oracle(surrogate, surrogate[pick.cpu().numpy()],
+                          device=device)
+    return (Table([Column(dtypes.INT32, rows, data=item),
+                   Column(dtypes.INT64, rows, data=ticket)]),
+            Table([Column(dtypes.INT32, returns, data=item[pick]),
+                   Column(dtypes.INT64, returns, data=ticket[pick])]),
+            want)
+
+
+def ooc_join_cell(device="cuda", rows=J1_ROWS, returns=J2_RETURNS,
+                  iters=3):
+    """J2 out of core at a budget of the build side's bytes / 8 (8
+    partitions), on the host tier and on disk, against the in-memory
+    join and the oracle."""
+    t0 = time.perf_counter()
+    left, right, want = j2_tables(rows, returns, device, seed=83)
+    build = PS.columns_nbytes(right.columns)
+    budget = build // MEM_JOIN_PARTS
+    t1 = time.perf_counter()
+    got = J.hash_inner_join(left, right)
+    same_pairs(got, want, "J2 in memory")
+    res = {"rows": [rows, returns], "pairs": int(got[0].shape[0]),
+           "build_bytes": build, "budget": budget, "data_s": t1 - t0,
+           "in_memory_first_s": time.perf_counter() - t1,
+           "in_memory_ms": wall_ms(lambda: J.hash_inner_join(left, right),
+                                   iters, device)}
+    for tier in ("host", "disk"):
+        store = spill_store(tier)
+
+        def ooc():
+            return OOC.out_of_core_hash_join(left, right, budget=budget,
+                                             store=store)
+
+        t0 = time.perf_counter()
+        got, peak = peak_added(ooc, device)
+        first_s = time.perf_counter() - t0
+        same_pairs(got, want, f"J2 out of core ({tier})")
+        first = store_numbers(store)
+        check(first["spills_host"] == MEM_JOIN_PARTS
+              and first["restores"] == MEM_JOIN_PARTS
+              and first["spills_disk"] == (MEM_JOIN_PARTS
+                                           if tier == "disk" else 0)
+              and first["handles_left"] == 0,
+              f"J2 ({tier}): every partition spilled, streamed back, "
+              f"closed: {first}")
+        res[tier] = dict(first, ms=wall_ms(ooc, iters, device),
+                         peak_added_mb=peak, first_call_s=first_s)
+        store.close()
+    return res
+
+
+MEM_AGGS = ["sum", "count", "min", "max", "sum", "mean"]
+
+
+def group_inputs(cols):
+    """Step 8's group-by over a store_sales batch's columns: keys
+    (store, item); sum(quantity), count(net_paid), min and max(price),
+    sum and mean(net_paid)."""
+    return Table(cols[:2]), [cols[2], cols[4], cols[3], cols[3], cols[4],
+                             cols[4]]
+
+
+def ooc_groupby_cell(device="cuda", rows=OPS_ROWS,
+                     budget=MEM_GROUPBY_BUDGET, iters=3):
+    """Step 8's group-by out of core at a 256 MiB budget (4 partitions)
+    against the in-memory call."""
+    batch = store_sales_batch(rows, seed=41, device=device)
+    keys, values = group_inputs(batch.columns)
+    # what the group-by is given: the keys and six value columns, two of
+    # them passed more than once
+    nbytes = PS.columns_nbytes(keys.columns + values)
+    want = G.groupby_aggregate(keys, values, MEM_AGGS)
+    store = spill_store("host")
+
+    def ooc():
+        return OOC.out_of_core_groupby(keys, values, MEM_AGGS,
+                                       budget=budget, store=store)
+
+    got, peak = peak_added(ooc, device)
+    bound = same_group_table(got, want, "group-by out of core")
+    first = store_numbers(store)
+    parts = OOC._partition_count(nbytes, budget, None)
+    check(first["spills_host"] == parts and first["restores"] == parts
+          and first["handles_left"] == 0,
+          f"group-by: {parts} partitions spilled and streamed back")
+    res = dict(first, rows=rows, input_bytes=nbytes, budget=budget,
+               partitions=parts, groups=got.num_rows,
+               float_diff_of_bound=bound, peak_added_mb=peak,
+               in_memory_ms=wall_ms(
+                   lambda: G.groupby_aggregate(keys, values, MEM_AGGS),
+                   iters, device),
+               ms=wall_ms(ooc, iters, device))
+    store.close()
+    return res
+
+
+def flip_byte(path, at):
+    with open(path, "r+b") as f:
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def spill_frees_memory(device="cuda", rows=OPS_ROWS,
+                       corrupt_rows=MEM_CORRUPT_ROWS):
+    """A registered batch that nothing else references: spilling it
+    frees its device memory, restoring gives it back byte for byte on
+    its device; a flipped byte in a disk spill file recomputes from
+    source, or without a recompute raises KudoCorruptException naming
+    the file and the generation."""
+    store = spill_store("host")
+    h = store.register(store_sales_batch(rows, seed=43,
+                                         device=device).columns,
+                       name="batch")
+    before = allocated(device)
+    t0 = time.perf_counter()
+    h.spill()
+    sync(device)
+    spill_s = time.perf_counter() - t0
+    after = allocated(device)
+    res = {"rows": rows, "device_bytes": h.device_bytes,
+           "kudo_bytes": store.spill_bytes[PS.TIER_HOST],
+           "spill_s": spill_s}
+    if before is not None:
+        res["freed_bytes"] = before - after
+        check(before - after >= 0.9 * h.device_bytes,
+              f"a spill freed {before - after} of the batch's "
+              f"{h.device_bytes} device bytes")
+    t0 = time.perf_counter()
+    cols = h.get()
+    sync(device)
+    res["restore_s"] = time.perf_counter() - t0
+    equal_columns(cols, store_sales_batch(rows, seed=43,
+                                          device=device).columns,
+                  "restored batch")
+    check(all(c.device.type == torch.device(device).type for c in cols),
+          "the batch came back on its device")
+    del cols
+    store.close()
+
+    disk = spill_store("disk")
+
+    def source():
+        return store_sales_batch(corrupt_rows, seed=47,
+                                 device=device).columns
+
+    h = disk.register(source(), name="corrupt_recompute", recompute=source)
+    h.spill()
+    check(h.tier == PS.TIER_DISK, "spilled to disk")
+    flip_byte(h.path, 1000)
+    equal_columns(h.get(), source(), "recomputed from source")
+    h = disk.register(source(), name="corrupt_fail")
+    h.spill()
+    path = h.path
+    flip_byte(path, 1000)
+    try:
+        h.get()
+        check(False, "a corrupt spill file without recompute raises")
+    except K.KudoCorruptException as e:
+        check(e.path == path and e.generation == 1
+              and path in str(e) and "generation 1" in str(e),
+              f"the error names the file and generation: {e}")
+    st = disk.stats()
+    check(st["corrupt"] == 2 and st["recomputes"] == 1,
+          f"corrupt spills counted: {st}")
+    res["corrupt"] = {"rows": corrupt_rows, "corrupt": st["corrupt"],
+                      "recomputes": st["recomputes"]}
+    disk.close()
+    return res
+
+
+def task_group_by(h, parts, working_bytes, adaptor):
+    """One attempt of a task's group-by over some of its key partitions:
+    its batch pinned (restored if spilled), `working_bytes` x the share
+    of partitions reserved for the working set."""
+    with h.pin() as cols:
+        w = working_bytes * len(parts) // MEM_TASK_PARTS
+        adaptor.allocate(w)
+        try:
+            ix = torch.cat(list(parts))
+            keys, values = group_inputs([CP.gather(c, ix) for c in cols])
+            return G.groupby_aggregate(keys, values, MEM_AGGS)
+        finally:
+            adaptor.deallocate(w)
+
+
+def task_run(task, rows, device, store, adaptor, barrier, force=None):
+    """A Spark task on this thread: reserve and register its batch, wait
+    until every task of the round has (a stage barrier), run the
+    group-by over its key partitions under split_and_retry, close the
+    batch, task_done.  Returns (table, retries, split retries, blocked
+    ms)."""
+    rmm_spark.current_thread_is_dedicated_to_task(task)
+    batch = store_sales_batch(rows, seed=100 + task, device=device)
+    nbytes = PS.columns_nbytes(batch.columns)
+    # the batch's reservation under the retry contract too: a task
+    # rolled back here holds nothing and waits for memory to free
+    RT.with_retry(adaptor.allocate, nbytes, name=f"task{task}_batch",
+                  policy=MEM_TASK_POLICY)
+    words = HJ.join_key_words(Table(batch.columns[:2]),
+                              Table(batch.columns[:2]), J.NULL_EQUAL)[0]
+    parts = OOC.partition_rows(words, MEM_TASK_PARTS)
+    h = store.register(batch.columns, device_bytes=nbytes,
+                       name=f"task{task}", task_id=task)
+    del batch, words
+    # the adaptor knows this wait: a task still blocked on its batch's
+    # reservation while the others wait here is woken to spill them
+    adaptor.thread_waiting_on_pool()
+    try:
+        barrier.wait(MEM_THREAD_TIMEOUT_S)
+    finally:
+        adaptor.thread_done_waiting_on_pool()
+    if force is not None:
+        force(rmm_spark.current_thread_id(), 1)
+    out = RT.split_and_retry(
+        lambda p: task_group_by(h, p, nbytes, adaptor), parts,
+        combine=lambda tables: OOC.merge_group_partials(tables, 2),
+        name=f"task{task}", policy=MEM_TASK_POLICY)
+    held = h.close()
+    if held:
+        adaptor.deallocate(held)
+    stats = (adaptor.get_and_reset_num_retry_throw(task),
+             adaptor.get_and_reset_num_split_retry_throw(task),
+             adaptor.get_and_reset_block_time(task) / 1e6)
+    rmm_spark.task_done(task)
+    return (out,) + stats
+
+
+def run_task_threads(jobs):
+    """Run (target, args) jobs on dedicated threads, each joined with a
+    time limit; a thread still alive (a deadlock) fails the run.  Returns
+    their results in order."""
+    results = [None] * len(jobs)
+
+    def body(i, fn, args):
+        try:
+            results[i] = ("ok", fn(*args))
+        except Exception as e:  # re-raised below, after the joins
+            results[i] = ("error", e)
+
+    threads = [threading.Thread(target=body, args=(i, fn, args),
+                                daemon=True)
+               for i, (fn, args) in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + MEM_THREAD_TIMEOUT_S
+    for t in threads:
+        t.join(max(0.1, deadline - time.monotonic()))
+    for r in results:
+        if r is not None and r[0] == "error":
+            raise r[1]
+    check(not any(t.is_alive() for t in threads),
+          "task threads finished (no deadlock)")
+    return [value for _, value in results]
+
+
+def task_round(name, limit, ids, rows, device, force=None):
+    """One round of task threads under an adaptor of `limit` bytes with
+    a spill store installed: their outputs, and the round's numbers.
+    Afterwards no reservation, thread or handle may be left."""
+    store = spill_store("host")
+    adaptor = rmm_spark.set_event_handler(limit)
+    PS.install(store)
+    barrier = threading.Barrier(len(ids))
+    try:
+        t0 = time.perf_counter()
+        out = run_task_threads([(task_run, (t, rows, device, store,
+                                            adaptor, barrier, force))
+                                for t in ids])
+        sync(device)
+        wall = time.perf_counter() - t0
+        check(adaptor.resource.used == 0
+              and adaptor.thread_state_dump() == []
+              and store.stats()["handles"] == 0,
+              f"{name}: no reservation, thread or handle left")
+        return [o[0] for o in out], dict(
+            store_numbers(store), limit_bytes=limit, wall_s=wall,
+            per_task=[{"retries": r, "split_retries": sp, "blocked_ms": b}
+                      for _, r, sp, b in out])
+    finally:
+        PS.uninstall()
+        rmm_spark.clear_event_handler()
+
+
+def same_task_results(got, want, what):
+    return max(same_group_table(a, b, f"{what}, task {i + 1}")
+               for i, (a, b) in enumerate(zip(got, want)))
+
+
+def task_threads(device="cuda", rows=MEM_TASK_ROWS, tasks=MEM_TASKS):
+    """The state machine under real task threads: each task reserves,
+    registers and groups its own batch of B bytes, reserving one more B
+    of working set an attempt, first with no limit, then under a limit
+    of 3 B (at least one spill); then forced retry and split on one
+    task (see the module docstring)."""
+    start = allocated(device)
+    ids = range(1, tasks + 1)
+    # B: a batch's bytes, the same for every seed
+    nbytes = rows * PS.columns_nbytes(store_sales_batch(
+        1, seed=0, device=device).columns)
+    res = {"tasks": tasks, "rows": rows, "batch_bytes": nbytes}
+    want, res["unlimited"] = task_round("unlimited", 1 << 60, ids, rows,
+                                        device)
+    got, res["limited"] = task_round(
+        "limited", MEM_TASK_LIMIT_BATCHES * nbytes, ids, rows, device)
+    check(res["limited"]["spills_host"] >= 1,
+          "the limited run spilled at least once")
+    bound = same_task_results(got, want, "under the limit")
+    del got
+    # forced OOMs on one task thread over a card batch
+    for name, force in (("forced_retry", rmm_spark.force_retry_oom),
+                        ("forced_split",
+                         rmm_spark.force_split_and_retry_oom)):
+        got, r = task_round(name, 1 << 60, ids[:1], rows, device, force)
+        (r,) = r["per_task"]
+        check(r["retries" if name == "forced_retry" else "split_retries"]
+              == 1, f"{name}: one thrown")
+        bound = max(bound, same_task_results(got, want, name))
+        res[name] = r
+        del got
+    del want
+    res["float_diff_of_bound"] = bound
+    end = allocated(device)
+    if start is not None:
+        check(end == start, f"device memory back to {start} (is {end})")
+    return res
+
+
+def q5_spilled(data, capacity, parts, device, store, iters):
+    """q5 over spilled partitions: store_sales and store_returns hash-
+    partitioned by store key, each partition's four columns registered
+    and spilled; run_spilled runs q5_partials once per partition; the
+    partials summed (int64, exact; the overflow flags OR-ed) and
+    q5_finish run must equal run_q5 in one pass, byte for byte."""
+    d = TT.gen_q5(device=device, **data)
+    stores = data["stores"]
+    want = TC.run_q5(d, stores, capacity)
+    kinds = (dtypes.INT32, dtypes.INT32, dtypes.INT64, dtypes.INT64)
+
+    def handles(cols, store_col, side):
+        rows = OOC.partition_rows([store_col.to(torch.int64)], parts)
+        return ([store.register([Column(k, len(ix), data=c[ix])
+                                 for k, c in zip(kinds, cols)],
+                                name=f"q5_{side}{p}")
+                 for p, ix in enumerate(rows)],
+                [bucket_rows(len(ix)) for ix in rows])
+
+    hs, s_buckets = handles(d[0:4], d.s_store, "s")
+    hr, r_buckets = handles(d[4:8], d.r_store, "r")
+    stage = compile_stage(TC.q5_partials_plan(stores, capacity))
+    buckets = set(zip(s_buckets, r_buckets))
+
+    def spill_all():
+        for h in hs + hr:
+            h.spill()
+
+    def run():
+        outs = stage.run_spilled([{"s": a, "r": b, "d": (d.d_date,)}
+                                  for a, b in zip(hs, hr)])
+        sums = [sum(o[i] for o in outs) for i in range(4)]
+        of = torch.stack([o[4] for o in outs]).any()
+        return TC.run_q5_finish(*sums, of, d.st_id, stores)
+
+    spill_all()
+    compiles = stage.compiles
+    t0 = time.perf_counter()
+    got = run()
+    sync(device)
+    first_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"q5 over spilled partitions == one pass (output {i})")
+    check(not bool(got[4]), "q5 partitions fit the join capacity")
+    res = {"partitions": parts, "spills_host": store.stats()["spills_host"],
+           "restores": store.stats()["restores"],
+           "compiles": stage.compiles - compiles,
+           "row_buckets": sorted(buckets), "first_call_s": first_s}
+    check(res["compiles"] <= len(buckets),
+          f"at most one compile per row bucket: {res}")
+    times = []
+    for _ in range(iters):
+        spill_all()
+        times.append(wall_ms(run, 1, device))
+    res["spilled_ms"] = sorted(times)[len(times) // 2] if times else None
+    res["single_pass_ms"] = wall_ms(lambda: TC.run_q5(d, stores, capacity),
+                                    max(iters, 1), device)
+    for h in hs + hr:
+        h.close()
+    return res
+
+
+def q5_spilled_fused():
+    """Step 11's q5 at step 6's size, the stage fused."""
+    store = spill_store("host")
+    with fusion("1"):
+        res = q5_spilled(Q5_DATA, Q5_CAPACITY, MEM_Q5_PARTS, "cuda", store,
+                         iters=1)
+    res.update(host_bytes=store.spill_bytes[PS.TIER_HOST])
+    store.close()
+    return res
+
+
+def jni_spill_entries(device="cuda", rows=1 << 20):
+    """The JNI door's spill entries over a batch on `device`."""
+    check(not jni_api.spill_store_install(),
+          "no adaptor installed to hook")
+    store = PS.installed_store()
+    h = store.register(store_sales_batch(rows, seed=53,
+                                         device=device).columns,
+                       name="door")
+    freed = jni_api.spill_ensure_headroom(1)
+    stats = json.loads(jni_api.spill_store_stats_json())
+    check(freed == h.device_bytes and stats["installed"]
+          and stats["spills_host"] == 1 and stats["handles"] == 1
+          and stats["spillable_bytes"] == 0,
+          f"the door spilled the batch: {freed} {stats}")
+    equal_columns(h.get(), store_sales_batch(rows, seed=53,
+                                             device=device).columns,
+                  "door batch restored")
+    jni_api.spill_store_uninstall()
+    check(PS.installed_store() is None and h.closed
+          and json.loads(jni_api.spill_store_stats_json())
+          == {"installed": False}, "the door uninstalled the store")
+    return {"freed_bytes": freed, "stats": stats}
+
+
+def run_memory():
+    """The memory runtime on the card (see the module docstring)."""
+    RA.reset_launches()
+    res = {}
+    clock = time.perf_counter()
+    # the join router's verdicts go to step 9's file: J2's is there
+    saved = os.environ.get("SPARK_RAPIDS_TPU_CALIB_CACHE")
+    os.environ["SPARK_RAPIDS_TPU_CALIB_CACHE"] = os.path.join(
+        _BUILD, "join_calib.json")
+    try:
+        for name, fn in (("ooc_join", ooc_join_cell),
+                         ("ooc_groupby", ooc_groupby_cell),
+                         ("spill", spill_frees_memory),
+                         ("task_threads", task_threads),
+                         ("q5_spilled", q5_spilled_fused),
+                         ("jni_door", jni_spill_entries)):
+            res[name] = fn()
+            torch.cuda.empty_cache()
+            res[name]["phase_s"] = time.perf_counter() - clock
+            clock = time.perf_counter()
+    finally:
+        if saved is None:
+            os.environ.pop("SPARK_RAPIDS_TPU_CALIB_CACHE", None)
+        else:
+            os.environ["SPARK_RAPIDS_TPU_CALIB_CACHE"] = saved
+        shutil.rmtree(os.path.join(_BUILD, "spill"), ignore_errors=True)
+    print(f"memory: {json.dumps(res)}", flush=True)
+    return read_launches("memory"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1826,6 +2441,8 @@ def main() -> int:
     by_path["shuffle_batch"], shuffle = run_shuffle()
     print(json.dumps({"shuffle": shuffle}), flush=True)
     phase("shuffle_batch")
+    by_path["memory"], _ = run_memory()
+    phase("memory")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

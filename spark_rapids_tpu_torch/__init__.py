@@ -24,7 +24,13 @@ first use (utils/cuda_build.py).
               q72, q89)
   perf.*      row buckets and digests that key compiled stages, and the
               measured path pick with its verdict cache
-  parallel.*  the capacity-doubling overflow retry
+  parallel.*  the capacity-doubling overflow retry under a RetryPolicy
+  shuffle.*   the kudo wire format: writer, reader, merger, and the
+              device split and assemble
+  memory.*    the RmmSpark OOM state machine (reservation accounting),
+              HostTable, and the tiered device/host/disk spill store
+  robustness.* the task-level retry drivers (with_retry,
+              split_and_retry) over the state machine
 
 Entry points run on the device of the tensors they are given; the
 constructors default to "cuda" and take `device="cpu"` explicitly.

@@ -8,20 +8,24 @@ with ROADMAP A10.
 
 from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.ops import copying, groupby, joins
+from spark_rapids_tpu_torch.robustness import retry as _retry
 
 
 def simple_star_join_agg(fact: Table, dim: Table,
                          fact_key: int = 0, fact_value: int = 1,
                          dim_key: int = 0, dim_attr: int = 1) -> Table:
     """SELECT d.attr, sum(f.value), count(*) FROM fact f JOIN dim d
-    ON f.key = d.key GROUP BY d.attr.
+    ON f.key = d.key GROUP BY d.attr.  The retry driver recomputes the
+    (pure) composition on a mid-query out-of-memory; ROADMAP A14: the
+    JAX package also opens a query-root span around it."""
 
-    ROADMAP A14: the JAX package wraps this in a query-root span and
-    its retry loop (recomputed on a mid-query out-of-memory)."""
-    li, ri = joins.hash_inner_join(Table([fact.columns[fact_key]]),
-                                   Table([dim.columns[dim_key]]))
-    value = copying.gather(fact.columns[fact_value], li)
-    attr = copying.gather(dim.columns[dim_attr], ri)
-    return groupby.groupby_aggregate(
-        Table([attr], names=["attr"]), [value, value],
-        [groupby.SUM, groupby.COUNT])
+    def _run():
+        li, ri = joins.hash_inner_join(Table([fact.columns[fact_key]]),
+                                       Table([dim.columns[dim_key]]))
+        value = copying.gather(fact.columns[fact_value], li)
+        attr = copying.gather(dim.columns[dim_attr], ri)
+        return groupby.groupby_aggregate(
+            Table([attr], names=["attr"]), [value, value],
+            [groupby.SUM, groupby.COUNT])
+
+    return _retry.with_retry(_run, name="simple_star_join_agg")

@@ -38,11 +38,13 @@ size compare with the stage outputs directly.
 
 The generators make the JAX package's draws (`models/tpcds.py` there)
 from the same `np.random.default_rng(seed)` in the same order, so both
-packages see the same data, and hand it over on ``device``.  The query
-spans and task-level retry around each pipeline, and the generators'
-ingest notes to the result cache, come with ROADMAP A14.
+packages see the same data, and hand it over on ``device``.  Each
+pipeline runs under the task-level retry driver (``_retried_query``);
+the query spans around them and the generators' ingest notes to the
+result cache come with ROADMAP A14.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +53,26 @@ import torch
 from spark_rapids_tpu_torch.ops.device_join import inner_join_device
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
 from spark_rapids_tpu_torch.plan.compiler import sort_lex
+from spark_rapids_tpu_torch.robustness import retry as _retry
+
+
+def _retried_query(name: str, fn):
+    """Run a pipeline under the task-level retry driver: a GpuRetryOOM /
+    GpuSplitAndRetryOOM / CudfException raised mid-query (real or
+    injected — the driver polls the forced-OOM hooks at every attempt)
+    recomputes the pipeline instead of killing it.  The pipelines are
+    pure functions of their argument tensors, so the recompute needs no
+    checkpoint and a "split" degrades soundly to a full re-run.
+    ROADMAP A14: the JAX package also opens a query-root span here."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        # close over the call instead of forwarding kwargs: a pipeline
+        # kwarg named like a driver control parameter (policy, ...)
+        # must reach fn, not the driver
+        return _retry.with_retry(lambda: fn(*args, **kwargs), name=name)
+
+    return run
 
 
 def _segment_sum(value: torch.Tensor, ids: torch.Tensor,
@@ -193,7 +215,7 @@ def make_q5(stores: int, join_capacity: int):
     def run(d: Q5Data):
         return kernel(*d)
 
-    return run
+    return _retried_query("tpcds_q5", run)
 
 
 def oracle_q5(d: Q5Data, stores: int):
@@ -230,8 +252,8 @@ def gen_q9(rows: int = 100_000, seed: int = 9, device="cuda"):
 _Q9_BUCKETS = ((1, 20), (21, 40), (41, 60), (61, 80), (81, 100))
 
 
-def run_q9(quantity: torch.Tensor, price: torch.Tensor,
-           profit: torch.Tensor):
+def _run_q9(quantity: torch.Tensor, price: torch.Tensor,
+            profit: torch.Tensor):
     """q9-shape: per-bucket count / avg(price) / avg(profit); sums exact
     in int64, averages in f64 at the presentation edge."""
     counts, avg_p, avg_n = [], [], []
@@ -245,6 +267,9 @@ def run_q9(quantity: torch.Tensor, price: torch.Tensor,
         avg_p.append(sp.to(torch.float64) / denom)
         avg_n.append(sn.to(torch.float64) / denom)
     return torch.stack(counts), torch.stack(avg_p), torch.stack(avg_n)
+
+
+run_q9 = _retried_query("tpcds_q9", _run_q9)
 
 
 def oracle_q9(quantity, price, profit):
@@ -363,7 +388,7 @@ def make_q72(items: int, max_week: int, join_capacity: int,
     def run(d: Q72Data):
         return kernel(*d)
 
-    return run
+    return _retried_query("tpcds_q72", run)
 
 
 def oracle_q72(d: Q72Data, items: int, max_week: int,
@@ -468,7 +493,7 @@ def make_q3(base: int, years: int, brands: int, manufact: int,
     def run(d: Q3Data):
         return kernel(*d)
 
-    return run
+    return _retried_query("tpcds_q3", run)
 
 
 def q3_arrays(d: Q3Data, base: int, manufact: int, month: int = 11):
@@ -567,7 +592,7 @@ def make_q7(items: int, limit: int = 100):
     def run(d: Q7Data):
         return kernel(*d)
 
-    return run
+    return _retried_query("tpcds_q7", run)
 
 
 def q7_arrays(d: Q7Data):

@@ -29,11 +29,14 @@ PyTorch's defaults, wherever the two differ:
   * sorts are stable and lexicographic; float keys tie -0.0 with 0.0
     and put NaN last.
 
+A stage also runs once per hash partition of spilled inputs
+(:meth:`CompiledStage.run_spilled`, each partition through :meth:`run`).
+
 Left out until their queue items land: the stats taps and the stage
 profile records (ROADMAP A14), fused-vs-op-by-op calibration (A14:
-``auto`` takes the fused engine meanwhile), spilled execution (A12),
-plan verification (A8), the result cache (A14) and the whole-pipeline
-function for multi-process runs (A10).
+``auto`` takes the fused engine meanwhile), plan verification (A8), the
+result cache (A14) and the whole-pipeline function for multi-process
+runs (A10).
 """
 
 import os
@@ -633,6 +636,38 @@ class CompiledStage:
         if fusion_mode() == "off":
             return self.run_unfused(inputs)
         return self._run_fused(inputs)
+
+    def run_spilled(self, partitions: Sequence[Mapping[str, object]]
+                    ) -> list:
+        """A ShuffleBoundary is also a SPILL boundary: run this stage
+        once per hash partition of spilled inputs — WITHOUT unfusing:
+        every partition goes through the ordinary :meth:`run` entry, so
+        same-bucket partitions share ONE fused program (the second
+        partition compiles nothing).
+
+        Each element of ``partitions`` maps input name -> either a
+        plain tensor sequence or a memory/spill.SpillHandle, whose
+        batch is streamed back onto its device just-in-time for its
+        partition, PINNED (victim-ineligible) while the partition runs,
+        and stays registered — spillable again — afterwards; the
+        CALLER owns handle close().  A handle's columns reach the stage
+        as their data tensors (the logical values, nulls not masked).
+        Returns the per-partition output tuples in partition order
+        (correctness requires hash-partitioned, per-partition-complete
+        inputs — the ops/out_of_core contract)."""
+        import contextlib
+
+        from spark_rapids_tpu_torch.memory.spill import SpillHandle
+        outs = []
+        for part in partitions:
+            with contextlib.ExitStack() as pins:
+                stage_inputs = {}
+                for name, v in part.items():
+                    if isinstance(v, SpillHandle):
+                        v = [c.data for c in pins.enter_context(v.pin())]
+                    stage_inputs[name] = tuple(v)
+                outs.append(self.run(stage_inputs))
+        return outs
 
 
 # one CompiledStage per plan digest, process-wide: catalog entry points

@@ -1,0 +1,389 @@
+"""Task-level retry drivers (reference: the plugin's
+``RmmRapidsRetryIterator`` — ``withRetry`` / ``withRetryNoSplit`` /
+``withRestoreOnRetry`` over ``RmmSpark.blockThreadUntilReady``).
+
+Three drivers, one shared episode bookkeeping:
+
+  * :func:`with_retry`        — re-run a recomputable section on
+    ``GpuRetryOOM``/``CpuRetryOOM``/``CudfException`` (and, because a
+    pure recompute is always a valid "split" of itself, on
+    ``GpuSplitAndRetryOOM`` too), restoring checkpointed state between
+    attempts.
+  * :func:`with_retry_no_split` — same, but split-and-retry OOMs
+    ESCALATE to the caller (something above owns a real splitter).
+  * :func:`split_and_retry`   — process a batch; a split-and-retry OOM
+    halves the batch via ``batch_splitter`` and the halves are
+    processed depth-first (each may split again) down to a
+    one-element floor, then :class:`RetryExhausted` carries the
+    attempt history.
+
+Every attempt starts by cooperating with the OOM state machine
+(``SparkResourceAdaptor.block_thread_until_ready`` — a BUFN'd thread
+parks here until memory frees) and by polling the forced-OOM hooks
+(``RmmSpark.force_retry_oom`` and friends), so injected faults fire
+even for compute-only sections that never allocate.  Failed attempts
+back off exponentially under a bounded-attempts + wall-clock-deadline
+policy.  The drivers make no torch call: what an attempt runs on the
+device is the caller's.
+
+Not ported, each marked below: the fault injector's rules
+(``utils/fault_injection.maybe_inject``, ROADMAP A16), the lifeguard
+heartbeat at each attempt start, and the episode's ``srt_retry_*``
+counters, journal event, span and incident trigger (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+from spark_rapids_tpu_torch.memory import exceptions as exc
+
+# what the drivers recover from (reference catch set: RetryOOM,
+# SplitAndRetryOOM, CudfException — GpuOOM/OffHeapOOM stay terminal)
+RETRYABLE = (exc.RetryOOMBase, exc.CudfException)
+SPLITTABLE = (exc.SplitAndRetryOOMBase,)
+
+# exception types that are TERMINAL even if they land inside the
+# retryable catch set (e.g. a subclass of CudfException raised for
+# deterministic input corruption): layers register theirs at import —
+# io/page_decode.ParquetDecodeException is the canonical case, since
+# re-reading a corrupt page yields the same bytes forever (A13 here).
+NON_RETRYABLE: Tuple[type, ...] = ()
+
+
+def register_non_retryable(*exc_types: type) -> None:
+    """Declare exception types the drivers must escalate immediately
+    (idempotent; isinstance-checked before every retry decision)."""
+    global NON_RETRYABLE
+    merged = dict.fromkeys(NON_RETRYABLE)
+    merged.update(dict.fromkeys(exc_types))
+    NON_RETRYABLE = tuple(merged)
+
+
+def _is_non_retryable(e: BaseException) -> bool:
+    return isinstance(e, NON_RETRYABLE)
+
+
+@dataclass
+class Attempt:
+    """One failed attempt inside an episode (the history
+    :class:`RetryExhausted` carries)."""
+
+    index: int          # 0-based attempt number within the episode
+    kind: str           # "retry" | "split"
+    error: str          # exception class name
+    message: str
+    elapsed_ns: int     # time this attempt burned before failing
+    split_depth: int = 0
+    batch_size: Optional[int] = None
+
+
+class RetryExhausted(Exception):
+    """Terminal: the retry budget (attempts, deadline, or the
+    one-element split floor) ran out.  ``attempts`` is the full
+    failure history; ``last`` is the exception that ended it."""
+
+    def __init__(self, name: str, reason: str, attempts: List[Attempt],
+                 last: Optional[BaseException] = None):
+        self.name = name
+        self.reason = reason
+        self.attempts = list(attempts)
+        self.last = last
+        errs = ",".join(a.error for a in self.attempts[-4:])
+        super().__init__(
+            f"retry exhausted in {name!r} ({reason}) after "
+            f"{len(self.attempts)} failed attempts [..{errs}]")
+
+
+class SplitFloorReached(RetryExhausted):
+    """Terminal at the ONE-ELEMENT split floor specifically: the batch
+    cannot shrink further, so more splitting is pointless — a
+    different failure from a spent attempt/deadline budget, and
+    doctor/server treat it differently (the fix is spilling or a
+    bigger device, not more retries).  Carries the resident-bytes
+    evidence snapshot (per-task active bytes from the memory ledger at
+    raise time) so the bundle shows WHO was holding device memory when
+    the floor was hit."""
+
+    def __init__(self, name: str, attempts: List[Attempt],
+                 last: Optional[BaseException] = None,
+                 resident_bytes: Optional[dict] = None):
+        super().__init__(name, "split_floor", attempts, last)
+        self.resident_bytes = dict(resident_bytes or {})
+
+    @staticmethod
+    def ledger_snapshot() -> dict:
+        """{task_id(str): active_bytes} plus ``__total__`` from the
+        installed adaptor's ledger; empty with no memory runtime."""
+        adaptor = _installed_adaptor()
+        if adaptor is None:
+            return {}
+        try:
+            led = adaptor.memory_ledger(timeline=0)
+        except Exception:
+            return {}
+        out = {str(tid): int(row.get("active_bytes", 0))
+               for tid, row in (led.get("tasks") or {}).items()}
+        out["__total__"] = int(led.get("allocated_bytes", 0))
+        return out
+
+
+@dataclass
+class RetryPolicy:
+    """Bounds one episode.  ``sleep``, ``clock``, and ``rng`` are
+    injectable for deterministic tests; backoff is exponential from
+    ``base_backoff_s`` with a cap, deadline is wall-clock over the
+    WHOLE episode (splits included).
+
+    ``jitter=True`` (the default) applies DECORRELATED jitter: each
+    pause is drawn uniformly from ``[base, 3 * previous_pause]`` and
+    capped at ``max_backoff_s``.  Deterministic exponential backoff
+    synchronizes retry storms — N tenants OOMing off the same pressure
+    spike all come back at exactly base*2^k and collide again; jitter
+    decorrelates the herd (the AWS "decorrelated jitter" scheme).
+    Callers that cannot thread the previous pause through still get
+    jitter around the deterministic schedule."""
+
+    max_attempts: int = 8
+    base_backoff_s: float = 0.001
+    backoff_multiplier: float = 2.0
+    max_backoff_s: float = 0.25
+    deadline_s: Optional[float] = None
+    jitter: bool = True
+    sleep: Callable[[float], None] = time.sleep
+    clock: Callable[[], float] = time.monotonic
+    rng: Callable[[], float] = field(default=random.random)
+
+    def backoff_for(self, failed_attempts: int,
+                    prev_backoff_s: Optional[float] = None) -> float:
+        if failed_attempts <= 0 or self.base_backoff_s <= 0:
+            return 0.0
+        det = min(self.base_backoff_s
+                  * self.backoff_multiplier ** (failed_attempts - 1),
+                  self.max_backoff_s)
+        if not self.jitter:
+            return det
+        # decorrelated jitter: U(base, 3*prev), capped.  Stateless
+        # callers (no prev) jitter around the deterministic value for
+        # this attempt count instead.
+        prev = (prev_backoff_s
+                if prev_backoff_s is not None and prev_backoff_s > 0
+                else det)
+        lo = self.base_backoff_s
+        hi = max(lo, 3.0 * prev)
+        return min(self.max_backoff_s, lo + (hi - lo) * self.rng())
+
+
+DEFAULT_POLICY = RetryPolicy()
+
+
+def _installed_adaptor():
+    """The installed SparkResourceAdaptor, or None — the drivers must
+    work with no memory runtime at all (plain library use)."""
+    from spark_rapids_tpu_torch.memory import rmm_spark
+    return rmm_spark.installed_adaptor()
+
+
+def check_injected_oom(name: str) -> None:
+    """Attempt-start hook: consume pending forced OOMs
+    (``force_retry_oom``/``force_split_and_retry_oom``/
+    ``force_cudf_exception``) for the current thread — so injected
+    faults fire even for compute-only sections that never touch the
+    allocator (reference ``RmmSpark.forceRetryOOM`` semantics).
+    ROADMAP A16: the JAX package also runs the fault injector's rules
+    against ``name`` here."""
+    adaptor = _installed_adaptor()
+    if adaptor is not None:
+        poll = getattr(adaptor, "check_injected_oom", None)
+        if poll is not None:
+            poll()
+
+
+class _Episode:
+    """Shared per-invocation bookkeeping for all three drivers."""
+
+    __slots__ = ("name", "policy", "t0", "attempt_t0", "attempts",
+                 "history", "last_exc", "last_backoff")
+
+    def __init__(self, name: str, policy: Optional[RetryPolicy]):
+        self.name = name
+        self.policy = policy or DEFAULT_POLICY
+        self.t0 = self.policy.clock()
+        self.attempt_t0 = time.monotonic_ns()
+        self.attempts = 0              # total attempts started
+        self.history: List[Attempt] = []
+        self.last_exc: Optional[BaseException] = None
+        self.last_backoff = 0.0
+        # ROADMAP A14: the JAX package opens the retry_episode span here
+        # and folds an episode that saw a failure into its counters and
+        # journal at every exit (its Episode.finish)
+
+    def before_attempt(self) -> None:
+        """Runs INSIDE the driver's try: anything raised here counts
+        as this attempt's failure."""
+        self.attempts += 1
+        self.attempt_t0 = time.monotonic_ns()
+        # ROADMAP A14: the lifeguard heartbeat (lifeguard.beat) here
+        adaptor = _installed_adaptor()
+        if adaptor is not None:
+            block = getattr(adaptor, "block_thread_until_ready", None)
+            if block is not None:
+                block()
+        check_injected_oom(self.name)
+
+    def note_failure(self, e: BaseException, kind: str,
+                     split_depth: int = 0,
+                     batch_size: Optional[int] = None) -> Attempt:
+        a = Attempt(index=self.attempts - 1, kind=kind,
+                    error=type(e).__name__, message=str(e)[:200],
+                    elapsed_ns=time.monotonic_ns() - self.attempt_t0,
+                    split_depth=split_depth, batch_size=batch_size)
+        self.history.append(a)
+        self.last_exc = e
+        return a
+
+    def pause(self) -> None:
+        """Between attempts: deadline check, then exponential backoff."""
+        pol = self.policy
+        if pol.deadline_s is not None and \
+                pol.clock() - self.t0 >= pol.deadline_s:
+            # chain the failure that ate the budget — .last and the
+            # traceback must survive for triage, as on the attempts
+            # path
+            raise self.exhausted("deadline",
+                                 self.last_exc) from self.last_exc
+        backoff = pol.backoff_for(len(self.history),
+                                  self.last_backoff)
+        self.last_backoff = backoff
+        if backoff > 0:
+            pol.sleep(backoff)
+
+    def exhausted(self, reason: str,
+                  last: Optional[BaseException] = None) -> RetryExhausted:
+        if reason == "split_floor":
+            # distinct type + resident-bytes evidence: "can't split
+            # further" is actionable (spill / bigger device), "budget
+            # exhausted" is not the same story
+            ex: RetryExhausted = SplitFloorReached(
+                self.name, self.history, last,
+                resident_bytes=SplitFloorReached.ledger_snapshot())
+        else:
+            ex = RetryExhausted(self.name, reason, self.history, last)
+        if last is not None and ex.__cause__ is None:
+            ex.__cause__ = last
+        # ROADMAP A14: the retry_exhausted incident trigger here
+        return ex
+
+
+def with_retry(fn: Callable, *args, name: Optional[str] = None,
+               checkpoint: Optional[Callable[[], Any]] = None,
+               restore: Optional[Callable[[Any], None]] = None,
+               policy: Optional[RetryPolicy] = None,
+               split_escalates: bool = False, **kwargs):
+    """Run ``fn(*args, **kwargs)`` under the retry contract.
+
+    ``checkpoint`` (zero-arg) is called ONCE before the first attempt
+    and its result is handed to ``restore(state)`` after every failed
+    attempt, so stateful sections re-enter pristine (the
+    ``withRestoreOnRetry`` contract).  ``split_escalates=True`` lets
+    ``GpuSplitAndRetryOOM`` propagate instead of degrading to a plain
+    recompute — use it when a real splitter exists above.
+
+    The driver's control kwargs (``name``/``checkpoint``/``restore``/
+    ``policy``/``split_escalates``) share the keyword namespace with
+    ``fn``'s — if ``fn`` takes a kwarg by one of those names, bind it
+    in a closure/partial instead of passing it through."""
+    ep = _Episode(name or getattr(fn, "__name__", "section"), policy)
+    state = checkpoint() if checkpoint is not None else None
+    while True:
+        try:
+            ep.before_attempt()
+            return fn(*args, **kwargs)
+        except RETRYABLE as e:
+            if _is_non_retryable(e):
+                raise
+            ep.note_failure(e, "retry")
+            last = e
+        except SPLITTABLE as e:
+            if split_escalates:
+                raise
+            # no splitter here and fn is recomputable: a full re-run
+            # IS a (degenerate) split of the input
+            ep.note_failure(e, "retry")
+            last = e
+        if restore is not None:
+            restore(state)
+        if len(ep.history) >= ep.policy.max_attempts:
+            raise ep.exhausted("attempts", last) from last
+        ep.pause()
+
+
+def with_retry_no_split(fn: Callable, *args, **kwargs):
+    """:func:`with_retry` with split-and-retry OOMs escalating to the
+    caller (reference ``withRetryNoSplit``)."""
+    kwargs["split_escalates"] = True
+    return with_retry(fn, *args, **kwargs)
+
+
+def halve_batch(batch: Sequence) -> Tuple[Sequence, Sequence]:
+    """Default splitter: halve any sliceable batch.  Raises on
+    one-element batches — the driver turns that into the terminal
+    :class:`RetryExhausted` (the one-row floor)."""
+    n = len(batch)
+    if n < 2:
+        raise ValueError("cannot split a batch of size " + str(n))
+    mid = (n + 1) // 2
+    return batch[:mid], batch[mid:]
+
+
+def split_and_retry(fn: Callable[[Sequence], Any], batch: Sequence, *,
+                    batch_splitter: Callable = halve_batch,
+                    combine: Optional[Callable[[List[Any]], Any]] = None,
+                    min_size: int = 1,
+                    name: Optional[str] = None,
+                    policy: Optional[RetryPolicy] = None):
+    """Process ``batch`` with ``fn``; on ``GpuSplitAndRetryOOM`` the
+    failing part is split via ``batch_splitter`` and the parts are
+    processed depth-first (each may split again) until parts reach
+    ``min_size`` — a failure there raises :class:`RetryExhausted`.
+    Plain retryable OOMs re-run the SAME part under the policy's
+    attempt budget.  Per-part results are combined with
+    ``combine(results)`` (default: the raw in-order result list).
+
+    Splitter contract: ``batch_splitter(part) -> (left, right)`` with
+    ``left + right`` order-equivalent to ``part`` — results are
+    combined in order, so a conforming splitter makes the split run
+    byte-identical to the unsplit one."""
+    ep = _Episode(name or getattr(fn, "__name__", "batch"), policy)
+    pending: List[Tuple[Sequence, int]] = [(batch, 0)]
+    results: List[Any] = []
+    part_failures = 0  # consecutive plain-retry failures on one part
+    while pending:
+        part, depth = pending[0]
+        try:
+            ep.before_attempt()
+            results.append(fn(part))
+            pending.pop(0)
+            part_failures = 0
+            continue
+        except RETRYABLE as e:
+            if _is_non_retryable(e):
+                raise
+            part_failures += 1
+            ep.note_failure(e, "retry", split_depth=depth,
+                            batch_size=len(part))
+            if part_failures >= ep.policy.max_attempts:
+                raise ep.exhausted("attempts", e) from e
+        except SPLITTABLE as e:
+            ep.note_failure(e, "split", split_depth=depth + 1,
+                            batch_size=len(part))
+            if len(part) <= min_size:
+                raise ep.exhausted("split_floor", e) from e
+            left, right = batch_splitter(part)
+            pending[0:1] = [(left, depth + 1), (right, depth + 1)]
+            part_failures = 0
+        ep.pause()
+    return combine(results) if combine is not None else results

@@ -96,3 +96,51 @@ def kudo_set_crc_enabled(enabled: bool) -> bool:
 
 def kudo_crc_enabled() -> bool:
     return _kudo.crc_enabled()
+
+
+# -------------------------------------------------------- spill store
+# (the JVM installs/uninstalls the tiered spill store around a
+# workload, asks for synchronous headroom before its own device
+# allocations, and polls tier occupancy for executor dashboards)
+
+
+def spill_store_install() -> bool:
+    """Install the process spill store and wire it into the installed
+    SparkResourceAdaptor's OOM state machine (idempotent).  Returns
+    True when an adaptor was present to hook."""
+    from spark_rapids_tpu_torch.memory import rmm_spark, spill
+    spill.install()
+    return rmm_spark.installed_adaptor() is not None
+
+
+def spill_store_uninstall() -> None:
+    """Unhook and drop the process spill store (every handle and its
+    disk files released)."""
+    from spark_rapids_tpu_torch.memory import spill
+    spill.uninstall()
+
+
+def spill_ensure_headroom(num_bytes: int) -> int:
+    """Synchronously spill registered batches until ``num_bytes`` of
+    device memory are free (or nothing spillable remains); returns the
+    bytes actually freed (0 with no store installed)."""
+    from spark_rapids_tpu_torch.memory import spill
+    store = spill.installed_store()
+    if store is None:
+        return 0
+    return int(store.ensure_headroom(int(num_bytes)))
+
+
+def spill_store_stats_json() -> str:
+    """Tier occupancy + lifetime spill/restore/corruption counters for
+    the installed store as JSON (``{"installed": false}`` without
+    one)."""
+    import json
+
+    from spark_rapids_tpu_torch.memory import spill
+    store = spill.installed_store()
+    if store is None:
+        return json.dumps({"installed": False})
+    out = {"installed": True}
+    out.update(store.stats())
+    return json.dumps(out, sort_keys=True)

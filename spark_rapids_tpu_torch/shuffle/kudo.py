@@ -23,12 +23,12 @@ reference's write-cheap/merge-once design.  The writer reads each column
 from the device once (prepare_host_columns); the merger builds the
 table's columns on the device the caller names, "cuda" by default.
 
-ROADMAP A14 (tracing and metrics) is not ported: this writer never
-emits the KTRX trace extension (the reference writes it only while span
-tracing is on), the kudo_write / kudo_merge spans and the shuffle and
-corruption counters are not recorded, and the merger parses its tables
-in a plain loop where the reference wraps the parse in split-and-retry
-(the same tables, so the same result).  Readers still parse KTRX.
+The merger parses its tables under split-and-retry
+(robustness/retry.py), as the reference does.  ROADMAP A14 (tracing and
+metrics) is not ported: this writer never emits the KTRX trace
+extension (the reference writes it only while span tracing is on), and
+the kudo_write / kudo_merge spans and the shuffle and corruption
+counters are not recorded.  Readers still parse KTRX.
 """
 
 from __future__ import annotations
@@ -421,6 +421,28 @@ def _write_crc_trailer(out, header_bytes: bytes, body_parts, *,
     return CRC_TRAILER_LEN
 
 
+def crc_trailer(table_bytes) -> bytes:
+    """The KCRC trailer over one table's wire bytes (header + body),
+    given as any bytes-like object."""
+    return CRC_MAGIC + struct.pack(">I", zlib.crc32(table_bytes) & 0xFFFFFFFF)
+
+
+def checked_table_length(blob) -> int:
+    """The byte length of the table in ``blob`` (any bytes-like object)
+    when ``blob`` is exactly one kudo table and a KCRC trailer whose
+    checksum matches, read in place; 0 otherwise (read_tables then
+    parses it and raises what it finds)."""
+    mv = memoryview(blob)
+    if len(mv) < 28 + CRC_TRAILER_LEN or bytes(mv[:4]) != MAGIC:
+        return 0
+    total, ncols = struct.unpack(">ii", mv[20:28])
+    n = 28 + (ncols + 7) // 8 + total
+    if (min(total, ncols) < 0 or n + CRC_TRAILER_LEN != len(mv)
+            or bytes(mv[n:]) != crc_trailer(mv[:n])):
+        return 0
+    return n
+
+
 def write_row_count_only(out, num_rows: int) -> int:
     """Degenerate zero-column table (KudoSerializer rows-only path)."""
     header = KudoTableHeader(0, num_rows, 0, 0, 0, 0, b"")
@@ -764,10 +786,18 @@ def merge_to_table_with_metrics(kudo_tables, fields, device="cuda"):
     """merge_to_table with the parse and concat times.  The concat time
     ends when the last host-to-device copy is queued, not when it
     lands."""
+    from spark_rapids_tpu_torch.robustness import retry as _retry
     t0 = time.monotonic_ns()
-    # ROADMAP A14: the reference opens the kudo_merge span here and
-    # parses under split_and_retry (the same tables, so the same result)
-    parsed = [_parse_table(kt, fields) for kt in kudo_tables]
+    # ROADMAP A14: the reference opens the kudo_merge span here.
+    # split-and-retry over the TABLE LIST: a GpuSplitAndRetryOOM
+    # mid-parse halves the batch and parses the halves (down to a
+    # one-table floor); per-half results flatten back in order, so the
+    # split merge is byte-identical to the unsplit one
+    parsed = _retry.split_and_retry(
+        lambda kts: [_parse_table(kt, fields) for kt in kts],
+        list(kudo_tables),
+        combine=lambda chunks: [p for chunk in chunks for p in chunk],
+        name="kudo_merge")
     t1 = time.monotonic_ns()
     cols = [_concat_host_cols([p[i] for p in parsed], f, device)
             for i, f in enumerate(fields)]

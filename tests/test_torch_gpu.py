@@ -11,9 +11,13 @@ outer/semi/anti transforms, the star join and the JNI door's join
 against the CPU; and the kudo shuffle: the device split byte-equal to
 the host writer, the device assemble and the merger on the card giving
 the table back, the CRC trailer, the router, and the nested hashes on
-the card against the CPU.  Float SUM/MEAN on the card add with atomics
-in a varying order, so they are held to chip_smoke.close_float_sums's
-bound; every other output is byte-equal.
+the card against the CPU; and the memory runtime: a spill freeing card
+memory and restoring onto the card, the out-of-core join and group-by
+on the card against the in-memory calls, a CPU batch restored on the
+CPU, the task threads under a limit and q5 over spilled partitions.
+Float SUM/MEAN on the card add with atomics in a varying order, so they
+are held to chip_smoke.close_float_sums's bound; every other output is
+byte-equal.
 
 Marked `gpu`; each test skips without a CUDA device (decided in the
 `cuda` fixture, never at import).  The file imports no JAX, so on a GPU
@@ -511,3 +515,69 @@ def test_shuffle_router_on_card(cuda, monkeypatch):
     two = buf + buf[:int(offs[1])]
     got = SA.shuffle_assemble(fields, two, [0, len(buf), len(two)])
     assert got.num_rows == 2500 and got.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_spill_frees_card_memory_and_restores_on_card(cuda, tmp_path,
+                                                      monkeypatch):
+    """Spilling a registered card batch that nothing else references
+    lowers memory_allocated by at least 90% of its bytes; restore gives
+    it back on the card byte for byte; corrupt disk files recompute or
+    raise with the file named."""
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    res = C.spill_frees_memory("cuda", rows=1 << 20, corrupt_rows=1 << 16)
+    assert res["freed_bytes"] >= 0.9 * res["device_bytes"]
+    assert res["corrupt"]["recomputes"] == 1
+
+
+@pytest.mark.gpu
+def test_out_of_core_join_on_card_matches_in_memory(cuda, tmp_path,
+                                                    monkeypatch):
+    """J2's shape out of core on the card (8 partitions, host tier and
+    disk) against the in-memory join and the numpy oracle; the group-by
+    out of core against the in-memory call (float bound)."""
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
+                       str(tmp_path / "calib.json"))
+    res = C.ooc_join_cell("cuda", rows=1 << 20, returns=1 << 17, iters=1)
+    assert res["host"]["restores"] == res["disk"]["spills_disk"] == 8
+    g = C.ooc_groupby_cell("cuda", rows=1 << 20, budget=1 << 24, iters=1)
+    assert g["partitions"] == 4
+
+
+@pytest.mark.gpu
+def test_restored_cpu_batch_stays_on_cpu(cuda, tmp_path):
+    """A CPU batch spilled beside a card batch comes back on the CPU,
+    the card batch on the card: restore lands on the handle's device."""
+    from spark_rapids_tpu_torch.memory.spill import SpillStore
+    store = SpillStore(spill_dir=str(tmp_path), host_limit_bytes=0)
+    card = store_sales_batch(5000, seed=3)
+    cpu = Table([on_cpu(c) for c in card.columns])
+    hc = store.register(card.columns, name="card")
+    hh = store.register(cpu.columns, name="cpu")
+    hc.spill()
+    hh.spill()
+    got_card, got_cpu = hc.get(), hh.get()
+    assert all(c.device.type == "cuda" for c in got_card)
+    assert all(c.device.type == "cpu" for c in got_cpu)
+    for a, b in zip(got_card, got_cpu):
+        same_column(a, b, "restored card batch == restored CPU batch")
+    store.close()
+
+
+@pytest.mark.gpu
+def test_task_threads_and_q5_spilled_on_card(cuda, tmp_path, monkeypatch):
+    """chip_smoke's task threads under a limit of three batches and q5
+    over spilled partitions, at small sizes on the card."""
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.memory.spill import SpillStore
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    res = C.task_threads("cuda", rows=1 << 16)
+    assert res["limited"]["spills_host"] >= 1
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+    q5 = C.q5_spilled(dict(rows=1 << 16, stores=402, days=60, seed=5),
+                      1 << 15, 4, "cuda",
+                      SpillStore(spill_dir=str(tmp_path)), iters=1)
+    assert q5["partitions"] == 4
