@@ -193,7 +193,45 @@
    and restore seconds and the freed bytes, each task's retries, split
    retries and blocked ms and the four tasks' wall time with and
    without the limit, the q5 spilled and single-pass ms and its
-   compiles.  Ends with the seconds each phase took.
+   compiles.
+12. The string casts and parse_url (ops/cast_string.py with its device
+   engines ops/stod_device.py and ops/ftos_device.py, ops/strings_misc.py,
+   ops/parse_uri.py, ops/parse_uri_device.py, columns/strbuild.py), every
+   column drawn on the card from a seed.  Casts over 2^24 rows of step 8's
+   store_sales values (one executor batch): ss_net_paid FLOAT64 (about 4%
+   null) and its FLOAT32 rendered by float_to_string on the card, and
+   ss_quantity or ss_ticket_number (1 to 24,000,000) rendered by digit
+   arithmetic; a seeded 1/16 of each column replaced by an edge
+   vocabulary (FLOAT_EDGES: whitespace, signs, "1.", ".5", exponents to
+   +-400, 19- and 25-digit mantissas, subnormals, Infinity, NaN, -NaN,
+   "1e", "abc", ""; INT_EDGES: overflow, ".5" truncation, signs,
+   whitespace).  string_to_float must give every non-null rendered value
+   back bit for bit, FLOAT64 and FLOAT32; string_to_integer into INT64,
+   INT32 and INT8 every value that fits.  On a 2^18-row slice each cast on
+   the card must equal the port's CPU run byte for byte, with as many rows
+   sent to the host parse; on a 2^16-row sample the device engines must
+   equal the host engines (SPARK_RAPIDS_TPU_STOD=host, _FTOS=host); ANSI
+   mode must raise CastException at the first bad row.  The host-loop
+   casts (string_to_decimal, both base conversions, conv, the literal
+   range pattern, list_slice and the GBK decode) once at 2^16 rows, each
+   returning a card column equal to its CPU run, and the JNI door's
+   string_to_integer on a card handle, released.  parse_url over 2^22
+   URLs of at most 199 bytes drawn from a seeded vocabulary (schemes, userinfo,
+   hosts and IPv4 addresses, ports, paths, queries, fragments; about 1%
+   IPv6 hosts and 1% non-ASCII paths, the host parser's rows, about 2%
+   invalid paths and 4% nulls): PROTOCOL, HOST, QUERY and PATH over all
+   of it and over its first 2^20 rows, and QUERY with the key "q" over
+   those 2^20 (BASELINE.json's 1e6-row column: keys are matched per row
+   on the host); after PROTOCOL the 2^20-row calls must find every chunk
+   in the analysis memo.  Each extractor and QUERY-with-key on one 2^17-
+   row chunk must equal the CPU run byte for byte with as many host rows,
+   and the host parser on a 2^14-row sample; ANSI mode must raise at the
+   same row on the card, on the CPU and in the host parser.  Prints a
+   `strings` line: each call's median ms of 3 synchronized calls (the
+   first included) and its first call's ms, rows, MB/s of input chars (output chars for
+   float_to_string), padded width and scan steps, rows sent to the host,
+   the peak device memory the first call added and the memo hits and
+   misses.  Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -224,21 +262,29 @@ import torch  # noqa: E402
 from spark_rapids_tpu_torch.columns import dtypes, interop  # noqa: E402
 from spark_rapids_tpu_torch.columns.column import Column  # noqa: E402
 from spark_rapids_tpu_torch.columns.table import Table  # noqa: E402
+from spark_rapids_tpu_torch.columns import strbuild as SB  # noqa: E402
 from spark_rapids_tpu_torch.memory import rmm_spark  # noqa: E402
 from spark_rapids_tpu_torch.memory import spill as PS  # noqa: E402
 from spark_rapids_tpu_torch import models as TM  # noqa: E402
 from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
 from spark_rapids_tpu_torch.models import query as Q  # noqa: E402
 from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
+from spark_rapids_tpu_torch.ops import cast_string as CS  # noqa: E402
 from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
 from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash as H  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
 from spark_rapids_tpu_torch.ops import joins as J  # noqa: E402
 from spark_rapids_tpu_torch.ops import out_of_core as OOC  # noqa: E402
+from spark_rapids_tpu_torch.ops import parse_uri as U  # noqa: E402
+from spark_rapids_tpu_torch.ops import parse_uri_device as UD  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
 from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
+from spark_rapids_tpu_torch.ops import stod_device as SD  # noqa: E402
+from spark_rapids_tpu_torch.ops import strings_misc as SM  # noqa: E402
+from spark_rapids_tpu_torch.ops.exceptions import (  # noqa: E402
+    CastException, ExceptionWithRowIndex)
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
 from spark_rapids_tpu_torch.perf import calibrate as CAL  # noqa: E402
 from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows  # noqa: E402
@@ -384,6 +430,38 @@ MEM_TASK_LIMIT_BATCHES = 3
 MEM_Q5_PARTS = 4
 MEM_THREAD_TIMEOUT_S = 300
 MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
+# the string casts and parse_url (step 12), drawn on the card: the casts
+# over 2^24 rows of the operators' store_sales values (one executor
+# batch; about 300 MB of rendered chars), a seeded 1/16 of the rows
+# replaced by an edge vocabulary; parse_url over 2^22 URLs of at most
+# 199 bytes (about 390 MB), and QUERY with a key over BASELINE.json's
+# 1e6-row column (2^20 rows), since the key is matched per row on the
+# host; each checked against a CPU run of a slice and against the host
+# engine on a sample
+STR_CAST_ROWS = 1 << 24
+STR_EDGE_EVERY = 16
+STR_CPU_ROWS = 1 << 18
+STR_HOST_ROWS = 1 << 16
+STR_ITERS = 3
+URL_ROWS = 1 << 22
+URL_KEY_ROWS = 1 << 20
+URL_CPU_ROWS = 1 << 17      # one device chunk
+URL_HOST_ROWS = 1 << 14
+URL_NULL_SHARE = 0.04
+FLOAT_EDGES = [" 12.5 ", "\t-0.25\n", "+7", "-3", "1.", ".5", "-.5",
+               "1e400", "-1e-400", "1e308", "-1.5e-300", "1E+22", "5e-1",
+               "1234567890123456789", "9999999999999999999e-5",
+               "-9223372036854775808e2", "1234567890123456789012345",
+               "-1234567890123456789012345e-30", "4.9e-324",
+               "2.2250738585072014e-308", "1e-310", "1.17549435e-38",
+               "1e-45", "3.4028236e38", "Infinity", "-Infinity", "inf",
+               "+INF", "NaN", "-NaN", "nan", "1e", "abc", "", "  ",
+               "1.2.3", "0x10", "+", "1_0", "1e+", "  1E+400  ", "--1"]
+INT_EDGES = ["9223372036854775807", "9223372036854775808",
+             "-9223372036854775808", "-9223372036854775809", "2147483648",
+             "-2147483649", "128", "-129", "12.5", "-7.5", "+3.99", ".5",
+             " 42 ", "\t-17\n", "1e3", "abc", "", "-", "+", "1-", " ",
+             "99.", "0", "+0", "-0"]
 # the kernels each main path must launch
 PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "bench_round_trip": ("to_rows", "from_rows"),
@@ -393,7 +471,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "operators_batch": (),
                 "joins_batch": (),
                 "shuffle_batch": (),
-                "memory": ()}
+                "memory": (),
+                "strings": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1574,32 +1653,34 @@ def same_nested(a, b, what):
         same_nested(x, y, f"{what}.{i}")
 
 
-def card_strings(g, rows, lo, hi):
-    """A STRING column of random bytes, lo to hi a row, on the card,
-    about NESTED_NULL_SHARE null (null rows keep their bytes)."""
-    lens = torch.randint(lo, hi + 1, (rows,), generator=g, device="cuda")
-    offs = torch.zeros(rows + 1, dtype=torch.int64, device="cuda")
+def card_strings(g, rows, lo, hi, device="cuda"):
+    """A STRING column of random bytes, lo to hi a row, on the card (or
+    `device`), about NESTED_NULL_SHARE null (null rows keep their
+    bytes)."""
+    lens = torch.randint(lo, hi + 1, (rows,), generator=g, device=device)
+    offs = torch.zeros(rows + 1, dtype=torch.int64, device=device)
     torch.cumsum(lens, 0, out=offs[1:])
     chars = torch.randint(0, 256, (int(offs[-1]),), generator=g,
-                          dtype=torch.uint8, device="cuda")
+                          dtype=torch.uint8, device=device)
     return Column(dtypes.STRING, rows, data=chars,
-                  validity=card_valid(g, rows), offsets=offs.to(torch.int32))
+                  validity=card_valid(g, rows, device),
+                  offsets=offs.to(torch.int32))
 
 
-def card_valid(g, rows):
-    return (torch.rand(rows, generator=g, device="cuda")
+def card_valid(g, rows, device="cuda"):
+    return (torch.rand(rows, generator=g, device=device)
             >= NESTED_NULL_SHARE).to(torch.uint8)
 
 
-def card_list(g, rows, max_count, child):
+def card_list(g, rows, max_count, child, device="cuda"):
     """A LIST column of 0..max_count elements a row over `child(n)`,
     about NESTED_NULL_SHARE null (null rows keep their elements)."""
     counts = torch.randint(0, max_count + 1, (rows,), generator=g,
-                           device="cuda")
-    offs = torch.zeros(rows + 1, dtype=torch.int64, device="cuda")
+                           device=device)
+    offs = torch.zeros(rows + 1, dtype=torch.int64, device=device)
     torch.cumsum(counts, 0, out=offs[1:])
     return Column.make_list(offs.to(torch.int32), child(int(offs[-1])),
-                            validity=card_valid(g, rows))
+                            validity=card_valid(g, rows, device))
 
 
 def nested_batch(rows, seed):
@@ -2341,6 +2422,482 @@ def run_memory():
     return read_launches("memory"), res
 
 
+# ------------------------------------------------------------ strings (12)
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block (None: unset)."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def with_edges(col, vocab, g, every=STR_EDGE_EVERY):
+    """(`col` with a seeded 1/every of its rows replaced by `vocab`'s
+    entries, valid; the replaced rows' mask), on col's device."""
+    device = col.device
+    rows = col.length
+    edge = torch.randint(0, every, (rows,), generator=g,
+                         device=device) == 0
+    pick = torch.randint(0, len(vocab), (rows,), generator=g,
+                         device=device)
+    both = CP.concat_columns([col, Column.from_strings(vocab, device)])
+    idx = torch.where(edge, rows + pick, torch.arange(rows, device=device))
+    return CP.gather(both, idx), edge
+
+
+def int_strings(values, valid):
+    """The decimal renderings of int64 values as a STRING column on their
+    device, from digit arithmetic (no cast of the port's)."""
+    device = values.device
+    rows = values.shape[0]
+    neg = values < 0
+    mag = values.abs()
+    p10 = 10 ** torch.arange(19, dtype=torch.int64, device=device)
+    ndig = (mag[:, None] >= p10[None, :]).sum(dim=1).clamp(min=1)
+    width = 20
+    mat = torch.empty((rows, width), dtype=torch.uint8, device=device)
+    for j in range(width):
+        e = (ndig - 1 - (j - neg.to(torch.int64))).clamp(0, 18)
+        d = (mag // p10[e]) % 10 + 48
+        mat[:, j] = torch.where(neg & (j == 0), 45, d).to(torch.uint8)
+    return SB.build_string_column(
+        mat.reshape(-1), torch.arange(rows, device=device) * width,
+        ndig + neg.to(torch.int64), valid)
+
+
+def chars_mb(col):
+    return int(col.offsets[-1] - col.offsets[0]) / 1e6
+
+
+def timed_call(fn, device, iters):
+    """(fn's first result, {the median ms of `iters` synchronized calls,
+    the first of them included; the first call's ms; the peak device
+    memory the first call added})."""
+    t0 = time.perf_counter()
+    out, peak = peak_added(fn, device)
+    first = (time.perf_counter() - t0) * 1e3
+    times = [first] + [wall_ms(fn, 1, device) for _ in range(iters - 1)]
+    return out, {"first_ms": first, "ms": sorted(times)[len(times) // 2],
+                 "peak_added_mb": peak}
+
+
+def card_and_cpu(fn, cols, what):
+    """fn over card columns, then over their CPU copies: equal byte for
+    byte, the card's result on the card."""
+    got = fn(*cols)
+    want = fn(*[on_cpu(c) for c in cols])
+    check(got.device == cols[0].device, f"{what}: on its input's device")
+    same_nested(got, want, f"{what}: card == CPU")
+    return got
+
+
+def first_bad_row(call, want_row, what):
+    """The ANSI call raises at `want_row` (the first valid input that
+    casts to null)."""
+    try:
+        call()
+    except CastException as e:
+        check(e.row_index == want_row,
+              f"{what}: ANSI raised at row {e.row_index}, want {want_row}")
+        return e.row_index
+    check(False, f"{what}: ANSI mode raised nothing")
+
+
+def first_true(mask):
+    rows = torch.nonzero(mask).squeeze(1)
+    return int(rows[0]) if rows.shape[0] else None
+
+
+def cast_values(device, rows, seed):
+    """The casts' inputs on `device`: ss_net_paid FLOAT64 (about 4% null)
+    and its FLOAT32, and ss_quantity or ss_ticket_number (TPC-DS SF100:
+    1 to 24,000,000) as INT64, each rendered: the floats by the port's
+    float_to_string, the integers by digit arithmetic."""
+    batch = store_sales_batch(rows, seed, device)
+    net = batch.columns[4]
+    net32 = Column(dtypes.FLOAT32, rows, data=net.data.to(torch.float32),
+                   validity=net.validity)
+    g = torch.Generator(device=device).manual_seed(seed)
+    qty = batch.columns[2]
+    ticket = torch.randint(1, 24_000_001, (rows,), generator=g,
+                           dtype=torch.int64, device=device)
+    coin = torch.rand(rows, generator=g, device=device) < 0.5
+    ints = torch.where(coin, qty.data.to(torch.int64), ticket)
+    return net, net32, ints, qty.validity.to(torch.bool), g
+
+
+def cast_phase(device="cuda", rows=STR_CAST_ROWS, cpu_rows=STR_CPU_ROWS,
+               host_rows=STR_HOST_ROWS, iters=STR_ITERS):
+    """The string casts on the card (see the module docstring)."""
+    res = {"rows": rows}
+    net, net32, ints, ivalid, g = cast_values(device, rows, seed=12)
+
+    # float -> string -> float, FLOAT64 and FLOAT32
+    for name, col, dt in (("f64", net, dtypes.FLOAT64),
+                          ("f32", net32, dtypes.FLOAT32)):
+        with env(SPARK_RAPIDS_TPU_FTOS="device"):
+            text, ftos = timed_call(lambda: CS.float_to_string(col),
+                                    device, iters)
+        check(text.device == col.device, f"float_to_string {name}: device")
+        ftos.update(out_chars_mb=chars_mb(text),
+                    out_mb_per_s=chars_mb(text) / ftos["ms"] * 1e3)
+        mixed, edge = with_edges(text, FLOAT_EDGES, g)
+        with env(SPARK_RAPIDS_TPU_STOD="device"):
+            back, stod = timed_call(lambda: CS.string_to_float(mixed, dt),
+                                    device, iters)
+        stod.update(SD.LAST_CALL, in_chars_mb=chars_mb(mixed),
+                    in_mb_per_s=chars_mb(mixed) / stod["ms"] * 1e3)
+        kept = ~edge & col.valid_mask()
+        width = torch.int64 if name == "f64" else torch.int32
+        check(torch.equal(back.valid_mask()[~edge], kept[~edge])
+              and torch.equal(back.data.view(width)[kept],
+                              col.data.view(width)[kept]),
+              f"string_to_float {name}: every non-null value back bit for "
+              f"bit")
+        res[f"float_to_string_{name}"] = ftos
+        res[f"string_to_float_{name}"] = stod
+        first_bad_row(
+            lambda: CS.string_to_float(mixed, dt, ansi_mode=True),
+            first_true(mixed.valid_mask() & ~back.valid_mask()),
+            f"string_to_float {name}")
+        # the card against the port's CPU run on a slice, and against
+        # the host engines on a sample
+        part = CP.slice_column(mixed, 0, cpu_rows)
+        with env(SPARK_RAPIDS_TPU_STOD="device",
+                 SPARK_RAPIDS_TPU_FTOS="device"):
+            got = CS.string_to_float(part, dt)
+            flagged = SD.LAST_CALL["fallback_rows"]
+            want = CS.string_to_float(on_cpu(part), dt)
+            check(got.device == part.device, "string_to_float: device")
+            same_nested(got, want, f"string_to_float {name} slice: card "
+                        f"== CPU")
+            check(SD.LAST_CALL["fallback_rows"] == flagged,
+                  f"string_to_float {name}: as many host rows on the card "
+                  f"as on the CPU ({flagged})")
+            card_and_cpu(CS.float_to_string,
+                         [CP.slice_column(col, 0, cpu_rows)],
+                         f"float_to_string {name} slice")
+        stod["cpu_slice_fallback_rows"] = flagged
+        sample = CP.slice_column(mixed, 0, host_rows)
+        values = CP.slice_column(col, 0, host_rows)
+        with env(SPARK_RAPIDS_TPU_STOD="device",
+                 SPARK_RAPIDS_TPU_FTOS="device"):
+            dev = (CS.string_to_float(sample, dt),
+                   CS.float_to_string(values))
+        with env(SPARK_RAPIDS_TPU_STOD="host", SPARK_RAPIDS_TPU_FTOS="host"):
+            host = (CS.string_to_float(sample, dt),
+                    CS.float_to_string(values))
+        for h in host:
+            check(h.device == sample.device, "host engines: device")
+        # the engines leave different bytes under null rows
+        mask = host[0].valid_mask()
+        check(torch.equal(dev[0].valid_mask(), mask)
+              and torch.equal(raw_bytes(dev[0].data[mask]),
+                              raw_bytes(host[0].data[mask])),
+              f"string_to_float {name}: device engine == host")
+        same_nested(dev[1], host[1],
+                    f"float_to_string {name}: device engine == host")
+        del text, mixed, back, edge
+
+    # string -> integer into INT64, INT32 and INT8
+    istr = int_strings(ints, ivalid)
+    mixed, edge = with_edges(istr, INT_EDGES, g)
+    for dt, lo, hi in ((dtypes.INT64, -2**63, 2**63 - 1),
+                       (dtypes.INT32, -2**31, 2**31 - 1),
+                       (dtypes.INT8, -128, 127)):
+        out, t = timed_call(lambda: CS.string_to_integer(mixed, dt),
+                            device, iters)
+        t.update(in_chars_mb=chars_mb(mixed), width=mixed.max_string_length(),
+                 in_mb_per_s=chars_mb(mixed) / t["ms"] * 1e3)
+        t["scan_steps"] = t["width"]
+        fits = ~edge & ivalid & (ints >= lo) & (ints <= hi)
+        check(torch.equal(out.valid_mask()[~edge], fits[~edge])
+              and torch.equal(out.data[fits].to(torch.int64), ints[fits]),
+              f"string_to_integer {dt.kind}: every fitting value back")
+        card_and_cpu(lambda c: CS.string_to_integer(c, dt),
+                     [CP.slice_column(mixed, 0, cpu_rows)],
+                     f"string_to_integer {dt.kind} slice")
+        res[f"string_to_integer_{dt.kind}"] = t
+    first_bad_row(
+        lambda: CS.string_to_integer(mixed, dtypes.INT8, ansi_mode=True),
+        first_true(mixed.valid_mask() & ~
+            CS.string_to_integer(mixed, dtypes.INT8).valid_mask()),
+        "string_to_integer int8")
+
+    # the host-loop casts, once at host_rows, each on the card and on the
+    # CPU
+    fsample = with_edges(CS.float_to_string(
+        CP.slice_column(net, 0, host_rows)), FLOAT_EDGES, g)[0]
+    isample = CP.slice_column(mixed, 0, host_rows)
+    clock = time.perf_counter()
+    loops = {
+        "string_to_decimal": (lambda c: CS.string_to_decimal(c, 12, -2),
+                              [fsample]),
+        "string_to_integers_with_base": (
+            lambda c: CS.string_to_integers_with_base(c, 10), [isample]),
+        "integers_with_base_to_string": (
+            lambda c: CS.integers_with_base_to_string(c, 16),
+            [Column(dtypes.INT64, host_rows, data=ints[:host_rows],
+                    validity=ivalid[:host_rows].to(torch.uint8))]),
+        "convert": (lambda c: SM.convert(c, 10, 16), [isample]),
+        "literal_range_pattern": (
+            lambda c: SM.literal_range_pattern(c, ".", 2, ord("0"),
+                                               ord("9")), [fsample]),
+        "list_slice": (lambda c: SM.list_slice(c, 2, 3),
+                       [card_list(g, host_rows, 8, lambda n: Column(
+                           dtypes.INT32, n, data=torch.randint(
+                               -99, 99, (n,), generator=g,
+                               dtype=torch.int32, device=device)),
+                           device=device)]),
+        "decode_to_utf8": (SM.decode_to_utf8,
+                           [card_strings(g, host_rows, 0, 32, device)]),
+    }
+    for what, (fn, cols) in loops.items():
+        card_and_cpu(fn, cols, what)
+    res["host_loops"] = {"rows": host_rows,
+                         "s": time.perf_counter() - clock}
+
+    # the JNI door's string_to_integer on a card handle
+    live = REGISTRY.live_count()
+    h = REGISTRY.register(isample)
+    out = jni_api.string_to_integer(h, "int64", False, True)
+    try:
+        same_nested(REGISTRY.get(out),
+                    CS.string_to_integer(isample, dtypes.INT64),
+                    "jni string_to_integer")
+    finally:
+        release_all(h, out)
+    check(REGISTRY.live_count() == live, "jni: every handle released")
+    return res
+
+
+def concat_rows(cols, validity):
+    """Row i of the result is row i of every column in order, on the
+    columns' device (null rows keep their bytes)."""
+    device = cols[0].device
+    rows = cols[0].length
+    lens = [c.string_lengths().to(torch.int64) for c in cols]
+    offs = torch.zeros(rows + 1, dtype=torch.int64, device=device)
+    torch.cumsum(sum(lens), 0, out=offs[1:])
+    buf = torch.empty(int(offs[-1]), dtype=torch.uint8, device=device)
+    pos = offs[:-1].clone()
+    for c, n in zip(cols, lens):
+        total = int(n.sum())
+        row = torch.repeat_interleave(torch.arange(rows, device=device), n,
+                                      output_size=total)
+        within = torch.arange(total, device=device) - (
+            torch.cumsum(n, 0) - n)[row]
+        buf[pos[row] + within] = c.data[
+            c.offsets[:-1].to(torch.int64)[row] + within]
+        pos += n
+    return Column(dtypes.STRING, rows, data=buf, validity=validity,
+                  offsets=offs.to(torch.int32))
+
+
+def url_vocab(seed):
+    """The URL pieces: schemes, userinfo, hosts and IPv4 addresses,
+    IPv6 literals, ports, paths (ASCII, non-ASCII, invalid), queries over
+    a few common keys, fragments."""
+    rng = np.random.default_rng(seed)
+    alnum = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+
+    def word(lo, hi):
+        return "".join(rng.choice(alnum, int(rng.integers(lo, hi + 1))))
+
+    hosts = [f"www.{word(3, 12)}.com" for _ in range(400)] + \
+        [f"{word(2, 8)}-{word(2, 8)}.example.org" for _ in range(300)] + \
+        [f"cdn{int(rng.integers(0, 99))}.{word(3, 10)}.net"
+         for _ in range(300)] + \
+        [".".join(str(int(x)) for x in rng.integers(0, 256, 4))
+         for _ in range(200)]
+    def pairs(n):
+        """`&`-joined key=value pairs of about n bytes."""
+        out = []
+        while sum(len(p) + 1 for p in out) < n:
+            out.append(f"{keys[int(rng.integers(len(keys)))]}="
+                       f"{word(1, 10)}")
+        return "&".join(out)[:n]
+
+    def path(n):
+        """A path of `/`-separated segments, n bytes."""
+        p = ""
+        while len(p) < n:
+            seg = word(1, 12)
+            if rng.random() < 0.1:
+                seg += "%20" + word(1, 4)
+            p += "/" + seg
+        return p[:n]
+
+    keys = ["q", "id", "page", "utm_source", "ref", "lang", "sort"]
+    # lengths: paths 6-88 bytes, queries empty or 3-48: every URL is at
+    # most 199 bytes (scheme 8, userinfo 13, host 29, port 5, fragment 8)
+    paths = [path(int(n)) for n in rng.integers(6, 89, 4000)]
+    queries = [""] * 1000 + ["?" + pairs(int(n) - 1)
+                             for n in rng.integers(3, 49, 3000)]
+    return {
+        "scheme": ["http"] * 4 + ["https"] * 8 + ["ftp", "s3a", "hdfs",
+                                                  "HTTP"],
+        "sep": ["://"],
+        "user": [""] * 18 + ["user@", "admin:secret@"],
+        "host": hosts,
+        "ipv6": ["[2001:db8::1]", "[::1]", "[fe80::1:2:3:4]",
+                 "[2001:db8:0:0:0:0:0:7]", "[1:2:3:4:5:6:7:8:9]"],
+        "port": [""] * 14 + [":80", ":443", ":8080", ":9000", ":", ":x9"],
+        "path": paths,
+        "non_ascii": ["/café/menu", "/日本/東京",
+                      "/naïve", "/straße/1"],
+        "invalid": ["/bad path", "/p%zz", "/%2", "/a|b", "/x y/z"],
+        "query": queries,
+        "fragment": [""] * 17 + ["#top", "#sec2", "#frag%41"],
+    }
+
+
+def url_column(rows, seed, device):
+    """`rows` URLs drawn on `device` from url_vocab: about 1% IPv6 hosts
+    and 1% non-ASCII paths (the host fallback's rows), about 2% invalid
+    paths and URL_NULL_SHARE nulls."""
+    v = url_vocab(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def piece(name, alt=None, share=0.0):
+        vocab = v[name] + (v[alt] if alt else [])
+        idx = torch.randint(0, len(v[name]), (rows,), generator=g,
+                            device=device)
+        if alt:
+            other = len(v[name]) + torch.randint(
+                0, len(v[alt]), (rows,), generator=g, device=device)
+            idx = torch.where(torch.rand(rows, generator=g, device=device)
+                              < share, other, idx)
+        return CP.gather(Column.from_strings(vocab, device), idx)
+
+    path = piece("path", "non_ascii", 0.01)
+    odd = CP.gather(Column.from_strings(v["path"] + v["invalid"], device),
+                    torch.randint(len(v["path"]), len(v["path"])
+                                  + len(v["invalid"]), (rows,),
+                                  generator=g, device=device))
+    bad = torch.rand(rows, generator=g, device=device) < 0.02
+    path = CP.gather(CP.concat_columns([path, odd]), torch.where(
+        bad, rows + torch.arange(rows, device=device),
+        torch.arange(rows, device=device)))
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= URL_NULL_SHARE).to(torch.uint8)
+    return concat_rows([piece("scheme"), piece("sep"), piece("user"),
+                        piece("host", "ipv6", 0.01), piece("port"), path,
+                        piece("query"), piece("fragment")], valid)
+
+
+EXTRACTORS = ("protocol", "host", "query", "path")
+
+
+def extract(col, what, key=None, ansi=False):
+    if what == "query_key":
+        return U.parse_uri_to_query_with_key(col, key, ansi_mode=ansi)
+    return getattr(U, f"parse_uri_to_{what}")(col, ansi_mode=ansi)
+
+
+def first_invalid_url(call):
+    try:
+        call()
+    except ExceptionWithRowIndex as e:
+        return e.row_index, str(e)
+    return None, None
+
+
+def url_phase(device="cuda", rows=URL_ROWS, key_rows=URL_KEY_ROWS,
+              cpu_rows=URL_CPU_ROWS, host_rows=URL_HOST_ROWS,
+              iters=STR_ITERS):
+    """parse_url on the card (see the module docstring)."""
+    col = url_column(rows, seed=21, device=device)
+    lens = col.string_lengths()
+    res = {"rows": rows, "chars_mb": chars_mb(col),
+           "min_len": int(lens.min()), "max_len": int(lens.max()),
+           "mean_len": float(lens.to(torch.float64).mean())}
+    calls = [(what, col, None) for what in EXTRACTORS]
+    keyed = CP.slice_column(col, 0, key_rows)
+    calls += [(what, keyed, None) for what in EXTRACTORS]
+    calls += [("query_key", keyed, "q")]
+    for what, c, key in calls:
+        UD.reset_stats()
+        out, t = timed_call(lambda: extract(c, what, key), device, iters)
+        check(out.device == c.device and out.length == c.length,
+              f"parse_url {what}: rows on the input's device")
+        t.update(UD.STATS, rows=c.length, in_chars_mb=chars_mb(c),
+                 in_mb_per_s=chars_mb(c) / t["ms"] * 1e3, calls=iters)
+        res[f"{what}_{c.length}"] = t
+    # the memo: after the 2^20-row column's PROTOCOL, the other
+    # extractors over it analyse nothing again
+    for what in ("host", "query", "path", "query_key"):
+        t = res[f"{what}_{key_rows}"]
+        check(t["memo_misses"] == 0 and t["memo_hits"] > 0,
+              f"parse_url {what} over {key_rows} rows: memo hits only")
+    # one chunk on the card against the CPU, and the device engine
+    # against the host parser on a sample
+    part = CP.slice_column(col, 0, cpu_rows)
+    cpu_part = on_cpu(part)
+    for what in EXTRACTORS + ("query_key",):
+        UD.reset_stats()
+        got = extract(part, what, "q")
+        flagged = UD.STATS["fallback_rows"]
+        UD.reset_stats()
+        want = extract(cpu_part, what, "q")
+        check(got.device == part.device, f"parse_url {what}: device")
+        same_nested(got, want, f"parse_url {what} chunk: card == CPU")
+        check(UD.STATS["fallback_rows"] == flagged,
+              f"parse_url {what}: as many host rows on the card as on the "
+              f"CPU ({flagged})")
+    res["cpu_chunk_fallback_rows"] = flagged
+    sample = CP.slice_column(col, 0, host_rows)
+    for what in EXTRACTORS + ("query_key",):
+        with env(SPARK_RAPIDS_TPU_FORCE_DEVICE_PARSE_URI="1"):
+            dev = extract(sample, what, "q")
+        with env(SPARK_RAPIDS_TPU_FORCE_DEVICE_PARSE_URI=None,
+                 SPARK_RAPIDS_TPU_PARSE_URI_DEVICE_MIN=str(2 * host_rows)):
+            host = extract(sample, what, "q")
+        check(host.device == sample.device, "parse_url host: device")
+        same_nested(dev, host, f"parse_url {what}: device engine == host")
+    # ANSI: the first invalid row, on the card as on the CPU and the host
+    # parser
+    got = first_invalid_url(lambda: extract(part, "host", ansi=True))
+    want = first_invalid_url(lambda: extract(cpu_part, "host", ansi=True))
+    check(got[0] is not None and got[0] == want[0],
+          f"parse_url ANSI: card row {got[0]}, CPU row {want[0]}")
+    with env(SPARK_RAPIDS_TPU_FORCE_DEVICE_PARSE_URI=None,
+             SPARK_RAPIDS_TPU_PARSE_URI_DEVICE_MIN=str(2 * rows)):
+        host = first_invalid_url(lambda: extract(part, "host", ansi=True))
+    check(host[0] == got[0], f"parse_url ANSI: host parser row {host[0]}")
+    res["ansi_row"] = got[0]
+    return res
+
+
+def run_strings(device="cuda", cast_kw=None, url_kw=None):
+    """The string casts and parse_url on the card (see the module
+    docstring)."""
+    RA.reset_launches()
+    res = {}
+    clock = time.perf_counter()
+    res["casts"] = cast_phase(device, **(cast_kw or {}))
+    res["casts"]["phase_s"] = time.perf_counter() - clock
+    sync(device)
+    clock = time.perf_counter()
+    res["parse_url"] = url_phase(device, **(url_kw or {}))
+    res["parse_url"]["phase_s"] = time.perf_counter() - clock
+    print(f"strings: {json.dumps(res)}", flush=True)
+    return read_launches("strings"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2443,6 +3000,8 @@ def main() -> int:
     phase("shuffle_batch")
     by_path["memory"], _ = run_memory()
     phase("memory")
+    by_path["strings"], _ = run_strings()
+    phase("strings")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -15,7 +15,11 @@ cells J2 (2^25 x 2^22 rows on (item, ticket)) and J3 (2^22 x 2^21 rows
 on 204,000 items, about 43.1M pairs) under the device_sort and
 device_hash engines, and the kudo shuffle's device split and assemble
 of chip_smoke.py's flat (2^25 rows) and nested (2^22 rows) batches over
-200 partitions, with torch.profiler.  For each it
+200 partitions, and chip_smoke.py's string casts over 2^24 rows
+(float_to_string of ss_net_paid, string_to_float of its rendering with
+and without the edge vocabulary, string_to_integer) and parse_url HOST
+over its 2^22 URLs, with torch.profiler (`--only strings` profiles just
+those).  For each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
 time, the kernels that took the most device time and, for the JNI door,
@@ -216,19 +220,60 @@ def _shuffle_batches(chip_smoke):
         del ordered, blob
 
 
+def _strings(chip_smoke):
+    """(phase, call) for chip_smoke's string casts and parse_url at its
+    sizes, on its seeded columns."""
+    from spark_rapids_tpu_torch.columns import dtypes
+    from spark_rapids_tpu_torch.ops import cast_string as CS
+    from spark_rapids_tpu_torch.ops import parse_uri as U
+
+    net, _, ints, valid, g = chip_smoke.cast_values(
+        "cuda", chip_smoke.STR_CAST_ROWS, seed=12)
+    text = CS.float_to_string(net)
+    yield "float_to_string_f64", lambda: CS.float_to_string(net)
+    yield ("string_to_float_f64_plain",
+           lambda: CS.string_to_float(text, dtypes.FLOAT64))
+    mixed, _ = chip_smoke.with_edges(text, chip_smoke.FLOAT_EDGES, g)
+    yield ("string_to_float_f64_edges",
+           lambda: CS.string_to_float(mixed, dtypes.FLOAT64))
+    ints, _ = chip_smoke.with_edges(chip_smoke.int_strings(ints, valid),
+                                    chip_smoke.INT_EDGES, g)
+    yield ("string_to_integer_int64",
+           lambda: CS.string_to_integer(ints, dtypes.INT64))
+    del net, text, mixed, ints
+    urls = chip_smoke.url_column(chip_smoke.URL_ROWS, seed=21,
+                                 device="cuda")
+    yield "parse_url_host", lambda: U.parse_uri_to_host(urls)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--only", choices=["strings"],
+                    help="profile only this group of phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke
+
+    os.makedirs(args.out, exist_ok=True)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    if args.only != "strings":
+        _main_paths(chip_smoke, args.out)
+    for name, fn in _strings(chip_smoke):
+        print(json.dumps(_profile(name, fn, args.out)), flush=True)
+    del fn
+    return 0
+
+
+def _main_paths(chip_smoke, out_dir):
+    """The row paths, the stage queries, the group-by, the joins and the
+    shuffle."""
     from spark_rapids_tpu_torch.models import flagship as F
     from spark_rapids_tpu_torch.ops import row_conversion as RC
 
-    os.makedirs(args.out, exist_ok=True)
     inputs = F.example_inputs(chip_smoke.FLAGSHIP_ROWS, device="cuda")
     bench = chip_smoke.make_table(chip_smoke.BENCH_ROWS,
                                   chip_smoke.BENCH_COLS, "cuda", seed=7)
@@ -239,31 +284,29 @@ def main() -> int:
             RC.convert_to_rows(bench), schema),
         "jni_door_round_trip": _jni_door(chip_smoke),
     }
-    print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in phases.items():
-        print(json.dumps(_profile(name, fn, args.out)), flush=True)
+        print(json.dumps(_profile(name, fn, out_dir)), flush=True)
     del phases, inputs, bench
     for name in ("q5", "q72", "q89"):
         fn = _stage_query(chip_smoke, name)
-        print(json.dumps(_profile(f"{name}_fused", fn, args.out)),
+        print(json.dumps(_profile(f"{name}_fused", fn, out_dir)),
               flush=True)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps(_profile("groupby_batch", _groupby_batch(chip_smoke),
-                              args.out)), flush=True)
+                              out_dir)), flush=True)
     torch.cuda.empty_cache()
     _join_stages()
     for name, fn in _join_batch(chip_smoke):
-        print(json.dumps(_profile(name, fn, args.out)), flush=True)
+        print(json.dumps(_profile(name, fn, out_dir)), flush=True)
     del fn
     torch.cuda.empty_cache()
     for name, fn in _shuffle_batches(chip_smoke):
-        print(json.dumps(_profile(name, fn, args.out)), flush=True)
+        print(json.dumps(_profile(name, fn, out_dir)), flush=True)
     del fn
     torch.cuda.empty_cache()
     from torch._inductor.async_compile import shutdown_compile_workers
     shutdown_compile_workers()
-    return 0
 
 
 if __name__ == "__main__":

@@ -176,6 +176,14 @@ class Column:
                       validity=validity,
                       offsets=torch.from_numpy(offs).to(device))
 
+    def valid_mask(self) -> torch.Tensor:
+        """(rows,) bool: True where the row is valid (every row without a
+        validity buffer)."""
+        if self.validity is None:
+            return torch.ones(self.length, dtype=torch.bool,
+                              device=self.device)
+        return self.validity.to(torch.bool)
+
     # ------------------------------------------------------------- host view
 
     def to_pylist(self) -> list:

@@ -2,7 +2,10 @@
 hive_hash, nested columns included), JCUDF row conversion, the
 fixed-capacity device join probe, the inner join router with its four
 engines and the outer/semi/anti transforms, GROUP BY and ORDER BY over
-columns and the copying, aggregation and key helpers they stand on."""
+columns and the copying, aggregation and key helpers they stand on; the
+Spark string casts (string <-> integer, float, decimal, integers with a
+base), parse_url and the assorted string ops (conv, GBK decode,
+list_slice, the literal-range regex fast path)."""
 
 from spark_rapids_tpu_torch.ops.hash import (  # noqa: F401
     DEFAULT_XXHASH64_SEED,
@@ -29,3 +32,19 @@ from spark_rapids_tpu_torch.ops.joins import (  # noqa: F401
     make_semi,
     sort_merge_inner_join,
 )
+from spark_rapids_tpu_torch.ops.cast_string import (  # noqa: F401
+    float_to_string,
+    string_to_float,
+    string_to_integer,
+)
+from spark_rapids_tpu_torch.ops import parse_uri  # noqa: F401
+from spark_rapids_tpu_torch.ops.strings_misc import (  # noqa: F401
+    convert,
+    decode_to_utf8,
+    is_convert_overflow,
+    list_slice,
+    literal_range_pattern,
+)
+
+# ROADMAP A14: the JAX package wraps every public op here with
+# utils.tracing.instrument (its _TRACED table: maybe_inject + op_range)

@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import DType
 from spark_rapids_tpu_torch.columns.table import Table
+from spark_rapids_tpu_torch.ops import cast_string as _cast
 from spark_rapids_tpu_torch.ops import hash as _hash
 from spark_rapids_tpu_torch.ops import joins as _joins
 from spark_rapids_tpu_torch.ops import row_conversion as _rc
@@ -68,6 +69,14 @@ def convert_from_rows(rows_handle: int, type_ids: Sequence[str],
     schema = [DType(k, s) for k, s in zip(type_ids, scales)]
     out = _rc.convert_from_rows(REGISTRY.get(rows_handle), schema)
     return [REGISTRY.register(c) for c in out.columns]
+
+
+def string_to_integer(column_handle: int, type_id: str,
+                      ansi_mode: bool, strip: bool) -> int:
+    """CAST(string AS integral) of a STRING column handle
+    (CastStrings.toInteger)."""
+    return REGISTRY.register(_cast.string_to_integer(
+        REGISTRY.get(column_handle), DType(type_id), ansi_mode, strip))
 
 
 def sort_merge_inner_join(left_handles: Sequence[int],

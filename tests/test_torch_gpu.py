@@ -14,7 +14,11 @@ the table back, the CRC trailer, the router, and the nested hashes on
 the card against the CPU; and the memory runtime: a spill freeing card
 memory and restoring onto the card, the out-of-core join and group-by
 on the card against the in-memory calls, a CPU batch restored on the
-CPU, the task threads under a limit and q5 over spilled partitions.
+CPU, the task threads under a limit and q5 over spilled partitions; and
+the string casts and parse_url: string_to_float, float_to_string and
+string_to_integer on card columns against their CPU runs, returning card
+columns, parse_url on the card against the CPU, and the rows the host
+decides written back into card columns.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -32,12 +36,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (KERNEL_CASES, VAR_KERNEL_CASES, close_float_sums,
-                        compare_kernels, compare_var_kernel, join_route_log,
-                        make_table, nested_batch, nested_hashes, on_cpu,
-                        same_column, same_nested, shuffle_cell,
-                        store_sales_batch, string_host_specs,
-                        string_key_column)
+from chip_smoke import (EXTRACTORS, FLOAT_EDGES, INT_EDGES, KERNEL_CASES,
+                        VAR_KERNEL_CASES, card_and_cpu, cast_values,
+                        close_float_sums, compare_kernels,
+                        compare_var_kernel, env, extract, int_strings,
+                        join_route_log, make_table, nested_batch,
+                        nested_hashes, on_cpu, same_column, same_nested,
+                        shuffle_cell, store_sales_batch, string_host_specs,
+                        string_key_column, url_column, with_edges)
 from spark_rapids_tpu_torch import models as TM
 from spark_rapids_tpu_torch.columns import dtypes, interop
 from spark_rapids_tpu_torch.columns.column import Column
@@ -45,11 +51,15 @@ from spark_rapids_tpu_torch.columns.table import Table
 from spark_rapids_tpu_torch.models import flagship as F
 from spark_rapids_tpu_torch.models import query as Q
 from spark_rapids_tpu_torch.models import tpcds as TT
+from spark_rapids_tpu_torch.ops import cast_string as CS
 from spark_rapids_tpu_torch.ops import copying as CP
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import hash_join as HJ
 from spark_rapids_tpu_torch.ops import joins as J
+from spark_rapids_tpu_torch.ops import parse_uri as U
+from spark_rapids_tpu_torch.ops import parse_uri_device as UD
 from spark_rapids_tpu_torch.ops import sorting as S
+from spark_rapids_tpu_torch.ops import stod_device as SD
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
 from spark_rapids_tpu_torch.ops import row_conversion as RC
 from spark_rapids_tpu_torch.perf import calibrate as CAL
@@ -581,3 +591,63 @@ def test_task_threads_and_q5_spilled_on_card(cuda, tmp_path, monkeypatch):
                       1 << 15, 4, "cuda",
                       SpillStore(spill_dir=str(tmp_path)), iters=1)
     assert q5["partitions"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float64", "float32"])
+def test_float_casts_on_card_match_cpu(cuda, kind):
+    net, net32, _, _, g = cast_values("cuda", 1 << 16, seed=3)
+    col = net if kind == "float64" else net32
+    dt = dtypes.DType(kind)
+    with env(SPARK_RAPIDS_TPU_FTOS="device", SPARK_RAPIDS_TPU_STOD="device"):
+        text = card_and_cpu(CS.float_to_string, [col], "float_to_string")
+        mixed, _ = with_edges(text, FLOAT_EDGES, g)
+        back = card_and_cpu(lambda c: CS.string_to_float(c, dt), [mixed],
+                            "string_to_float")
+    assert text.data.is_cuda and back.data.is_cuda
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int64", "int32", "int8"])
+def test_string_to_integer_on_card_matches_cpu(cuda, kind):
+    _, _, ints, valid, g = cast_values("cuda", 1 << 16, seed=4)
+    mixed, _ = with_edges(int_strings(ints, valid), INT_EDGES, g)
+    out = card_and_cpu(
+        lambda c: CS.string_to_integer(c, dtypes.DType(kind)), [mixed],
+        "string_to_integer")
+    assert out.data.is_cuda
+
+
+@pytest.mark.gpu
+def test_parse_url_on_card_matches_cpu(cuda):
+    col = url_column(1 << 15, seed=5, device="cuda")
+    for what in EXTRACTORS + ("query_key",):
+        out = card_and_cpu(lambda c: extract(c, what, "q"), [col], what)
+        assert out.data.is_cuda
+
+
+@pytest.mark.gpu
+def test_host_decided_rows_patched_on_card(cuda):
+    """Rows the device engines flag (a 25-digit mantissa, a subnormal; an
+    IPv6 host, a non-ASCII host) come back from the host parse into the
+    card column, equal to the CPU run."""
+    vals = ["1.5", "1234567890123456789012345", "4.9e-324", "2.75"] * 10
+    col = Column.from_strings(vals, "cuda")
+    with env(SPARK_RAPIDS_TPU_STOD="device"):
+        CS.string_to_float(on_cpu(col), dtypes.FLOAT64)
+        flagged = SD.LAST_CALL["fallback_rows"]
+        out = CS.string_to_float(col, dtypes.FLOAT64)
+    assert SD.LAST_CALL["fallback_rows"] == flagged >= 20
+    assert out.data.is_cuda
+    want = np.array([float(v) for v in vals]).view(np.int64)
+    assert (out.data.view(torch.int64).cpu().numpy() == want).all()
+    urls = ["http://h.com/p", "http://[::1]:80/x", "http://h\u00e9.com/p",
+            "https://u@[2001:db8::7]/q?a=1"] * 200
+    col = Column.from_strings(urls, "cuda")
+    for what in EXTRACTORS:
+        UD.reset_stats()
+        got = extract(col, what)
+        assert UD.STATS["fallback_rows"] == 600 and got.data.is_cuda
+        with env(SPARK_RAPIDS_TPU_FORCE_DEVICE_PARSE_URI=None,
+                 SPARK_RAPIDS_TPU_PARSE_URI_DEVICE_MIN=str(10 * len(urls))):
+            same_nested(got, extract(on_cpu(col), what), what)

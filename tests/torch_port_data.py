@@ -304,3 +304,35 @@ def nested_specs(rng, rows, skew=0):
             rng, n, [host_column(rng, "int8", n, True), strings(8)(n)],
             nullable=True), 3, True, skew),
     ]
+
+
+# ------------------------------------------------------ string values
+
+
+def strings_spec(values):
+    """The STRING host column of a list of str / bytes / None values
+    (str as UTF-8), laid out as Column.from_strings lays it out: a null
+    row is empty, and validity is None when every row is valid."""
+    raw = [b"" if v is None else v.encode("utf-8") if isinstance(v, str)
+           else bytes(v) for v in values]
+    offs = np.zeros(len(raw) + 1, np.int32)
+    offs[1:] = np.cumsum([len(b) for b in raw])
+    chars = np.frombuffer(b"".join(raw), np.uint8).copy()
+    valid = np.array([v is not None for v in values], np.uint8)
+    return ("string", chars, None if valid.all() else valid, offs)
+
+
+def values_spec(kind, values):
+    """A fixed-width host column of python values (None = null): FLOAT64
+    as its uint64 bits, as the JAX package's Column holds it."""
+    np_dt = _NP[kind]
+    data = np.array([0 if v is None else v for v in values], np_dt)
+    if kind == "float64":
+        data = data.view(np.uint64)
+    valid = np.array([v is not None for v in values], np.uint8)
+    return (kind, data, None if valid.all() else valid)
+
+
+def port_column(spec, device="cpu"):
+    """The port's Column over one host column."""
+    return interop.table_from_host([spec], device=device).columns[0]
