@@ -231,7 +231,43 @@
    first included) and its first call's ms, rows, MB/s of input chars (output chars for
    float_to_string), padded width and scan steps, rows sent to the host,
    the peak device memory the first call added and the memo hits and
-   misses.  Ends with the seconds each phase took.
+   misses.
+13. The JSON family (ops/json_path.py's router over the host oracle,
+   ops/json_device.py's per-row scan and ops/json_tokenizer.py's
+   structural index; ops/json_utils.py's from_json over
+   ops/raw_map_device.py and ops/from_json_device.py; ops/map_utils.py),
+   every column drawn on the card from a seed.  2^20 clickstream events
+   (BASELINE.json's get_json_object column; `event_docs`): event, ts,
+   user {id, name, tags}, page, items (0-8 objects of sku, qty and a
+   fractional price), ctx 1-5 deep; 100-1,000 bytes (about 400), 4%
+   null, a seeded 1/32 replaced by JSON_EDGES (single quotes, escapes,
+   control chars, 17-deep nesting, leading zeros, whitespace, duplicate
+   keys, non-ASCII, invalid JSON).  get_json_object through the router
+   (its verdict file fresh under build/) for `$.event`, `$.user.id`,
+   `$.user.name` and `$.ctx.a.b.c` over all 2^20 rows, and for
+   `$.items[0]` and `$.items[*].sku` over the first 2^14 (most of their
+   rows go to the host parser: a fractional price in every item, several
+   items); the multi-path entry over the six paths on those 2^14; each
+   engine pinned (SPARK_RAPIDS_TPU_PATH_JSON_GET_OBJECT) on `$.user.id`,
+   the device scan and the tokenizer over 2^17 rows, the host engine
+   over 2^14.  Each engine over the six paths on the first 2^14 rows
+   must equal its CPU run byte for byte, with as many rows sent to the
+   host, and the three engines each other; every router result's first
+   2^14 rows must equal the host engine's.  2^20 flat objects of
+   4-40 pairs (a seeded 1/256 of 65-70, past the tokenizer's 64; the
+   device scan takes 32): from_json_to_raw_map and from_json_to_structs
+   (INT64, INT32, FLOAT64, BOOL8, STRING, STRING) through the router,
+   the first 2^14 rows under each engine equal to each other, to the
+   router's rows and, for the tokenizer, to its CPU run;
+   from_json_to_structs_nested (user struct, items list of structs) on
+   2^13 events, the host and device engines equal and the host engine
+   equal to its CPU run; sort_map_column and map_from_entries on the
+   raw map of the first 2^14 rows against the CPU.  Prints a `json`
+   line: each call's median ms of 3 synchronized calls (one for the
+   multi-path entry and the nested structs) and first call's ms, rows,
+   MB/s of chars, rows sent to the host, the router's engine, verdict
+   and calibration seconds, the peak memory the first call added, the
+   scan steps of each chunk.  Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -274,10 +310,16 @@ from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
 from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash as H  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
+from spark_rapids_tpu_torch.ops import json_device as JD  # noqa: E402
+from spark_rapids_tpu_torch.ops import json_path as JP  # noqa: E402
+from spark_rapids_tpu_torch.ops import json_tokenizer as JT  # noqa: E402
+from spark_rapids_tpu_torch.ops import json_utils as JU  # noqa: E402
 from spark_rapids_tpu_torch.ops import joins as J  # noqa: E402
+from spark_rapids_tpu_torch.ops import map_utils as MU  # noqa: E402
 from spark_rapids_tpu_torch.ops import out_of_core as OOC  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri as U  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri_device as UD  # noqa: E402
+from spark_rapids_tpu_torch.ops import raw_map_device as RM  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
 from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
@@ -472,7 +514,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "joins_batch": (),
                 "shuffle_batch": (),
                 "memory": (),
-                "strings": ()}
+                "strings": (),
+                "json": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -2898,6 +2941,430 @@ def run_strings(device="cuda", cast_kw=None, url_kw=None):
     return read_launches("strings"), res
 
 
+# --------------------------------------------------------------- json (13)
+
+JSON_ROWS = 1 << 20          # BASELINE.json's get_json_object column
+JSON_CHUNK_ROWS = 1 << 17    # one device-scan chunk (DEVICE_ROW_CHUNK)
+JSON_CPU_ROWS = 1 << 14      # the CPU run's rows, and the host engine's
+JSON_SMALL_ROWS = 1 << 14    # the host-bound calls: one calibration sample
+JSON_MAP_ROWS = 1 << 14      # the map ops (host loops over the entries)
+JSON_NULL_SHARE = 0.04
+JSON_EDGE_EVERY = 32
+JSON_PATHS = ("$.event", "$.user.id", "$.user.name", "$.items[0]",
+              "$.items[*].sku", "$.ctx.a.b.c")
+# most of these paths' rows go to the host parser (a fractional price in
+# every item: Java double rendering; several items: a multi-match), about
+# 90 us each: timed on JSON_SMALL_ROWS
+JSON_HOST_BOUND = ("$.items[0]", "$.items[*].sku")
+JSON_ENGINES = ("host", "device_scan", "tokenizer")
+JSON_EVENTS = ["click", "view", "add_to_cart", "purchase", "search",
+               "scroll", "login", "logout"]
+JSON_TAGS = ["new", "vip", "mobile", "desktop", "returning", "promo",
+             "beta", "eu", "us"]
+# the tolerant parser's edges: single quotes, escapes (\n, é, a surrogate
+# pair), unescaped control chars, nesting past the device scan's 16
+# tracked levels, leading zeros, whitespace inside containers, duplicate
+# keys, non-ASCII, invalid JSON
+JSON_EDGES = [
+    "{'event': 'single', 'ts': 1, 'user': {'id': 2, 'name': 'sq'}}",
+    '{"event": "line\\nbreak", "user": {"id": 7, "name": "a\\tb"}}',
+    '{"event": "caf\\u00e9", "user": {"name": "\\ud83d\\ude00", "id": 3}}',
+    '{"event": "ctrl\x01char", "user": {"name": "x\ty", "id": 4}}',
+    '{"event": "deep", "ctx": ' + '{"a": ' * 17 + '1' + '}' * 17 + '}',
+    '{"event": "lz", "ts": 007, "user": {"id": 01}}',
+    '{ "event" : "ws" , "items" : [ { "sku" : "s1" , "qty" : 2 } ] ,'
+    ' "ctx" : { "a" : { "b" : { "c" : "x" } } } }',
+    '{"event": "dup", "event": "dup2", "user": {"id": 1, "id": 2}}',
+    '{"event": "naïve 中文", "user": {"name": "Zoë", "id": 9}}',
+    '{"event": "broken", "ts": }',
+    '{"event": "open"',
+    '[{"event": "array root"}]',
+    '{"items": [{"sku": "a\\"q", "price": 1e400}, {"sku": 5}], "ts": 1.5e3}',
+    '{"user": {"id": -0, "name": null}, "items": []}',
+]
+
+
+def masked(col, keep):
+    """`col` with the rows where `keep` is False emptied (length 0)."""
+    lens = col.string_lengths().to(torch.int64)
+    return SB.build_string_column(col.data, col.offsets[:-1].to(torch.int64),
+                                  torch.where(keep, lens, 0))
+
+
+def pick(vocab, g, rows, device):
+    """A STRING column of `rows` entries drawn from `vocab`."""
+    idx = torch.randint(0, len(vocab), (rows,), generator=g, device=device)
+    return CP.gather(Column.from_strings(vocab, device), idx)
+
+
+def const(text, rows, device):
+    return CP.gather(Column.from_strings([text], device),
+                     torch.zeros(rows, dtype=torch.int64, device=device))
+
+
+def rand_text(g, rows, lo, hi, device):
+    """Random lowercase words of lo to hi bytes."""
+    mat = torch.randint(97, 123, (rows, max(hi, 1)), generator=g,
+                        dtype=torch.uint8, device=device)
+    lens = torch.randint(lo, hi + 1, (rows,), generator=g, device=device)
+    return SB.build_string_column(
+        mat.reshape(-1), torch.arange(rows, device=device) * max(hi, 1),
+        lens)
+
+
+def ints_text(g, rows, lo, hi, device):
+    return int_strings(torch.randint(lo, hi, (rows,), generator=g,
+                                     dtype=torch.int64, device=device),
+                       None)
+
+
+def ctx_vocab():
+    """ctx objects 1 to 5 deep (keys a..e), a short string at the bottom."""
+    out = []
+    for depth in range(1, 6):
+        for leaf in range(10):
+            v = f'"x{leaf}"'
+            for key in reversed("abcde"[:depth]):
+                v = '{"%s":%s}' % (key, v)
+            out.append(v)
+    return out
+
+
+def event_docs(rows, seed, device="cuda"):
+    """Clickstream events drawn on `device`: event, ts, user {id, name,
+    tags (0-4 strings)}, page (a path of 1-121 bytes), items (0-8
+    objects of sku, qty, price) and ctx (1-5 deep), 100 to 1,000 bytes
+    (about 400 on average); JSON_NULL_SHARE of the rows null and a seeded
+    1/JSON_EDGE_EVERY replaced by JSON_EDGES.  Returns (column, edge
+    mask)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_tags = torch.randint(0, 5, (rows,), generator=g, device=device)
+    n_items = torch.randint(0, 9, (rows,), generator=g, device=device)
+    parts = [const('{"event":"', rows, device),
+             pick(JSON_EVENTS, g, rows, device),
+             const('","ts":', rows, device),
+             ints_text(g, rows, 1_600_000_000_000, 1_800_000_000_000,
+                       device),
+             const(',"user":{"id":', rows, device),
+             ints_text(g, rows, 1, 10_000_000, device),
+             const(',"name":"user_', rows, device),
+             ints_text(g, rows, 0, 100_000, device),
+             const('","tags":[', rows, device)]
+    for t in range(4):
+        keep = n_tags > t
+        parts += [masked(const('"' if t == 0 else ',"', rows, device), keep),
+                  masked(pick(JSON_TAGS, g, rows, device), keep),
+                  masked(const('"', rows, device), keep)]
+    parts += [const(']},"page":"/', rows, device),
+              rand_text(g, rows, 0, 120, device),
+              const('","items":[', rows, device)]
+    for j in range(8):
+        keep = n_items > j
+        item = [const(('{' if j == 0 else ',{') + '"sku":"SKU', rows,
+                      device),
+                ints_text(g, rows, 10000, 100000, device),
+                const('","qty":', rows, device),
+                ints_text(g, rows, 1, 10, device),
+                const(',"price":', rows, device),
+                ints_text(g, rows, 0, 1000, device),
+                pick([".%02d" % c for c in range(100)], g, rows, device),
+                const('}', rows, device)]
+        parts += [masked(p, keep) for p in item]
+    parts += [const('],"ctx":', rows, device), pick(ctx_vocab(), g, rows,
+                                                    device),
+              const('}', rows, device)]
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= JSON_NULL_SHARE).to(torch.uint8)
+    col = concat_rows(parts, valid)
+    return with_edges(col, JSON_EDGES, g, JSON_EDGE_EVERY)
+
+
+def raw_map_docs(rows, seed, device="cuda"):
+    """Flat objects of 4-40 pairs (a seeded 1/256 of the rows 65-70, past
+    the tokenizer's 64), keys f0, f1, ...: f0 INT64, f1 INT32, f2
+    FLOAT64, f3 BOOL8, f4 and f5 strings, the rest any of these or null;
+    about 1 value in 50 of f0-f5 null.  JSON_NULL_SHARE of the rows
+    null."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    ints = [str(int(v)) for v in rng.integers(-10**12, 10**12, 1000)]
+    small = [str(int(v)) for v in rng.integers(-10**6, 10**6, 1000)]
+    floats = ["%.2f" % v for v in rng.normal(0, 1000, 1000)]
+    words = ['"w%d"' % v for v in rng.integers(0, 10**6, 1000)]
+    typed = [ints, small, floats, ["true", "false"] * 25, words, words]
+    # the other pairs' values are at most 6 bytes: 70 pairs stay under
+    # 1,000 bytes
+    mixed = ([str(int(v)) for v in rng.integers(-9999, 10000, 300)]
+             + ["%.1f" % v for v in rng.uniform(0, 99, 300)]
+             + ['"w%d"' % v for v in rng.integers(0, 1000, 300)]
+             + ["true", "false", "null"] * 30)
+    n = torch.randint(4, 41, (rows,), generator=g, device=device)
+    wide = torch.randint(0, 256, (rows,), generator=g, device=device) == 0
+    n = torch.where(wide, torch.randint(65, 71, (rows,), generator=g,
+                                        device=device), n)
+    parts = [const("{", rows, device)]
+    for j in range(70):
+        keep = n > j
+        vocab = typed[j] + ["null"] if j < len(typed) else mixed
+        parts += [masked(const(('"' if j == 0 else ',"') + f'f{j}":', rows,
+                               device), keep),
+                  masked(pick(vocab, g, rows, device), keep)]
+    parts.append(const("}", rows, device))
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= JSON_NULL_SHARE).to(torch.uint8)
+    return concat_rows(parts, valid)
+
+
+JSON_STRUCT_FIELDS = [("f0", dtypes.INT64), ("f1", dtypes.INT32),
+                      ("f2", dtypes.FLOAT64), ("f3", dtypes.BOOL8),
+                      ("f4", dtypes.STRING), ("f5", dtypes.STRING)]
+JSON_NESTED_SCHEMA = ("struct", [
+    ("user", ("struct", [("id", dtypes.INT64), ("name", dtypes.STRING),
+                         ("tags", ("list", dtypes.STRING))])),
+    ("items", ("list", ("struct", [("sku", dtypes.STRING),
+                                   ("qty", dtypes.INT32),
+                                   ("price", dtypes.FLOAT64)])))])
+
+
+@contextlib.contextmanager
+def json_route_log():
+    """Record the engine the JSON router picks, and the verdict and
+    seconds of its calibration when it calibrates."""
+    log = {"engine": None, "verdict": None, "calibration_s": 0.0}
+    real_route, real_pick = JP.route_json_engine, CAL.pick_path
+
+    def route(*a, **k):
+        log["engine"] = real_route(*a, **k)
+        return log["engine"]
+
+    def pick_path(*a, **k):
+        t0 = time.perf_counter()
+        log["verdict"] = real_pick(*a, **k)
+        log["calibration_s"] += time.perf_counter() - t0
+        return log["verdict"]
+
+    JP.route_json_engine, CAL.pick_path = route, pick_path
+    try:
+        yield log
+    finally:
+        JP.route_json_engine, CAL.pick_path = real_route, real_pick
+
+
+def json_host_rows(engine, rows):
+    """Rows the last call of `engine` sent to the host parser."""
+    return {"host": rows, "device_scan": JD.last_stats["fallback_rows"],
+            "tokenizer": JT.last_stats["fallback_rows"]}[engine]
+
+
+def json_pinned(engine):
+    return env(SPARK_RAPIDS_TPU_PATH_JSON_GET_OBJECT=engine)
+
+
+def json_engines_agree(col, device, paths=JSON_PATHS):
+    """Each get_json_object engine pinned over `paths` (the tokenizer
+    leaves the wildcard path out; the host engine and the tokenizer
+    through the multi-path entry, which parses or tokenizes once, the
+    device scan path by path): on `col`'s device and on a CPU copy, byte
+    for byte, with as many rows sent to the host; and the engines
+    byte-equal to each other.  Returns ({engine: rows its card calls
+    sent to the host parser, per path for the device scan}, {path: the
+    host engine's column})."""
+    cpu = on_cpu(col)
+    host_rows, outs = {}, {}
+
+    def run(c, engine, todo):
+        if engine != "device_scan":
+            out = JP.get_json_object_multiple_paths(c, todo)
+            return out, json_host_rows(engine, c.length)
+        out, rows = [], {}
+        for p in todo:
+            out.append(JP.get_json_object(c, p))
+            rows[p] = JD.last_stats["fallback_rows"]
+        return out, rows
+
+    for engine in JSON_ENGINES:
+        todo = [p for p in paths if engine != "tokenizer" or "*" not in p]
+        mode = {"host": "host", "device_scan": "device"}.get(engine)
+        with json_pinned(engine), env(SPARK_RAPIDS_TPU_JSON=mode):
+            got, flagged = run(col, engine, todo)
+            want, cpu_flagged = run(cpu, engine, todo)
+        check(cpu_flagged == flagged,
+              f"json {engine}: as many host rows on {device} as on the "
+              f"CPU ({flagged}, {cpu_flagged})")
+        for p, a, b in zip(todo, got, want):
+            check(a.device == col.device, f"json {engine} {p}: device")
+            same_nested(a, b, f"json {engine} {p}: {device} == CPU")
+        host_rows[engine] = flagged
+        outs[engine] = dict(zip(todo, got))
+    for engine in ("device_scan", "tokenizer"):
+        for p, out in outs[engine].items():
+            same_nested(out, outs["host"][p],
+                        f"json {engine} {p} == host engine")
+    return host_rows, outs["host"]
+
+
+def json_from_engines(fn, op, col, engines, what):
+    """`fn` over `col` with each engine pinned by
+    SPARK_RAPIDS_TPU_PATH_JSON_<op>: every result on col's device and
+    byte-equal to the host engine's."""
+    outs = {}
+    for engine in engines:
+        with env(**{f"SPARK_RAPIDS_TPU_PATH_JSON_{op}": engine}):
+            outs[engine] = fn(col)
+        check(json_on_device(outs[engine], col.device),
+              f"json {what} {engine}: on the input's device")
+        same_nested(outs[engine], outs[engines[0]],
+                    f"json {what} {engine} == {engines[0]}")
+    return outs[engines[0]]
+
+
+def json_phase(device="cuda", rows=JSON_ROWS, chunk_rows=JSON_CHUNK_ROWS,
+               cpu_rows=JSON_CPU_ROWS, small_rows=JSON_SMALL_ROWS,
+               map_rows=JSON_MAP_ROWS, iters=STR_ITERS):
+    """get_json_object, from_json and the map ops on the card (see the
+    module docstring)."""
+    chunk_rows, small_rows = min(chunk_rows, rows), min(small_rows, rows)
+    col, edge = event_docs(rows, seed=41, device=device)
+    lens = col.string_lengths()
+    mb = chars_mb(col)
+    res = {"rows": rows, "chars_mb": mb, "min_len": int(lens.min()),
+           "max_len": int(lens.max()),
+           "mean_len": float(lens.to(torch.float64).mean()),
+           "edge_rows": int(edge.sum()),
+           "null_rows": int((~col.valid_mask()).sum()),
+           "chunk_steps": [int(lens[r0:r0 + JD.DEVICE_ROW_CHUNK].max()) + 1
+                           for r0 in range(0, rows, JD.DEVICE_ROW_CHUNK)]}
+    check(res["max_len"] <= 1000, "json docs: at most 1,000 bytes")
+    calib = os.path.join(_BUILD, "json_calib.json")
+    if os.path.exists(calib):
+        os.unlink(calib)
+    CAL.forget()
+    # every engine on the card against the CPU, on the first cpu_rows
+    res["cpu_check_host_rows"], host_out = json_engines_agree(
+        CP.slice_column(col, 0, cpu_rows), device)
+    chunk = CP.slice_column(col, 0, chunk_rows)
+    small = CP.slice_column(col, 0, small_rows)
+    gjo = {}
+    with env(SPARK_RAPIDS_TPU_CALIB_CACHE=calib):
+        for path in JSON_PATHS:
+            c = small if path in JSON_HOST_BOUND else col
+            with json_route_log() as log:
+                out, t = timed_call(lambda: JP.get_json_object(c, path),
+                                    device, iters)
+            check(out.device == c.device and out.length == c.length,
+                  f"json {path}: rows on the input's device")
+            t.update(log, rows=c.length, chars_mb=chars_mb(c),
+                     host_rows=json_host_rows(log["engine"], c.length))
+            t["mb_per_s"] = t["chars_mb"] / t["ms"] * 1e3
+            gjo[path] = t
+            same_nested(CP.slice_column(out, 0, cpu_rows), host_out[path],
+                        f"json {path}: first {cpu_rows} rows == the host "
+                        f"engine")
+        res["get_json_object"] = gjo
+        with json_route_log() as log:
+            outs, t = timed_call(
+                lambda: JP.get_json_object_multiple_paths(small, JSON_PATHS),
+                device, 1)
+        for path, out in zip(JSON_PATHS, outs):
+            check(out.device == col.device, "json multi-path: device")
+            same_nested(CP.slice_column(out, 0, cpu_rows), host_out[path],
+                        f"json multi-path {path} == the host engine")
+        res["multiple_paths"] = dict(
+            t, engine=log["engine"], rows=small_rows,
+            mb_per_s=chars_mb(small) / t["ms"] * 1e3)
+        del outs, out
+    # each engine pinned, on one chunk (the host engine on cpu_rows)
+    pinned = {}
+    for engine in JSON_ENGINES:
+        part = CP.slice_column(col, 0, cpu_rows) if engine == "host" \
+            else chunk
+        with json_pinned(engine):
+            _, t = timed_call(lambda: JP.get_json_object(part, "$.user.id"),
+                              device, iters)
+        t.update(rows=part.length, chars_mb=chars_mb(part),
+                 host_rows=json_host_rows(engine, part.length))
+        t["mb_per_s"] = t["chars_mb"] / t["ms"] * 1e3
+        if engine == "device_scan":
+            t["chunk_steps"] = JD.last_stats["chunk_steps"]
+        pinned[engine] = t
+    res["pinned_user_id"] = pinned
+    del col, chunk, small, host_out
+
+    # from_json: the raw map and flat structs over flat objects of 4-70
+    # pairs, nested structs over events
+    docs = raw_map_docs(rows, seed=43, device=device)
+    dmb = chars_mb(docs)
+    fj = {"rows": rows, "chars_mb": dmb,
+          "max_len": docs.max_string_length()}
+    check(fj["max_len"] <= 1000, "json flat objects: at most 1,000 bytes")
+    part = CP.slice_column(docs, 0, cpu_rows)
+    calls = (("raw_map", "RAW_MAP", JU.from_json_to_raw_map),
+             ("structs_flat", "FROM_JSON",
+              lambda c: JU.from_json_to_structs(c, JSON_STRUCT_FIELDS)))
+    with env(SPARK_RAPIDS_TPU_CALIB_CACHE=calib):
+        for name, op, fn in calls:
+            with json_route_log() as log:
+                out, t = timed_call(lambda: fn(docs), device, iters)
+            check(out.length == rows and json_on_device(out, docs.device),
+                  f"json {name}: on the input's device")
+            t.update(log, mb_per_s=dmb / t["ms"] * 1e3)
+            if log["engine"] == "tokenizer":
+                t["host_rows"] = JT.last_stats["fallback_rows"]
+            elif log["engine"] == "device_scan" and name == "raw_map":
+                t["host_rows"] = RM.last_stats["fallback_rows"]
+            fj[name] = t
+            host = json_from_engines(fn, op, part, JSON_ENGINES,
+                                     name)
+            same_nested(CP.slice_column(out, 0, cpu_rows), host,
+                        f"json {name}: first {cpu_rows} rows == host engine")
+            with env(**{f"SPARK_RAPIDS_TPU_PATH_JSON_{op}": "tokenizer"}):
+                card_and_cpu(fn, [part], f"json {name} tokenizer")
+        events, _ = event_docs(cpu_rows // 2, seed=47, device=device)
+        nested = lambda c: JU.from_json_to_structs_nested(  # noqa: E731
+            c, JSON_NESTED_SCHEMA)
+        with json_route_log() as log:
+            out, t = timed_call(lambda: nested(events), device, 1)
+        t.update(log, rows=events.length, chars_mb=chars_mb(events))
+        fj["structs_nested"] = t
+        same_nested(out, json_from_engines(nested, "FROM_JSON", events,
+                                           ("host", "device_scan"),
+                                           "structs_nested"),
+                    "json structs_nested: router == host engine")
+        with env(SPARK_RAPIDS_TPU_PATH_JSON_FROM_JSON="host"):
+            card_and_cpu(nested, [events], "json structs_nested host")
+    res["from_json"] = fj
+    # the map ops over the raw map's first map_rows rows
+    m = JU.from_json_to_raw_map(CP.slice_column(docs, 0, map_rows))
+    maps = {"rows": map_rows, "entries": m.children[0].length}
+    for name, fn in (("sort_map_column", MU.sort_map_column),
+                     ("map_from_entries", MU.map_from_entries)):
+        got, t = timed_call(lambda: fn(m), device, 1)
+        check(json_on_device(got, m.offsets.device), f"{name}: device")
+        same_nested(got, fn(on_cpu(m)), f"json {name}: card == CPU")
+        maps[name] = t
+    res["map_ops"] = maps
+    return res
+
+
+def json_on_device(col, device):
+    """Every buffer of `col`, at every level, on `device`."""
+    return all(t is None or t.device == device
+               for t in (col.data, col.validity, col.offsets)) and all(
+        json_on_device(c, device) for c in col.children)
+
+
+def run_json(device="cuda", **kw):
+    """The JSON family on the card (see the module docstring)."""
+    RA.reset_launches()
+    clock = time.perf_counter()
+    res = json_phase(device, **kw)
+    res["phase_s"] = time.perf_counter() - clock
+    print(json.dumps({"json": res}), flush=True)
+    launches = read_launches("json")
+    check(not any(launches.values()),
+          "the json path launches none of the row kernels")
+    return launches, res
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3002,6 +3469,8 @@ def main() -> int:
     phase("memory")
     by_path["strings"], _ = run_strings()
     phase("strings")
+    by_path["json"], _ = run_json()
+    phase("json")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

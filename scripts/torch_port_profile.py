@@ -18,8 +18,11 @@ of chip_smoke.py's flat (2^25 rows) and nested (2^22 rows) batches over
 200 partitions, and chip_smoke.py's string casts over 2^24 rows
 (float_to_string of ss_net_paid, string_to_float of its rendering with
 and without the edge vocabulary, string_to_integer) and parse_url HOST
-over its 2^22 URLs, with torch.profiler (`--only strings` profiles just
-those).  For each it
+over its 2^22 URLs, and chip_smoke.py's JSON calls (get_json_object
+with each engine pinned, the raw map and flat structs through the
+tokenizer; `_json` says at which sizes), with torch.profiler
+(`--only strings` or `--only json` profiles just that group).  For
+each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
 time, the kernels that took the most device time and, for the JNI door,
@@ -246,10 +249,47 @@ def _strings(chip_smoke):
     yield "parse_url_host", lambda: U.parse_uri_to_host(urls)
 
 
+def _json(chip_smoke):
+    """(phase, call) for chip_smoke's JSON phase: get_json_object
+    `$.user.id` with each engine pinned (the device scan and the
+    tokenizer on one 2^17-row chunk of its event documents, the host
+    engine on 2^14 rows), and the raw map and flat structs through the
+    tokenizer on 2^17 rows of its flat objects."""
+    from spark_rapids_tpu_torch.ops import copying as CP
+    from spark_rapids_tpu_torch.ops import json_path as JP
+    from spark_rapids_tpu_torch.ops import json_utils as JU
+
+    col, _ = chip_smoke.event_docs(chip_smoke.JSON_CHUNK_ROWS, seed=41)
+    small = CP.slice_column(col, 0, chip_smoke.JSON_CPU_ROWS)
+
+    def pinned(engine, c):
+        def call():
+            with chip_smoke.json_pinned(engine):
+                return JP.get_json_object(c, "$.user.id")
+        return call
+
+    yield "json_device_scan", pinned("device_scan", col)
+    yield "json_tokenizer", pinned("tokenizer", col)
+    yield "json_host", pinned("host", small)
+    docs = chip_smoke.raw_map_docs(chip_smoke.JSON_CHUNK_ROWS, seed=43)
+
+    def tokenizer(fn):
+        def call():
+            with chip_smoke.env(SPARK_RAPIDS_TPU_PATH_JSON_RAW_MAP="tokenizer",
+                                SPARK_RAPIDS_TPU_PATH_JSON_FROM_JSON=
+                                "tokenizer"):
+                return fn(docs)
+        return call
+
+    yield "json_raw_map_tokenizer", tokenizer(JU.from_json_to_raw_map)
+    yield "json_structs_tokenizer", tokenizer(
+        lambda c: JU.from_json_to_structs(c, chip_smoke.JSON_STRUCT_FIELDS))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
-    ap.add_argument("--only", choices=["strings"],
+    ap.add_argument("--only", choices=["strings", "json"],
                     help="profile only this group of phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -260,11 +300,16 @@ def main() -> int:
 
     os.makedirs(args.out, exist_ok=True)
     print(f"device: {torch.cuda.get_device_name(0)}")
-    if args.only != "strings":
+    if args.only is None:
         _main_paths(chip_smoke, args.out)
-    for name, fn in _strings(chip_smoke):
-        print(json.dumps(_profile(name, fn, args.out)), flush=True)
-    del fn
+    groups = {"strings": _strings, "json": _json}
+    for group, phases in groups.items():
+        if args.only not in (None, group):
+            continue
+        for name, fn in phases(chip_smoke):
+            print(json.dumps(_profile(name, fn, args.out)), flush=True)
+        del fn
+        torch.cuda.empty_cache()
     return 0
 
 

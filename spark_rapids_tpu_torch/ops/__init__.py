@@ -5,7 +5,8 @@ engines and the outer/semi/anti transforms, GROUP BY and ORDER BY over
 columns and the copying, aggregation and key helpers they stand on; the
 Spark string casts (string <-> integer, float, decimal, integers with a
 base), parse_url and the assorted string ops (conv, GBK decode,
-list_slice, the literal-range regex fast path)."""
+list_slice, the literal-range regex fast path); get_json_object, the
+from_json family and the map ops."""
 
 from spark_rapids_tpu_torch.ops.hash import (  # noqa: F401
     DEFAULT_XXHASH64_SEED,
@@ -37,6 +38,10 @@ from spark_rapids_tpu_torch.ops.cast_string import (  # noqa: F401
     string_to_float,
     string_to_integer,
 )
+from spark_rapids_tpu_torch.ops.json_path import (  # noqa: F401
+    get_json_object,
+    get_json_object_multiple_paths,
+)
 from spark_rapids_tpu_torch.ops import parse_uri  # noqa: F401
 from spark_rapids_tpu_torch.ops.strings_misc import (  # noqa: F401
     convert,
@@ -45,6 +50,8 @@ from spark_rapids_tpu_torch.ops.strings_misc import (  # noqa: F401
     list_slice,
     literal_range_pattern,
 )
+from spark_rapids_tpu_torch.ops import map_utils  # noqa: F401
+from spark_rapids_tpu_torch.ops import json_utils  # noqa: F401
 
 # ROADMAP A14: the JAX package wraps every public op here with
 # utils.tracing.instrument (its _TRACED table: maybe_inject + op_range)

@@ -79,6 +79,14 @@ def string_to_integer(column_handle: int, type_id: str,
         REGISTRY.get(column_handle), DType(type_id), ansi_mode, strip))
 
 
+def get_json_object(column_handle: int, path: str) -> int:
+    """Spark get_json_object over a STRING column handle
+    (JSONUtils.getJsonObject)."""
+    from spark_rapids_tpu_torch.ops.json_path import get_json_object
+    return REGISTRY.register(get_json_object(REGISTRY.get(column_handle),
+                                             path))
+
+
 def sort_merge_inner_join(left_handles: Sequence[int],
                           right_handles: Sequence[int],
                           compare_nulls_equal: bool) -> List[int]:

@@ -18,7 +18,10 @@ CPU, the task threads under a limit and q5 over spilled partitions; and
 the string casts and parse_url: string_to_float, float_to_string and
 string_to_integer on card columns against their CPU runs, returning card
 columns, parse_url on the card against the CPU, and the rows the host
-decides written back into card columns.
+decides written back into card columns; and the JSON family: each
+get_json_object engine (the device scan replayed as CUDA graphs) and
+each from_json engine on the card against its CPU run over the seeded
+corpus, and chip_smoke.py's json phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -651,3 +654,64 @@ def test_host_decided_rows_patched_on_card(cuda):
         with env(SPARK_RAPIDS_TPU_FORCE_DEVICE_PARSE_URI=None,
                  SPARK_RAPIDS_TPU_PARSE_URI_DEVICE_MIN=str(10 * len(urls))):
             same_nested(got, extract(on_cpu(col), what), what)
+
+
+# ------------------------------------------------------------------ JSON
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["host", "device_scan", "tokenizer"])
+def test_json_engines_on_card_match_cpu(cuda, engine):
+    """Each get_json_object engine on the card == its CPU run on the
+    seeded corpus (edge vocabulary and invalid UTF-8 included), with as
+    many host rows; the outputs live on the card."""
+    from torch_port_data import json_event_docs
+    from spark_rapids_tpu_torch.ops import json_path as JP
+
+    col = Column.from_strings(json_event_docs(11, 3000, edge_every=6),
+                              "cuda")
+    paths = ["$.event", "$.user.id", "$.user.name", "$.items[0]",
+             "$.ctx.a.b.c"] + (["$.items[*].sku"]
+                               if engine != "tokenizer" else [])
+    with env(SPARK_RAPIDS_TPU_PATH_JSON_GET_OBJECT=engine,
+             SPARK_RAPIDS_TPU_JSON="host" if engine == "host" else None):
+        for path in paths:
+            out = card_and_cpu(lambda c: JP.get_json_object(c, path), [col],
+                               f"{engine} {path}")
+            assert out.data.is_cuda
+
+
+@pytest.mark.gpu
+def test_json_phase_functions_on_card(cuda):
+    """chip_smoke's json phase at a small size: the card against the
+    CPU for every engine, the from_json family and the map ops."""
+    import chip_smoke as C
+    res = C.json_phase("cuda", rows=1 << 13, chunk_rows=1 << 12,
+                       cpu_rows=1 << 11, map_rows=1 << 10, iters=1)
+    assert res["rows"] == 1 << 13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["raw_map", "structs", "nested"])
+def test_from_json_engines_on_card_match_cpu(cuda, which):
+    from torch_port_data import json_event_docs
+    from spark_rapids_tpu_torch.ops import json_utils as JU
+
+    col = Column.from_strings(json_event_docs(13, 2000, edge_every=6),
+                              "cuda")
+    fields = [("event", dtypes.STRING), ("ts", dtypes.INT64)]
+    schema = ("struct", [("user", ("struct", [
+        ("id", dtypes.INT64), ("name", dtypes.STRING),
+        ("tags", ("list", dtypes.STRING))])), ("items", ("list", (
+            "struct", [("sku", dtypes.STRING), ("qty", dtypes.INT32),
+                       ("price", dtypes.FLOAT64)])))])
+    fn = {"raw_map": JU.from_json_to_raw_map,
+          "structs": lambda c: JU.from_json_to_structs(c, fields),
+          "nested": lambda c: JU.from_json_to_structs_nested(c, schema)}[
+        which]
+    op = "RAW_MAP" if which == "raw_map" else "FROM_JSON"
+    for engine in ("host", "device_scan", "tokenizer"):
+        if which == "nested" and engine == "tokenizer":
+            continue
+        with env(**{f"SPARK_RAPIDS_TPU_PATH_JSON_{op}": engine}):
+            card_and_cpu(fn, [col], f"{which} {engine}")

@@ -336,3 +336,72 @@ def values_spec(kind, values):
 def port_column(spec, device="cpu"):
     """The port's Column over one host column."""
     return interop.table_from_host([spec], device=device).columns[0]
+
+
+# --------------------------------------------------------- JSON documents
+
+# the edge vocabulary the JSON engines must agree on: single-quoted
+# strings, escapes (\n, é, a surrogate pair), unescaped control chars,
+# nesting past the device scan's 16 tracked levels, leading zeros,
+# whitespace inside containers, duplicate keys, non-ASCII, invalid JSON
+# and invalid UTF-8
+JSON_EDGE_DOCS = [
+    "{'event': 'single', 'ts': 1, 'user': {'id': 2}}",
+    '{"event": "line\\nbreak", "ts": 2}',
+    '{"event": "caf\\u00e9", "user": {"name": "\\ud83d\\ude00", "id": 3}}',
+    '{"event": "ctrl\x01char\ttab", "ts": 4}',
+    '{"ctx": ' + '{"a": ' * 17 + '1' + '}' * 17 + ', "event": "deep"}',
+    '{"ts": 007, "event": "lz"}',
+    '{"ts": -0, "items": [{"price": -0.0}]}',
+    '{ "event" : "ws" , "items" : [ { "sku" : "s1" , "qty" : 2 } ] }',
+    '{"event": "dup", "event": "dup2", "user": {"id": 1, "id": 2}}',
+    '{"event": "naïve 中文", "user": {"name": "Zoë"}}',
+    '{"event": "broken", "ts": }',
+    '{"event": "open"',
+    '[{"event": "array root"}]',
+    '"scalar root"',
+    '',
+    b'{"event": "\xff\xfe bad utf8", "ts": 3}',
+    b'{"event": "ok", "user": {"name": "\xc3", "id": 5}}',
+    '{"items": [{"sku": "a\\"q", "price": 1e400}], "ts": 1.5e3}',
+]
+
+
+def json_event_doc(rng, depth=3):
+    """One compact clickstream event: event, ts, user {id, name, tags},
+    items [{sku, qty, price}], ctx nested `depth` deep."""
+    import json
+    items = [{"sku": f"SKU{int(rng.integers(0, 99999)):05d}",
+              "qty": int(rng.integers(0, 9)),
+              "price": round(float(rng.random()) * 100, 2)}
+             for _ in range(int(rng.integers(0, 3)))]
+    ctx = "x%d" % int(rng.integers(0, 9))
+    for name in "cba"[3 - depth:]:
+        ctx = {name: ctx}
+    doc = {"event": ["click", "view", "buy"][int(rng.integers(0, 3))],
+           "ts": int(rng.integers(0, 10**12)),
+           "user": {"id": int(rng.integers(0, 10**6)),
+                    "name": "u%d" % int(rng.integers(0, 999)),
+                    "tags": ["t%d" % int(rng.integers(0, 9))
+                             for _ in range(int(rng.integers(0, 3)))]},
+           "items": items, "ctx": ctx}
+    sep = (",", ":") if rng.random() < 0.7 else (", ", ": ")
+    return json.dumps(doc, separators=sep)
+
+
+def json_event_docs(seed, rows, edge_every=8, null_every=25):
+    """`rows` event documents from a numpy seed: every `edge_every`-th
+    row (on average) an entry of JSON_EDGE_DOCS, every `null_every`-th
+    a null."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rows):
+        r = rng.random()
+        if r < 1 / null_every:
+            out.append(None)
+        elif r < 1 / null_every + 1 / edge_every:
+            out.append(JSON_EDGE_DOCS[int(rng.integers(
+                0, len(JSON_EDGE_DOCS)))])
+        else:
+            out.append(json_event_doc(rng, int(rng.integers(1, 4))))
+    return out
