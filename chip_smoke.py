@@ -267,7 +267,37 @@
    multi-path entry and the nested structs) and first call's ms, rows,
    MB/s of chars, rows sent to the host, the router's engine, verdict
    and calibration seconds, the peak memory the first call added, the
-   scan steps of each chunk.  Ends with the seconds each phase took.
+   scan steps of each chunk.
+14. Ingest and the read-side datetime ops (io/, models/filesource.py,
+   the JNI door's parquet_read_table and arrow_ingest, ops/datetime_ops
+   and ops/orc_timezones).  The operator batch (2^25 store_sales rows,
+   4% null) and the 2^22 STRING keys of 8-50 bytes go to parquet with
+   pyarrow under build/ingest: uncompressed with pyarrow's default
+   encodings (dictionary pages, v1, 2^20-row groups); the batch once
+   more snappy-compressed, as pyarrow and Spark write by default; and a
+   2^22-row cut of both (6 columns) uncompressed, once PLAIN v1 and
+   once PLAIN v2.  Each file is read whole onto the card and onto the
+   CPU, and the batch's uncompressed file and the cuts also projected
+   to ss_item_sk and ss_net_paid: every column equal to its source in
+   validity and in the bytes of every valid row, the card's read equal
+   byte for byte to the CPU's, the projection fetching fewer bytes.
+   parquet_read_table of the PLAIN v1 cut and arrow_ingest of a
+   RecordBatch of the batch equal their sources, every handle released.
+   tpcds_q3_file, tpcds_q7_file and tpcds_q9_file at 2^25 rows (q3 and
+   q7 at 204,000 items, q3 at 1,000 brands), each writing and reading
+   its files, equal to run_catalog_query of tpcds_q3, q7 and q9 with
+   the same params on the card.  A DATE and a TIMESTAMP[us] column
+   of 2^24 rows (years 1500-2100: Julian dates and pre-1970 instants;
+   4% null each) read from parquet onto the card: both rebases on both,
+   to and from UTC for America/Los_Angeles and Asia/Shanghai, ORC
+   rectification Asia/Tokyo -> UTC, truncate at each component and with
+   a per-row component column; each held byte for byte to the same call
+   on the CPU over the first 2^22 rows.  Prints an `ingest` line: each
+   read's ms, file MB/s, the host decode (and the decompression within
+   it) and the upload ms apart, the bytes fetched, pages and the peak MiB it added; the queries' ms; each
+   datetime call's median ms of 3 and rows/s.  Needs pyarrow; reads the
+   system zoneinfo (TZDIR if set).  Ends with the seconds each phase
+   took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -305,8 +335,11 @@ from spark_rapids_tpu_torch import models as TM  # noqa: E402
 from spark_rapids_tpu_torch.models import flagship as F  # noqa: E402
 from spark_rapids_tpu_torch.models import query as Q  # noqa: E402
 from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
+from spark_rapids_tpu_torch.io import parquet_reader as PR  # noqa: E402
+from spark_rapids_tpu_torch.models import filesource as FS  # noqa: E402
 from spark_rapids_tpu_torch.ops import cast_string as CS  # noqa: E402
 from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
+from spark_rapids_tpu_torch.ops import datetime_ops as DT  # noqa: E402
 from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash as H  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
@@ -316,6 +349,7 @@ from spark_rapids_tpu_torch.ops import json_tokenizer as JT  # noqa: E402
 from spark_rapids_tpu_torch.ops import json_utils as JU  # noqa: E402
 from spark_rapids_tpu_torch.ops import joins as J  # noqa: E402
 from spark_rapids_tpu_torch.ops import map_utils as MU  # noqa: E402
+from spark_rapids_tpu_torch.ops import orc_timezones as OTZ  # noqa: E402
 from spark_rapids_tpu_torch.ops import out_of_core as OOC  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri as U  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri_device as UD  # noqa: E402
@@ -515,7 +549,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "shuffle_batch": (),
                 "memory": (),
                 "strings": (),
-                "json": ()}
+                "json": (),
+                "ingest": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1253,23 +1288,23 @@ def store_sales_batch(rows, seed, device="cuda"):
                   "ss_sales_price", "ss_net_paid"])
 
 
-def string_keys(rows, distinct, lo, hi, seed):
+def string_keys(rows, distinct, lo, hi, seed, device="cuda"):
     """(pool, idx): `distinct` brand-like STRING values (lowercase
-    letters, digits, spaces and '#') of lo to hi bytes on the card, and
-    `rows` int64 indices into the pool on the card."""
+    letters, digits, spaces and '#') of lo to hi bytes on the card (or
+    `device`), and `rows` int64 indices into the pool there."""
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789 #",
                              np.uint8)
     pool = [bytes(alphabet[rng.integers(0, len(alphabet), n)])
             for n in rng.integers(lo, hi + 1, distinct)]
-    idx = torch.from_numpy(rng.integers(0, distinct, rows)).to("cuda")
-    return Column.from_strings(pool, "cuda"), idx
+    idx = torch.from_numpy(rng.integers(0, distinct, rows)).to(device)
+    return Column.from_strings(pool, device), idx
 
 
-def string_key_column(rows, distinct, lo, hi, seed):
+def string_key_column(rows, distinct, lo, hi, seed, device="cuda"):
     """A STRING column of `rows` drawn from string_keys' pool, gathered
-    on the card."""
-    pool, idx = string_keys(rows, distinct, lo, hi, seed)
+    on the card (or `device`)."""
+    pool, idx = string_keys(rows, distinct, lo, hi, seed, device)
     return CP.gather(pool, idx)
 
 
@@ -3365,6 +3400,343 @@ def run_json(device="cuda", **kw):
           "the json path launches none of the row kernels")
     return launches, res
 
+# ------------------------------------------------------------- ingest (14)
+
+# one executor's share of 8 of TPC-DS SF100, as the operator phases: the
+# 2^25-row store_sales batch and the 2^22-row STRING keys, written with
+# pyarrow's default encodings (dictionary pages, v1, 2^20-row groups),
+# the batch once uncompressed and once snappy, and a 2^22-row cut of
+# both once PLAIN v1 and once PLAIN v2
+INGEST_ROW_GROUP = 1 << 20
+INGEST_CUT_ROWS = 1 << 22
+INGEST_PROJECTED = ("ss_item_sk", "ss_net_paid")   # 2 of the 5 columns
+INGEST_SEED = 14
+# the file-backed queries at 2^25 rows: q3 and q9 as run_catalog_stages
+# runs their in-memory twins, q7 over SF100's 204,000 items
+FILE_QUERIES = {
+    "tpcds_q3_file": dict(rows=1 << 25, items=204_000, brands=1_000,
+                          seed=3),
+    "tpcds_q7_file": dict(rows=1 << 25, items=204_000, seed=7),
+    "tpcds_q9_file": dict(rows=1 << 25, seed=9),
+}
+# a DATE and a TIMESTAMP[us] column of years 1500-2100 (Julian dates and
+# pre-1970 instants), 4% null; the CPU run covers the first DT_CPU_ROWS
+DT_ROWS = 1 << 24
+DT_CPU_ROWS = 1 << 22
+DT_NULL_SHARE = 0.04
+DT_US_RANGE = (-14831769600 * 10**6, 4102444800 * 10**6)   # 1500, 2100
+DT_ZONES = ("America/Los_Angeles", "Asia/Shanghai")
+DT_COMPONENTS = ("YEAR", "QUARTER", "MONTH", "WEEK", "DAY", "HOUR",
+                 "MINUTE", "SECOND", "MILLISECOND", "MICROSECOND")
+DT_ITERS = 3
+
+
+def ingest_dir():
+    return os.path.join(_BUILD, "ingest")
+
+
+def arrow_table(table):
+    """A pyarrow Table over a host copy of `table`: validity as the null
+    mask, a STRING column from its offsets and chars."""
+    import pyarrow as pa
+    arrays = []
+    for c in table.columns:
+        valid = None if c.validity is None else c.validity.cpu().numpy()
+        if c.dtype.is_string:
+            check(valid is None and int(c.offsets[0]) == 0,
+                  "string columns here are unsliced and null-free")
+            arrays.append(pa.Array.from_buffers(
+                pa.string(), c.length,
+                [None, pa.py_buffer(c.offsets.cpu().numpy()),
+                 pa.py_buffer(c.data.cpu().numpy())]))
+        else:
+            arrays.append(pa.array(c.data.cpu().numpy(), mask=None
+                                   if valid is None else valid == 0))
+    return pa.table(arrays, names=table.names)
+
+
+def same_as_source(got, want, what):
+    """A column read back == the column it was written from: kind, rows
+    and validity, and the bytes of every valid row (a null row's value
+    is not stored; the reader zeroes it, the Arrow door keeps it)."""
+    check(got.dtype.kind == want.dtype.kind and got.length == want.length,
+          f"{what}: type")
+    want_valid = want.valid_mask().to(got.device)
+    check(torch.equal(got.valid_mask(), want_valid), f"{what}: validity")
+    if want.dtype.is_string:
+        check(torch.equal(got.offsets, want.offsets.to(got.device))
+              and torch.equal(got.data, want.data.to(got.device)),
+              f"{what}: offsets and chars")
+        return
+    check(byte_err(got.data[want_valid],
+                   want.data.to(got.device)[want_valid]) == 0,
+          f"{what}: valid rows' bytes")
+
+
+def timed_read(path, device, columns=None):
+    """(table, numbers) of one read_table onto `device`."""
+    sync(device)
+    stats = {}
+    t0 = time.perf_counter()
+    table, peak = peak_added(
+        lambda: PR.read_table(path, columns=columns, device=device,
+                              stats=stats), device)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(path) / 2**20
+    return table, {"ms": ms, "file_mb": mb, "file_mb_per_s": mb / ms * 1e3,
+                   "read_mb": stats["read_bytes"] / 2**20,
+                   "decode_ms": stats["decode_ns"] / 1e6,
+                   "decompress_ms": stats["decompress_ns"] / 1e6,
+                   "upload_ms": stats["upload_ns"] / 1e6,
+                   "pages": stats["pages"], "peak_mib": peak}
+
+
+def ingest_files(device="cuda", rows=OPS_ROWS, str_rows=STR_OPS_ROWS,
+                 cut_rows=INGEST_CUT_ROWS, row_group=INGEST_ROW_GROUP):
+    """The operator batch and the STRING keys to parquet and back (see
+    the module docstring).  Returns (numbers, the batch, its arrow
+    table, the cut and the PLAIN v1 cut's path)."""
+    import pyarrow.parquet as pq
+    batch = store_sales_batch(rows, INGEST_SEED, device)
+    keys = string_key_column(str_rows, STR_DISTINCT, 8, 50, INGEST_SEED,
+                             device)
+    cut = Table([CP.slice_column(c, 0, cut_rows) for c in batch.columns]
+                + [CP.slice_column(keys, 0, cut_rows)],
+                batch.names + ["ss_brand"])
+    arrow = arrow_table(batch)
+    # name: (arrow data, its source, writer options, read projected)
+    files = {"store_sales_dict": (arrow, batch, {}, True),
+             "store_sales_snappy": (arrow, batch,
+                                    {"compression": "snappy"}, False),
+             "brand_dict": (arrow_table(Table([keys], ["ss_brand"])),
+                            Table([keys], ["ss_brand"]), {}, False),
+             "cut_plain_v1": (arrow_table(cut), cut,
+                              {"use_dictionary": False}, True),
+             "cut_plain_v2": (arrow_table(cut), cut,
+                              {"use_dictionary": False,
+                               "data_page_version": "2.0"}, True)}
+    res = {}
+    for name, (data, source, kw, project) in files.items():
+        path = os.path.join(ingest_dir(), name + ".parquet")
+        t0 = time.perf_counter()
+        pq.write_table(data, path, row_group_size=row_group,
+                       **{"compression": "NONE", **kw})
+        out = {"rows": source.num_rows, "columns": source.num_columns,
+               "write_ms": (time.perf_counter() - t0) * 1e3}
+        got, out["whole"] = timed_read(path, device)
+        for gc_, want, n in zip(got.columns, source.columns, source.names):
+            same_as_source(gc_, want, f"{name} {n} read on {device}")
+        cpu, out["whole_cpu"] = timed_read(path, "cpu")
+        for a, b, n in zip(got.columns, cpu.columns, source.names):
+            same_column(a, b, f"{name} {n}: {device} read == CPU read")
+        del got, cpu
+        compressed = out["whole"]["decompress_ms"] > 0
+        check(compressed == ("compression" in kw),
+              f"{name}: decompression ran only on the snappy file")
+        if project:
+            cols = list(INGEST_PROJECTED)
+            got, out["projected"] = timed_read(path, device, cols)
+            check(got.names == cols, f"{name}: projected names")
+            for n in cols:
+                same_as_source(got[n], source[n], f"{name} {n} projected")
+            check(out["projected"]["read_mb"] < out["whole"]["read_mb"],
+                  f"{name}: the projected read fetched fewer bytes")
+            del got
+        res[name] = out
+    return res, batch, arrow, cut, os.path.join(ingest_dir(),
+                                                "cut_plain_v1.parquet")
+
+
+def ingest_jni(path, cut, batch, arrow, device="cuda"):
+    """The JNI door's ingest entries on the card: parquet_read_table of
+    the PLAIN v1 cut and arrow_ingest of a RecordBatch of the batch,
+    each column against its source, every handle released."""
+    before = REGISTRY.live_count()
+    res = {}
+    record_batch = arrow.combine_chunks().to_batches()[0]
+    for name, source, call in (
+            ("parquet_read_table", cut,
+             lambda: jni_api.parquet_read_table(path, device=device)),
+            ("arrow_ingest", batch,
+             lambda: jni_api.arrow_ingest(record_batch, device=device))):
+        t0 = time.perf_counter()
+        handles = call()
+        sync(device)
+        res[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "handles": len(handles)}
+        check(len(handles) == source.num_columns,
+              f"{name}: one handle a column")
+        for h, want, n in zip(handles, source.columns, source.names):
+            got = REGISTRY.get(h)
+            check(got.device.type == torch.device(device).type,
+                  f"{name} {n} on {device}")
+            same_as_source(got, want, f"{name} {n}")
+        release_all(*handles)
+    check(REGISTRY.live_count() == before, "ingest handles released")
+    return res
+
+
+def file_queries(device="cuda", queries=None):
+    """The file-backed TPC-DS queries on `device`, each call writing its
+    files and reading them back, equal to the in-memory twin with the
+    same params."""
+    res = {}
+    with env(SPARK_RAPIDS_TPU_INGEST_DIR=ingest_dir(),
+             SPARK_RAPIDS_TPU_STAGE_FUSION="0"):
+        FS.reset_dir()
+        try:
+            for name, params in (queries or FILE_QUERIES).items():
+                params = dict(params, device=device)
+                t0 = time.perf_counter()
+                got = TM.run_catalog_query(name, params)
+                sync(device)
+                t1 = time.perf_counter()
+                want = TM.run_catalog_query(name[:-len("_file")], params)
+                sync(device)
+                check(got == want,
+                      f"{name} == {name[:-len('_file')]} on {device}")
+                res[name] = {"rows": params.get("rows"),
+                             "result_rows": len(want),
+                             "write_read_run_ms": (t1 - t0) * 1e3,
+                             "in_memory_ms":
+                                 (time.perf_counter() - t1) * 1e3}
+        finally:
+            FS.reset_dir()
+    return res
+
+
+def datetime_file(rows, seed):
+    """A DATE and a TIMESTAMP[us] column of years 1500-2100, 4% null
+    each, written to parquet; returns its path."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(seed)
+    days = np.floor_divide(rng.integers(*DT_US_RANGE, rows),
+                           86_400_000_000).astype(np.int32)
+    micros = rng.integers(*DT_US_RANGE, rows)
+    table = pa.table({
+        "d": pa.array(days, pa.date32(),
+                      mask=rng.random(rows) < DT_NULL_SHARE),
+        "ts": pa.array(micros, pa.timestamp("us"),
+                       mask=rng.random(rows) < DT_NULL_SHARE)})
+    path = os.path.join(ingest_dir(), "datetime.parquet")
+    pq.write_table(table, path, compression="NONE")
+    return path
+
+
+def head(col, n):
+    """The first `n` rows of a column on the CPU (string chars whole)."""
+    col = on_cpu(col)
+    return Column(col.dtype, n,
+                  data=col.data if col.dtype.is_string else col.data[:n],
+                  validity=None if col.validity is None
+                  else col.validity[:n],
+                  offsets=None if col.offsets is None
+                  else col.offsets[:n + 1])
+
+
+def component_column(rows, seed, device):
+    """Per-row truncate components: the DT_COMPONENTS, lower-case
+    spellings, an unknown one and an empty one, 4% null."""
+    vocab = list(DT_COMPONENTS) + ["yyyy", "mon", "dd", "bogus", ""]
+    g = torch.Generator(device=device).manual_seed(seed)
+    pool = Column.from_strings(vocab, device)
+    col = CP.gather(pool, torch.randint(0, len(vocab), (rows,),
+                                        generator=g, device=device))
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= DT_NULL_SHARE).to(torch.uint8)
+    return Column(dtypes.STRING, rows, data=col.data, validity=valid,
+                  offsets=col.offsets)
+
+
+def datetime_calls(d, ts, comp):
+    """(name, call) of every datetime op the phase drives."""
+    calls = [("rebase_g2j_date", lambda: DT.rebase_gregorian_to_julian(d)),
+             ("rebase_j2g_date", lambda: DT.rebase_julian_to_gregorian(d)),
+             ("rebase_g2j_ts", lambda: DT.rebase_gregorian_to_julian(ts)),
+             ("rebase_j2g_ts", lambda: DT.rebase_julian_to_gregorian(ts))]
+    for z in DT_ZONES:
+        calls += [(f"to_utc {z}",
+                   lambda z=z: DT.convert_timestamp_to_utc(ts, z)),
+                  (f"from_utc {z}",
+                   lambda z=z: DT.convert_utc_timestamp_to_timezone(ts, z))]
+    calls.append(("orc Asia/Tokyo->UTC",
+                  lambda: OTZ.convert_orc_timezones(ts, "Asia/Tokyo",
+                                                    "UTC")))
+    calls += [(f"truncate_ts {c}", lambda c=c: DT.truncate(ts, c))
+              for c in DT_COMPONENTS]
+    calls += [(f"truncate_date {c}", lambda c=c: DT.truncate(d, c))
+              for c in DT_COMPONENTS[:5]]
+    calls.append(("truncate_ts column", lambda: DT.truncate(ts, comp)))
+    return calls
+
+
+def datetime_phase(device="cuda", rows=DT_ROWS, cpu_rows=DT_CPU_ROWS,
+                   iters=DT_ITERS):
+    """The datetime ops on columns read from parquet onto `device`, each
+    held byte for byte to the same call on the CPU over the first
+    `cpu_rows` rows."""
+    path = datetime_file(rows, INGEST_SEED)
+    t = PR.read_table(path, device=device)
+    d, ts = t["d"], t["ts"]
+    check(d.dtype == dtypes.TIMESTAMP_DAYS
+          and ts.dtype == dtypes.TIMESTAMP_MICROS, "DATE and TIMESTAMP kinds")
+    check(bool((ts.data[ts.valid_mask()] < 0).any()), "pre-1970 instants")
+    comp = component_column(rows, INGEST_SEED, device)
+    cpu_calls = dict(datetime_calls(head(d, cpu_rows), head(ts, cpu_rows),
+                                    head(comp, cpu_rows)))
+    res = {"rows": rows, "cpu_rows": cpu_rows}
+    for name, call in datetime_calls(d, ts, comp):
+        out = call()
+        check(out.device.type == torch.device(device).type,
+              f"{name} stays on {device}")
+        same_column(head(out, cpu_rows), cpu_calls[name](),
+                    f"{name}: {device} == CPU")
+        ms = wall_ms(call, iters, device)
+        res[name] = {"ms": ms, "rows_per_s": rows / ms * 1e3}
+    return res
+
+
+def ingest_phase(device="cuda", files_kw=None, queries=None, dt_kw=None):
+    import importlib.util
+    check(importlib.util.find_spec("pyarrow") is not None,
+          "pyarrow present: the files are written with it")
+    shutil.rmtree(ingest_dir(), ignore_errors=True)
+    os.makedirs(ingest_dir())
+    res = {}
+    clock = time.perf_counter()
+    try:
+        res["files"], batch, arrow, cut, path = ingest_files(
+            device, **(files_kw or {}))
+        res["files"]["phase_s"] = time.perf_counter() - clock
+        clock = time.perf_counter()
+        res["jni_door"] = ingest_jni(path, cut, batch, arrow, device)
+        del batch, arrow, cut
+        res["queries"] = file_queries(device, queries)
+        res["queries"]["phase_s"] = time.perf_counter() - clock
+        clock = time.perf_counter()
+        res["datetime"] = datetime_phase(device, **(dt_kw or {}))
+        res["datetime"]["phase_s"] = time.perf_counter() - clock
+    finally:
+        shutil.rmtree(ingest_dir(), ignore_errors=True)
+    return res
+
+
+def run_ingest(device="cuda", **kw):
+    """Ingest and the read-side datetime ops on the card (see the
+    module docstring)."""
+    RA.reset_launches()
+    clock = time.perf_counter()
+    res = ingest_phase(device, **kw)
+    res["phase_s"] = time.perf_counter() - clock
+    print(json.dumps({"ingest": res}), flush=True)
+    launches = read_launches("ingest")
+    check(not any(launches.values()),
+          "the ingest path launches none of the row kernels")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3471,6 +3843,8 @@ def main() -> int:
     phase("strings")
     by_path["json"], _ = run_json()
     phase("json")
+    by_path["ingest"], _ = run_ingest()
+    phase("ingest")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

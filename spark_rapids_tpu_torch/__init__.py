@@ -14,11 +14,12 @@ first use (utils/cuda_build.py).
               join router with its host and device engines and the
               outer/semi/anti transforms, GROUP BY, ORDER BY, 64-bit
               sum helpers, gather/slice/concat and the key and rank
-              helpers under them
+              helpers under them; timezone conversion, calendar
+              rebase and truncate, and the ORC zone rectification
   shim.*      the JNI door: handle registry and jni_api entry points
   models.*    the named query catalog; the flagship columnar step; the
-              TPC-DS hand pipelines, seeded generators and oracles; the
-              star join
+              TPC-DS hand pipelines, seeded generators and oracles, and
+              their file-backed runners; the star join
   plan.*      the stage IR, its compiler (fused and op-by-op engines)
               and the catalog's stage pipelines (q3, q5, q9, q67, CUBE,
               q72, q89)
@@ -31,6 +32,8 @@ first use (utils/cuda_build.py).
               HostTable, and the tiered device/host/disk spill store
   robustness.* the task-level retry drivers (with_retry,
               split_and_retry) over the state machine
+  io.*        ingest: the parquet footer, page decoders and reader
+              into device columns, and the zero-copy Arrow door
 
 Entry points run on the device of the tensors they are given; the
 constructors default to "cuda" and take `device="cpu"` explicitly.

@@ -13,8 +13,10 @@ Runners receive an optional :class:`QueryContext` carrying tenant /
 query-id attribution and a cooperative cancel flag and deadline; the
 built-in runners check it before any work.
 
-Left unregistered until their queue items land: the file-backed
-``tpcds_*_file`` runners (ROADMAP A13), the incremental
+The file-backed ``tpcds_q3_file``, ``tpcds_q7_file`` and
+``tpcds_q9_file`` (models/filesource.py) read the same seeded data
+back from parquet into the in-memory twins' pipelines.  Left
+unregistered until their queue items land: the incremental
 ``tpcds_*_incremental`` runners and the result-cache specs (A14).  A
 lookup of those names raises :class:`UnknownQueryError`.
 """
@@ -284,6 +286,24 @@ def _run_q72_fused(params: dict, ctx: QueryContext):
     return _rows(i, w, c)
 
 
+# file-backed variants (models/filesource.py): same seeded data via a
+# parquet round trip through io/parquet_reader, same cached pipeline,
+# byte-identical rows — registered thin so pyarrow loads on first use
+def _run_q3_file(params: dict, ctx: QueryContext):
+    from spark_rapids_tpu_torch.models import filesource
+    return filesource.run_q3_file(params, ctx)
+
+
+def _run_q7_file(params: dict, ctx: QueryContext):
+    from spark_rapids_tpu_torch.models import filesource
+    return filesource.run_q7_file(params, ctx)
+
+
+def _run_q9_file(params: dict, ctx: QueryContext):
+    from spark_rapids_tpu_torch.models import filesource
+    return filesource.run_q9_file(params, ctx)
+
+
 register_query("tpcds_q3", _run_q3)
 register_query("tpcds_q5", _run_q5)
 register_query("tpcds_q7", _run_q7)
@@ -292,3 +312,6 @@ register_query("tpcds_q72", _run_q72)
 register_query("tpcds_q3_fused", _run_q3_fused)
 register_query("tpcds_q5_fused", _run_q5_fused)
 register_query("tpcds_q72_fused", _run_q72_fused)
+register_query("tpcds_q3_file", _run_q3_file)
+register_query("tpcds_q7_file", _run_q7_file)
+register_query("tpcds_q9_file", _run_q9_file)

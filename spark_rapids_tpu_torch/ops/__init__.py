@@ -6,7 +6,9 @@ columns and the copying, aggregation and key helpers they stand on; the
 Spark string casts (string <-> integer, float, decimal, integers with a
 base), parse_url and the assorted string ops (conv, GBK decode,
 list_slice, the literal-range regex fast path); get_json_object, the
-from_json family and the map ops."""
+from_json family and the map ops; the datetime ops (timezone
+conversion, calendar rebase, truncate) and the ORC writer-zone
+rectification."""
 
 from spark_rapids_tpu_torch.ops.hash import (  # noqa: F401
     DEFAULT_XXHASH64_SEED,
@@ -52,6 +54,8 @@ from spark_rapids_tpu_torch.ops.strings_misc import (  # noqa: F401
 )
 from spark_rapids_tpu_torch.ops import map_utils  # noqa: F401
 from spark_rapids_tpu_torch.ops import json_utils  # noqa: F401
+from spark_rapids_tpu_torch.ops import datetime_ops  # noqa: F401
+from spark_rapids_tpu_torch.ops import orc_timezones  # noqa: F401
 
 # ROADMAP A14: the JAX package wraps every public op here with
 # utils.tracing.instrument (its _TRACED table: maybe_inject + op_range)

@@ -101,6 +101,37 @@ def sort_merge_inner_join(left_handles: Sequence[int],
                                      data=ri))]
 
 
+# --------------------------------------------------------------- ingest
+# (the storage-side doors: zero-copy Arrow C-interface hand-off and the
+# columnar parquet reader — reference NativeParquetJni surface)
+# ROADMAP A16 and A14: each opens with maybe_inject and an op_range in
+# the JAX package
+
+
+def arrow_ingest(batch, device="cuda") -> List[int]:
+    """Wrap an Arrow RecordBatch (or any ``__arrow_c_array__``
+    exporter) as columns on ``device``, without copying on the CPU and
+    with one upload per buffer on the card; returns one handle per
+    column.  The registry entries keep the Arrow buffers alive — the
+    caller may free its batch immediately."""
+    from spark_rapids_tpu_torch.io.arrow_cabi import ingest
+    cols, _names = ingest(batch, device)
+    # ROADMAP A14: the JAX package bumps the "arrow" source's ingest
+    # epoch here (result_cache.bump_ingest_epoch)
+    return [REGISTRY.register(c) for c in cols]
+
+
+def parquet_read_table(path: str, columns=None,
+                       case_sensitive: bool = True,
+                       device="cuda") -> List[int]:
+    """Columnar parquet read with footer-pruned projection pushdown;
+    returns one handle per (kept) column, in file schema order."""
+    from spark_rapids_tpu_torch.io.parquet_reader import read_table
+    table = read_table(path, columns=columns,
+                       case_sensitive=case_sensitive, device=device)
+    return [REGISTRY.register(c) for c in table.columns]
+
+
 # ------------------------------------------------------------ kudo crc
 
 

@@ -21,7 +21,11 @@ columns, parse_url on the card against the CPU, and the rows the host
 decides written back into card columns; and the JSON family: each
 get_json_object engine (the device scan replayed as CUDA graphs) and
 each from_json engine on the card against its CPU run over the seeded
-corpus, and chip_smoke.py's json phase at a small size.
+corpus, and chip_smoke.py's json phase at a small size; and ingest: the
+parquet reader and the Arrow door onto the card against their CPU
+reads, the file-backed queries on the card against the CPU and their
+in-memory twins, the datetime ops on the card against the CPU, and
+chip_smoke.py's ingest phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -715,3 +719,129 @@ def test_from_json_engines_on_card_match_cpu(cuda, which):
             continue
         with env(**{f"SPARK_RAPIDS_TPU_PATH_JSON_{op}": engine}):
             card_and_cpu(fn, [col], f"{which} {engine}")
+
+
+# ----------------------------------------------------------------- ingest
+
+INGEST_SMALL = dict(
+    files_kw=dict(rows=1 << 15, str_rows=1 << 13, cut_rows=1 << 13,
+                  row_group=1 << 13),
+    queries={"tpcds_q3_file": dict(rows=1 << 14, seed=3),
+             "tpcds_q7_file": {}, "tpcds_q9_file": dict(rows=1 << 14)},
+    dt_kw=dict(rows=1 << 15, cpu_rows=1 << 13, iters=1))
+
+
+def _mixed_parquet(path, rows=3000):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(13)
+    nulls = rng.random(rows) < 0.04
+    pq.write_table(pa.table({
+        "i64": pa.array(rng.integers(-2**62, 2**62, rows), mask=nulls),
+        "i32": pa.array(rng.integers(-2**31, 2**31, rows).astype(np.int32)),
+        "f64": pa.array(rng.normal(size=rows), mask=nulls),
+        "b": pa.array(rng.integers(0, 2, rows).astype(bool), mask=nulls),
+        "s": pa.array([None if n else f"s{i % 97}" for i, n in
+                       enumerate(nulls)]),
+        "d": pa.array(rng.integers(-200000, 50000, rows).astype(np.int32),
+                      pa.date32()),
+        "ts": pa.array(rng.integers(-2**55, 2**55, rows),
+                       pa.timestamp("us"), mask=nulls)}),
+        str(path), row_group_size=1000, data_page_version="2.0")
+
+
+@pytest.mark.gpu
+def test_read_table_on_card_matches_cpu(cuda, tmp_path):
+    from spark_rapids_tpu_torch.io import parquet_reader as PR
+    path = tmp_path / "t.parquet"
+    _mixed_parquet(path)
+    stats = {}
+    got = PR.read_table(str(path), device="cuda", stats=stats)
+    assert stats["upload_ns"] > 0
+    want = PR.read_table(str(path), device="cpu")
+    assert got.names == want.names
+    for g, w, n in zip(got.columns, want.columns, got.names):
+        assert g.data.is_cuda, n
+        same_column(g, w, n)
+    assert got["f64"].data.dtype == torch.float64
+
+
+@pytest.mark.gpu
+def test_arrow_ingest_on_card(cuda):
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.io import arrow_cabi as A
+    from spark_rapids_tpu_torch.shim import jni_api as JA
+    batch = pa.record_batch({
+        "x": pa.array(np.arange(5000, dtype=np.int64)),
+        "f": pa.array([None if i % 7 == 0 else i * 0.5
+                       for i in range(5000)]),
+        "s": pa.array([None if i % 3 == 0 else f"r{i}"
+                       for i in range(5000)]),
+        "dec": pa.array(list(range(5000)), pa.int64()).cast(
+            pa.decimal128(20, 0))}).slice(17, 4000)
+    cols, names = A.ingest(batch)
+    cpu, _ = A.ingest(batch, device="cpu")
+    for g, w, n in zip(cols, cpu, names):
+        assert g.device.type == "cuda", n
+        same_column(g, w, n)
+    before = JA.REGISTRY.live_count()
+    handles = JA.arrow_ingest(batch)
+    assert [JA.column_to_host(h) for h in handles] == \
+        [c.to_pylist() for c in cpu]
+    for h in handles:
+        JA.release_column(h)
+    assert JA.REGISTRY.live_count() == before
+
+
+@pytest.mark.gpu
+def test_file_queries_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    from spark_rapids_tpu_torch.models import filesource as FS
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_INGEST_DIR", str(tmp_path))
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+    FS.reset_dir()
+    try:
+        for name in ("tpcds_q3_file", "tpcds_q7_file", "tpcds_q9_file"):
+            for params in ({}, {"rows": 3001, "seed": 2}):
+                got = TM.run_catalog_query(name, dict(params, device="cuda"))
+                assert got == TM.run_catalog_query(
+                    name, dict(params, device="cpu"))
+                assert got == TM.run_catalog_query(
+                    name[:-len("_file")], dict(params, device="cuda"))
+    finally:
+        FS.reset_dir()
+
+
+@pytest.mark.gpu
+def test_datetime_ops_on_card_match_cpu(cuda):
+    import chip_smoke as C
+    rng = np.random.default_rng(5)
+    rows = 5000
+    valid = torch.from_numpy((rng.random(rows) >= 0.04).astype(np.uint8))
+    d = Column(dtypes.TIMESTAMP_DAYS, rows, validity=valid,
+               data=torch.from_numpy(rng.integers(-171000, 47000, rows)
+                                     .astype(np.int32)))
+    ts = Column(dtypes.TIMESTAMP_MICROS, rows, validity=valid,
+                data=torch.from_numpy(rng.integers(*C.DT_US_RANGE, rows)))
+    comp = C.component_column(rows, 3, "cuda")
+    want = dict(C.datetime_calls(d, ts, C.on_cpu(comp)))
+
+    def card(c):
+        return Column(c.dtype, rows, data=c.data.cuda(),
+                      validity=c.validity.cuda())
+
+    for name, call in C.datetime_calls(card(d), card(ts), comp):
+        out = call()
+        assert out.data.is_cuda, name
+        same_column(out, want[name](), name)
+
+
+@pytest.mark.gpu
+def test_ingest_phase_functions_on_card(cuda, tmp_path, monkeypatch):
+    """chip_smoke's ingest phase at a small size: every read on the card
+    against its source and the CPU read, the JNI door, the file queries
+    against their twins and the datetime ops against the CPU."""
+    import chip_smoke as C
+    monkeypatch.setattr(C, "ingest_dir", lambda: str(tmp_path / "ingest"))
+    res = C.ingest_phase("cuda", **INGEST_SMALL)
+    assert res["files"]["store_sales_dict"]["whole"]["peak_mib"] > 0
+    assert set(res["queries"]) >= {"tpcds_q3_file", "tpcds_q9_file"}

@@ -1,6 +1,7 @@
 """PyTorch port: the named query catalog (`spark_rapids_tpu_torch.models`)
 against the JAX package's (`spark_rapids_tpu.models`): the eight built-in
-names give the reference's rows with `{"device": "cpu"}` (the reference
+names (and the three file-backed ones, tests/test_torch_filesource.py)
+give the reference's rows with `{"device": "cpu"}` (the reference
 ignores the key), cancel and deadline raise before any work, unknown
 and not-yet-ported names raise UnknownQueryError, the pipeline cache
 stays bounded, and eight threads give the bytes of a serial run.  The
@@ -18,6 +19,7 @@ import spark_rapids_tpu_torch.models as TM
 
 NAMES = ["tpcds_q3", "tpcds_q3_fused", "tpcds_q5", "tpcds_q5_fused",
          "tpcds_q7", "tpcds_q72", "tpcds_q72_fused", "tpcds_q9"]
+FILE_NAMES = ["tpcds_q3_file", "tpcds_q7_file", "tpcds_q9_file"]
 PARAMS = [{}, {"rows": 3001, "seed": 1}]
 
 
@@ -31,9 +33,9 @@ def _run(m, name, params):
 
 
 def test_the_eight_names_are_registered():
-    assert TM.catalog_queries() == sorted(NAMES)
-    assert all(TM.has_query(n) for n in NAMES)
-    assert set(NAMES) <= set(JM.catalog_queries())
+    assert TM.catalog_queries() == sorted(NAMES + FILE_NAMES)
+    assert all(TM.has_query(n) for n in NAMES + FILE_NAMES)
+    assert set(NAMES + FILE_NAMES) <= set(JM.catalog_queries())
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -51,8 +53,8 @@ def test_hand_and_stage_names_agree():
         assert _run(TM, hand, {}) == _run(TM, hand + "_fused", {})
 
 
-@pytest.mark.parametrize("name", ["tpcds_q3_file", "tpcds_q7_file",
-                                  "tpcds_q9_file", "tpcds_q5_incremental",
+@pytest.mark.parametrize("name", ["tpcds_q5_file", "tpcds_q72_file",
+                                  "tpcds_q67_file", "tpcds_q5_incremental",
                                   "tpcds_q72_incremental", "tpcds_q99"])
 def test_unported_and_unknown_names_raise(name):
     assert not TM.has_query(name)
