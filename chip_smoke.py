@@ -227,8 +227,8 @@
    row chunk must equal the CPU run byte for byte with as many host rows,
    and the host parser on a 2^14-row sample; ANSI mode must raise at the
    same row on the card, on the CPU and in the host parser.  Prints a
-   `strings` line: each call's median ms of 3 synchronized calls (the
-   first included) and its first call's ms, rows, MB/s of input chars (output chars for
+   `strings` line: each call's lower median ms of 2 synchronized calls
+   (the first included) and its first call's ms, rows, MB/s of input chars (output chars for
    float_to_string), padded width and scan steps, rows sent to the host,
    the peak device memory the first call added and the memo hits and
    misses.
@@ -263,8 +263,8 @@
    2^13 events, the host and device engines equal and the host engine
    equal to its CPU run; sort_map_column and map_from_entries on the
    raw map of the first 2^14 rows against the CPU.  Prints a `json`
-   line: each call's median ms of 3 synchronized calls (one for the
-   multi-path entry and the nested structs) and first call's ms, rows,
+   line: each call's lower median ms of 2 synchronized calls (one for
+   the multi-path entry and the nested structs) and first call's ms, rows,
    MB/s of chars, rows sent to the host, the router's engine, verdict
    and calibration seconds, the peak memory the first call added, the
    scan steps of each chunk.
@@ -296,8 +296,53 @@
    read's ms, file MB/s, the host decode (and the decompression within
    it) and the upload ms apart, the bytes fetched, pages and the peak MiB it added; the queries' ms; each
    datetime call's median ms of 3 and rows/s.  Needs pyarrow; reads the
-   system zoneinfo (TZDIR if set).  Ends with the seconds each phase
-   took.
+   system zoneinfo (TZDIR if set).
+15. The rest of the op breadth (ops/decimal_utils.py over
+   ops/decimal_device.py's limbs, ops/arithmetic.py, ops/cast_more.py,
+   ops/sha.py, ops/bloom_filter.py, ops/hllpp.py, ops/histogram.py,
+   ops/zorder.py, ops/iceberg.py, ops/substring_index.py,
+   ops/case_when.py, ops/uuid_gen.py, shim/jni_entry.py), every column
+   drawn on the card from a seed.  Two DECIMAL128 columns of 2^25 rows
+   (1 GiB, spark.rapids.sql.batchSizeBytes), a of sums at scale -2 below
+   5 * 2^64, b of ss_net_paid's prices in cents, 4% null each, 1/64 edge
+   rows (zero divisors, +-(10^38 - 1), products that overflow): multiply
+   to scale -4, add and sub at -2, divide at -20 with both cast to -4
+   (TPC-DS q49's decimal(35,20) ratio), integer divide to 0, remainder at
+   -2, routed by the columns' device to the limbs; each against the
+   same call on the CPU over the first 2^16 rows, byte for byte against
+   the CPU's limbs and, for the overflow flags and every non-overflow
+   value, against the host big-int loop; decimal128_binop through the
+   JNI door's handles equal to the direct calls, every handle released.
+   INT64 multiply (regular, TRY, ANSI raising at the CPU's row) and
+   round of FLOAT64 and DECIMAL64 over step 8's 2^25-row batch,
+   long_to_binary_string over 2^24 rows, and the host-loop casts (string
+   to date and timestamp, format_number, hex, decimal to string) over
+   2^16.  SHA-256 and SHA-512 of the 2^22 STRING keys and the 2^25 INT64
+   prices, against hashlib on the first 2^16 rows.  A v2 bloom filter
+   of J1's 2,000,000 customer keys sized by Spark's optimalNumOfBits and
+   optimalNumOfHashFunctions at fpp 0.03, probed by 2^25 ss_customer_sk
+   (4% null): every built key probes true, its bytes equal the CPU's and
+   a merge of two halves.  HLL++ at precision 9 over the 2^25
+   ss_customer_sk, grouped by ss_store_sk (402) and as a merge of 8
+   partial sketches equal to the whole: sketches equal to the CPU's over
+   2^20 rows, the estimates of the whole sketch and the 402 store
+   sketches equal to the CPU's estimates of the same sketches, and the
+   estimate within 10% of the exact distinct count.  A per-row histogram
+   of the 2^25 ss_quantity against the CPU over 2^20 rows, and one from
+   its counts with its 0.25, 0.5, 0.75 and 0.99 percentiles against the
+   sorted values.  interleave_bits and an
+   18-bit hilbert_index of (ss_item_sk, ss_customer_sk); Iceberg bucket(16)
+   of the INT64 prices and the STRING keys, truncate(10), and year,
+   month, day and hour of a 2^24-row TIMESTAMP of 1500-2100;
+   substring_index over step 12's 2^22 URLs; 2^22 random UUIDs (format,
+   seed determinism, no repeat in 2^16); select_first_true_index over
+   four BOOL8 columns of 2^25 rows.  Every other call equals the same
+   call on a CPU copy over its first 2^16-2^20 rows byte for byte.
+   Prints an `ops` line: each call's median ms of 3 synchronized calls
+   and first call's ms, rows/s, route (device limbs, host loop or plain
+   torch), the peak MiB its first call added and the CUDA kernels a
+   call (launches torch.profiler records).  Ends with the seconds each
+   phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -305,11 +350,15 @@ result line is printed; so does a machine without a CUDA device.
 """
 
 import contextlib
+import datetime
 import gc
+import hashlib
 import io
 import itertools
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -337,12 +386,20 @@ from spark_rapids_tpu_torch.models import query as Q  # noqa: E402
 from spark_rapids_tpu_torch.models import tpcds as TT  # noqa: E402
 from spark_rapids_tpu_torch.io import parquet_reader as PR  # noqa: E402
 from spark_rapids_tpu_torch.models import filesource as FS  # noqa: E402
+from spark_rapids_tpu_torch.ops import arithmetic as AR  # noqa: E402
+from spark_rapids_tpu_torch.ops import bloom_filter as BF  # noqa: E402
+from spark_rapids_tpu_torch.ops import case_when as CW  # noqa: E402
+from spark_rapids_tpu_torch.ops import cast_more as CM  # noqa: E402
 from spark_rapids_tpu_torch.ops import cast_string as CS  # noqa: E402
 from spark_rapids_tpu_torch.ops import copying as CP  # noqa: E402
 from spark_rapids_tpu_torch.ops import datetime_ops as DT  # noqa: E402
+from spark_rapids_tpu_torch.ops import decimal_utils as DU  # noqa: E402
 from spark_rapids_tpu_torch.ops import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash as H  # noqa: E402
 from spark_rapids_tpu_torch.ops import hash_join as HJ  # noqa: E402
+from spark_rapids_tpu_torch.ops import histogram as HG  # noqa: E402
+from spark_rapids_tpu_torch.ops import hllpp as HLL  # noqa: E402
+from spark_rapids_tpu_torch.ops import iceberg as IB  # noqa: E402
 from spark_rapids_tpu_torch.ops import json_device as JD  # noqa: E402
 from spark_rapids_tpu_torch.ops import json_path as JP  # noqa: E402
 from spark_rapids_tpu_torch.ops import json_tokenizer as JT  # noqa: E402
@@ -356,9 +413,14 @@ from spark_rapids_tpu_torch.ops import parse_uri_device as UD  # noqa: E402
 from spark_rapids_tpu_torch.ops import raw_map_device as RM  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
+from spark_rapids_tpu_torch.ops import sha as SHA  # noqa: E402
 from spark_rapids_tpu_torch.ops import sorting as S  # noqa: E402
 from spark_rapids_tpu_torch.ops import stod_device as SD  # noqa: E402
 from spark_rapids_tpu_torch.ops import strings_misc as SM  # noqa: E402
+from spark_rapids_tpu_torch.ops import uuid_gen as UG  # noqa: E402
+from spark_rapids_tpu_torch.ops import zorder as Z  # noqa: E402
+from spark_rapids_tpu_torch.ops.substring_index import (  # noqa: E402
+    substring_index as substring_index_op)
 from spark_rapids_tpu_torch.ops.exceptions import (  # noqa: E402
     CastException, ExceptionWithRowIndex)
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
@@ -367,6 +429,7 @@ from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows  # noqa: E402
 from spark_rapids_tpu_torch.plan.compiler import compile_stage  # noqa: E402
 from spark_rapids_tpu_torch.robustness import retry as RT  # noqa: E402
 from spark_rapids_tpu_torch.shim import jni_api  # noqa: E402
+from spark_rapids_tpu_torch.shim import jni_entry as JE  # noqa: E402
 from spark_rapids_tpu_torch.shim.handles import REGISTRY  # noqa: E402
 from spark_rapids_tpu_torch.shuffle import device_split as DS  # noqa: E402
 from spark_rapids_tpu_torch.shuffle import kudo as K  # noqa: E402
@@ -518,7 +581,9 @@ STR_CAST_ROWS = 1 << 24
 STR_EDGE_EVERY = 16
 STR_CPU_ROWS = 1 << 18
 STR_HOST_ROWS = 1 << 16
-STR_ITERS = 3
+# the strings and json phases' timed calls a cast or extractor: 2 (3
+# until the ops phase took the script past 950 s)
+STR_ITERS = 2
 URL_ROWS = 1 << 22
 URL_KEY_ROWS = 1 << 20
 URL_CPU_ROWS = 1 << 17      # one device chunk
@@ -550,7 +615,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "memory": (),
                 "strings": (),
                 "json": (),
-                "ingest": ()}
+                "ingest": (),
+                "ops": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -2561,14 +2627,15 @@ def chars_mb(col):
 
 
 def timed_call(fn, device, iters):
-    """(fn's first result, {the median ms of `iters` synchronized calls,
-    the first of them included; the first call's ms; the peak device
-    memory the first call added})."""
+    """(fn's first result, {the lower median ms of `iters` synchronized
+    calls, the first of them included (of 2, the faster); the first
+    call's ms; the peak device memory the first call added})."""
     t0 = time.perf_counter()
     out, peak = peak_added(fn, device)
     first = (time.perf_counter() - t0) * 1e3
     times = [first] + [wall_ms(fn, 1, device) for _ in range(iters - 1)]
-    return out, {"first_ms": first, "ms": sorted(times)[len(times) // 2],
+    return out, {"first_ms": first,
+                 "ms": sorted(times)[(len(times) - 1) // 2],
                  "peak_added_mb": peak}
 
 
@@ -3737,6 +3804,621 @@ def run_ingest(device="cuda", **kw):
     return launches, res
 
 
+# ------------------------------------------------------------------ ops (15)
+
+# the rest of the op breadth at one executor's share of 8 of TPC-DS
+# SF100, drawn on the card from a seed: two DECIMAL128 columns of 2^25
+# rows (1 GiB: spark.rapids.sql.batchSizeBytes), a of sums at scale -2
+# of magnitude up to about 10^20, b of prices at scale -2 from
+# ss_net_paid, each 4% null, a seeded 1/64 of the rows edge rows; the
+# operator batch (2^25 rows), the 2^22 STRING keys, the 2^22 URLs and a
+# 2^24-row TIMESTAMP like the ingest phase's for the rest
+OPS_ROWS_DEC = 1 << 25
+OPS_EDGE_EVERY = 64
+OPS_CPU_ROWS = 1 << 16         # decimals, casts and SHA held to the CPU
+OPS_WIDE_CPU_ROWS = 1 << 20    # sketches, z-order, Iceberg, CASE WHEN
+OPS_BIN_ROWS = 1 << 24
+OPS_HOST_ROWS = 1 << 16        # the host-loop casts
+OPS_TS_ROWS = 1 << 24
+OPS_UUID_ROWS = 1 << 22
+OPS_ITERS = 3
+OPS_SEED = 15
+BLOOM_FPP = 0.03
+HLL_PRECISION = 9              # Spark's default relativeSD of 0.05
+HLL_PARTIALS = 8
+HLL_MAX_ERR = 0.1              # tests/test_sketches.py's bound at p = 9
+HILBERT_BITS = 18
+ICEBERG_BUCKETS = 16
+ICEBERG_WIDTH = 10
+HIST_PERCENTILES = (0.25, 0.5, 0.75, 0.99)
+SUBSTRING_CALLS = (("/", 3), (".", -2), ("://", -1))
+FORCE_DEC = "SPARK_RAPIDS_TPU_FORCE_DEVICE_DECIMAL"
+ROUTE_LIMBS, ROUTE_HOST, ROUTE_TORCH = "device limbs", "host loop", \
+    "plain torch"
+
+
+def bloom_num_bits(n, fpp):
+    """Spark's BloomFilter.optimalNumOfBits."""
+    return int(-n * math.log(fpp) / (math.log(2) * math.log(2)))
+
+
+def bloom_num_hashes(n, num_bits):
+    """Spark's BloomFilter.optimalNumOfHashFunctions (Java Math.round)."""
+    return max(1, math.floor(num_bits / n * math.log(2) + 0.5))
+
+
+KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def device_kernels(fn, device):
+    """(the CUDA kernels one call of `fn` launches, the kernels
+    torch.profiler recorded on the device for it), or (None, None) off
+    the card.  Launches are the launch calls the profiler records on the
+    host (copies and memsets are other calls); the device's records
+    carry the device's clock, and the two counts are printed side by
+    side because they have been seen to differ after minutes of load."""
+    if torch.device(device).type != "cuda":
+        return None, None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return (sum(1 for e in events if e.name in KERNEL_LAUNCH_APIS),
+            sum(1 for e in events if e.device_type == DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))))
+
+
+def ops_call(res, name, fn, device, rows, route, iters=OPS_ITERS):
+    """fn's first result; res[name] gets its median ms of `iters`
+    synchronized calls, rows/s, route, the peak MiB its first call added
+    and the kernels a call.  The result must be on `device`."""
+    out, t = timed_call(fn, device, iters)
+    first = out[0] if isinstance(out, tuple) else out
+    first = first.words if isinstance(first, BF.BloomFilter) else first
+    check(first.device.type == torch.device(device).type,
+          f"{name}: result on {device}")
+    kernels, recorded = device_kernels(fn, device)
+    t.update(rows=rows, rows_per_s=rows / t["ms"] * 1e3, route=route,
+             kernels=kernels, kernels_recorded=recorded)
+    check(t["kernels"] is None or route == ROUTE_HOST or t["kernels"] > 0,
+          f"{name}: the profiler saw its kernels")
+    res[name] = t
+    return out
+
+
+def vs_cpu(fn, cols, n, got, what):
+    """fn over the first n rows of `cols` copied to the CPU, equal byte
+    for byte to the first n rows of the card's result `got`."""
+    want = fn(*[on_cpu(CP.slice_column(c, 0, n)) for c in cols])
+    same_nested(CP.slice_column(got, 0, n), want, f"{what}: card == CPU")
+
+
+def dec_limbs(lo, hi):
+    """(rows, 4) int32 limbs of hi * 2^64 + (lo as unsigned)."""
+    return torch.stack([lo, hi], dim=1).view(torch.int32)
+
+
+def decimal_columns(net, rows, seed, device, edge_every=OPS_EDGE_EVERY):
+    """(a, b), DECIMAL128 at scale -2: a sums of magnitude below
+    5 * 2^64 (about 9.2e19), b ss_net_paid in cents (its nulls), each
+    4% null; a seeded 1/edge_every of the rows are edges, a quarter
+    each: b = 0, a = 10^38 - 1, a = -(10^38 - 1), and a = 10^30 with
+    b = 10^12 (a product that overflows at every scale)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (rows,), generator=g,
+                             dtype=torch.int64, device=device)
+
+    lo, hi = ints(-2**63, 2**63 - 1), ints(-5, 5)
+    cents = torch.round(net.data[:rows] * 100).to(torch.int64)
+    kind = ints(0, 4 * edge_every)
+
+    def put(x_lo, x_hi, k, v):
+        return (torch.where(kind == k, signed64(v), x_lo),
+                torch.where(kind == k, v >> 64, x_hi))
+
+    for k, v in ((1, 10**38 - 1), (2, -(10**38 - 1)), (3, 10**30)):
+        lo, hi = put(lo, hi, k, v)
+    b_lo, b_hi = put(cents, torch.zeros_like(cents), 0, 0)
+    b_lo, b_hi = put(b_lo, b_hi, 3, 10**12)
+    a_valid = (torch.rand(rows, generator=g, device=device)
+               >= OPS_NULL_SHARE).to(torch.uint8)
+    return (Column(dtypes.decimal128(-2), rows, data=dec_limbs(lo, hi),
+                   validity=a_valid),
+            Column(dtypes.decimal128(-2), rows, data=dec_limbs(b_lo, b_hi),
+                   validity=net.validity[:rows]))
+
+
+def signed64(v):
+    """The int64 with the bits of v's low 64 bits."""
+    u = v & ((1 << 64) - 1)
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def same_decimal(got, fn, cols, n, what):
+    """A decimal op's card result (overflow, value) against the same op
+    on the CPU over the first n rows: byte for byte against the CPU's
+    limbs, and the overflow flags and every non-overflow value equal to
+    the host big-int loop's."""
+    cpu = [on_cpu(CP.slice_column(c, 0, n)) for c in cols]
+    card = [CP.slice_column(x, 0, n) for x in got]
+    with env(**{FORCE_DEC: "1"}):
+        limbs = fn(*cpu)
+    with env(**{FORCE_DEC: "0"}):
+        host = fn(*cpu)
+    for x, y, part in zip(card, limbs, ("overflow", "value")):
+        same_nested(x, y, f"{what} {part}: card == CPU limbs")
+    check(torch.equal(card[0].valid_mask().cpu(), host[0].valid_mask()),
+          f"{what}: validity == host loop")
+    keep = card[0].valid_mask().cpu()
+    ovf = card[0].data.cpu() != 0
+    check(torch.equal(ovf[keep], host[0].data[keep] != 0),
+          f"{what}: overflow flags == host loop")
+    fine = keep & ~ovf
+    check(torch.equal(card[1].data.cpu()[fine], host[1].data[fine]),
+          f"{what}: every non-overflow value == host loop")
+    return int(ovf[keep].sum())
+
+
+def decimal_calls(res, device, net, rows, cpu_rows, seed, iters):
+    a, b = decimal_columns(net, rows, seed, device)
+    zero = Column(dtypes.decimal128(-2), rows,
+                  data=torch.zeros((rows, 4), dtype=torch.int32,
+                                   device=device))
+    # the router sends card columns to the limbs; a CPU rehearsal forces
+    # them there
+    limbs = None if torch.device(device).type == "cuda" else "1"
+    with env(**{FORCE_DEC: limbs}):
+        a4 = DU.add_decimal128(a, zero, -4)[1]      # q49's operands,
+        b4 = DU.add_decimal128(b, zero, -4)[1]      # cast to scale -4
+        calls = [
+            ("dec_multiply", DU.multiply_decimal128, (a, b), -4),
+            ("dec_add", DU.add_decimal128, (a, b), -2),
+            ("dec_sub", DU.sub_decimal128, (a, b), -2),
+            ("dec_divide_q49", DU.divide_decimal128, (a4, b4), -20),
+            ("dec_integer_divide", DU.integer_divide_decimal128, (a, b), 0),
+            ("dec_remainder", DU.remainder_decimal128, (a, b), -2)]
+        results = {}
+        for name, fn, cols, scale in calls:
+            out = ops_call(res, name, lambda: fn(*cols, scale), device,
+                           rows, ROUTE_LIMBS, iters)
+            res[name]["overflow_rows_checked"] = same_decimal(
+                out, lambda *c: fn(*c, scale), cols, cpu_rows, name)
+            results[name] = out
+        # the JNI door: every binop through handles, each equal to the
+        # direct call
+        before = REGISTRY.live_count()
+        for op, cols, scale, direct in (
+                ("multiply", (a, b), -4, "dec_multiply"),
+                ("add", (a, b), -2, "dec_add"),
+                ("sub", (a, b), -2, "dec_sub"),
+                ("divide", (a4, b4), -20, "dec_divide_q49")):
+            hs = [REGISTRY.register(c) for c in cols]
+            t0 = time.perf_counter()
+            out = JE.decimal128_binop(op, hs[0], hs[1], scale)
+            sync(device)
+            res[f"jni_decimal128_binop_{op}"] = {
+                "ms": (time.perf_counter() - t0) * 1e3, "rows": rows,
+                "route": ROUTE_LIMBS}
+            for h, want, part in zip(out, results[direct],
+                                     ("overflow", "value")):
+                same_nested(REGISTRY.get(h), want,
+                            f"jni decimal128_binop {op} {part}")
+            release_all(*hs, *out)
+        check(REGISTRY.live_count() == before, "decimal handles released")
+
+
+def int64_mult_columns(batch, g, rows):
+    """ss_sales_price x ss_quantity as INT64, a seeded 1/64 of the
+    quantities 2^62 (products that overflow)."""
+    price = batch["ss_sales_price"]
+    qty = batch["ss_quantity"]
+    big = torch.randint(0, OPS_EDGE_EVERY, (rows,), generator=g,
+                        device=price.device) == 0
+    q64 = torch.where(big, 1 << 62, qty.data.to(torch.int64))
+    return price, Column(dtypes.INT64, rows, data=q64, validity=qty.validity)
+
+
+def arithmetic_calls(res, device, batch, g, cpu_rows, iters):
+    rows = batch.num_rows
+    lhs, rhs = int64_mult_columns(batch, g, rows)
+    for mode, kw in (("regular", {}), ("try", {"is_try_mode": True})):
+        name = f"multiply_int64_{mode}"
+        out = ops_call(res, name, lambda kw=kw: AR.multiply(lhs, rhs, **kw),
+                       device, rows, ROUTE_TORCH, iters)
+        vs_cpu(lambda x, y, kw=kw: AR.multiply(x, y, **kw), (lhs, rhs),
+               cpu_rows, out, name)
+
+    def ansi(x, y):
+        try:
+            AR.multiply(x, y, is_ansi_mode=True)
+        except ExceptionWithRowIndex as e:
+            return e.row_index
+        return None
+
+    row = ansi(lhs, rhs)
+    want = ansi(on_cpu(CP.slice_column(lhs, 0, cpu_rows)),
+                on_cpu(CP.slice_column(rhs, 0, cpu_rows)))
+    check(row is not None and row == want,
+          f"ANSI multiply raised at row {row} on the card, {want} on the "
+          f"CPU")
+    res["multiply_int64_ansi"] = {
+        "ms": wall_ms(lambda: ansi(lhs, rhs), iters, device), "rows": rows,
+        "route": ROUTE_TORCH, "raised_at_row": row,
+        "kernels": device_kernels(lambda: ansi(lhs, rhs), device)[0]}
+    net = batch["ss_net_paid"]
+    price = batch["ss_sales_price"]
+    dec64 = Column(dtypes.DType("decimal64", -2), rows, data=price.data,
+                   validity=price.validity)
+    for name, col, places, method in (
+            ("round_f64_half_up", net, 1, AR.HALF_UP),
+            ("round_f64_half_even", net, 1, AR.HALF_EVEN),
+            ("round_dec64_half_up", dec64, 0, AR.HALF_UP),
+            ("round_dec64_half_even", dec64, 0, AR.HALF_EVEN)):
+        out = ops_call(res, name, lambda col=col, p=places, m=method:
+                       AR.round_column(col, p, m), device, rows,
+                       ROUTE_TORCH, iters)
+        vs_cpu(lambda c, p=places, m=method: AR.round_column(c, p, m),
+               (col,), cpu_rows, out, name)
+
+
+def date_strings(rows, seed, device):
+    """`rows` date and timestamp strings of years 1500-2100 (a third with
+    a time of day, a third with fractional seconds and a zone), 1/64 of
+    them invalid, 4% null."""
+    rng = np.random.default_rng(seed)
+    days = rng.integers(-171_000, 47_000, rows)
+    base = datetime.date(1970, 1, 1)
+    out = []
+    for k, d in enumerate(days.tolist()):
+        s = (base + datetime.timedelta(days=d)).isoformat()
+        if k % 3 == 1:
+            s += " %02d:%02d:%02d" % (k % 24, k % 60, (k * 7) % 60)
+        elif k % 3 == 2:
+            s += "T%02d:%02d:%02d.%06d+%02d:00" % (
+                k % 24, k % 60, (k * 3) % 60, k % 10**6, k % 14)
+        if k % OPS_EDGE_EVERY == 5:
+            s = ("2023-02-30", "bogus", "", "2023-13-01 10:00")[k % 4]
+        out.append(None if rng.random() < OPS_NULL_SHARE else s)
+    return Column.from_strings(out, device)
+
+
+def cast_calls(res, device, batch, keys, host_rows, bin_rows, seed, iters):
+    price = batch["ss_sales_price"]
+    p24 = CP.slice_column(price, 0, bin_rows)
+    out = ops_call(res, "long_to_binary_string", lambda:
+                   CM.long_to_binary_string(p24), device, bin_rows,
+                   ROUTE_TORCH, iters)
+    vs_cpu(CM.long_to_binary_string, (p24,), host_rows, out,
+           "long_to_binary_string")
+    text = date_strings(host_rows, seed, device)
+    p16 = CP.slice_column(price, 0, host_rows)
+    net16 = CP.slice_column(batch["ss_net_paid"], 0, host_rows)
+    dec16 = Column(dtypes.decimal128(-2), host_rows,
+                   data=dec_limbs(p16.data, torch.zeros_like(p16.data)),
+                   validity=p16.validity)
+    k16 = CP.slice_column(keys, 0, host_rows)
+    for name, fn, cols in (
+            ("string_to_date", CM.parse_strings_to_date, (text,)),
+            ("string_to_timestamp",
+             lambda c: CM.parse_timestamp_strings(c, 3600), (text,)),
+            ("format_number", lambda c: CM.format_number(c, 2), (net16,)),
+            ("hex_int64", CM.long_to_hex_string, (p16,)),
+            ("hex_string", CM.bytes_to_hex, (k16,)),
+            ("decimal_to_string", CM.decimal_to_non_ansi_string,
+             (dec16,))):
+        out = ops_call(res, name, lambda fn=fn, cols=cols: fn(*cols),
+                       device, host_rows, ROUTE_HOST, iters)
+        vs_cpu(fn, cols, host_rows, out, name)
+    check(int((~CM.parse_strings_to_date(text).valid_mask()).sum())
+          > int((~text.valid_mask()).sum()), "invalid dates became null")
+
+
+def hashlib_rows(col, bits, n):
+    """hashlib's hex digests of the first n rows (None for nulls)."""
+    valid = col.valid_mask()[:n].cpu().tolist()
+    if col.dtype.is_string:
+        rows = SB.host_row_bytes(col, torch.arange(n, device=col.device))
+    else:
+        host = col.data[:n].cpu().numpy()
+        rows = [host[i].tobytes() for i in range(n)]
+    return [hashlib.new(f"sha{bits}", r).hexdigest() if v else None
+            for r, v in zip(rows, valid)]
+
+
+def sha_calls(res, device, batch, keys, cpu_rows, iters):
+    for what, col in (("strings", keys), ("int64",
+                                          batch["ss_sales_price"])):
+        for bits, fn in ((256, SHA.sha256_nulls_preserved),
+                         (512, SHA.sha512_nulls_preserved)):
+            name = f"sha{bits}_{what}"
+            out = ops_call(res, name, lambda fn=fn, col=col: fn(col),
+                           device, col.length, ROUTE_TORCH, iters)
+            vs_cpu(fn, (col,), cpu_rows, out, name)
+            got = CP.slice_column(out, 0, cpu_rows)
+            check(got.to_pylist() == hashlib_rows(col, bits, cpu_rows),
+                  f"{name}: == hashlib")
+
+
+def bloom_calls(res, device, customers, probe_keys, cpu_rows, iters):
+    n = customers.length
+    num_bits = bloom_num_bits(n, BLOOM_FPP)
+    k = bloom_num_hashes(n, num_bits)
+    num_longs = (num_bits + 63) // 64
+    res["bloom_sizing"] = {"keys": n, "fpp": BLOOM_FPP,
+                           "num_bits": num_bits, "num_hashes": k,
+                           "num_longs": num_longs}
+    empty = BF.create(k, num_longs, 2, seed=0, device=device)
+    bf = ops_call(res, "bloom_put", lambda: BF.put(empty, customers),
+                  device, n, ROUTE_TORCH, iters)
+    check(bool(BF.probe(bf, customers).data.all()),
+          "every built key probes true")
+    cpu_bf = BF.put(BF.create(k, num_longs, 2, 0, "cpu"), on_cpu(customers))
+    blob = BF.serialize(bf)
+    check(blob == BF.serialize(cpu_bf), "bloom bytes == the CPU's")
+    halves = [BF.put(empty, CP.slice_column(customers, lo, hi))
+              for lo, hi in ((0, n // 2), (n // 2, n))]
+    merged = ops_call(res, "bloom_merge", lambda: BF.merge(halves),
+                      device, n, ROUTE_TORCH, iters)
+    check(BF.serialize(merged) == blob, "merged halves == the whole")
+    check(BF.serialize(BF.deserialize(blob, device)) == blob,
+          "bloom serde round trip")
+    found = ops_call(res, "bloom_probe", lambda: BF.probe(bf, probe_keys),
+                     device, probe_keys.length, ROUTE_TORCH, iters)
+    vs_cpu(lambda c: BF.probe(cpu_bf, c), (probe_keys,), cpu_rows, found,
+           "bloom_probe")
+    res["bloom_probe"]["hit_share"] = float(
+        found.data[found.valid_mask()].float().mean())
+    res["bloom_bytes"] = len(blob)
+
+
+def hll_calls(res, device, batch, cust, cpu_rows, iters):
+    p = HLL_PRECISION
+    rows = cust.length
+    store_ids = batch["ss_store_sk"].data
+    sk = ops_call(res, "hllpp_reduce", lambda: HLL.reduce_hllpp(cust, p),
+                  device, rows, ROUTE_TORCH, iters)
+    grouped = ops_call(res, "hllpp_group_402",
+                       lambda: HLL.group_hllpp(cust, store_ids, 402, p),
+                       device, rows, ROUTE_TORCH, iters)
+    parts = [HLL.reduce_hllpp(c, p) for c in
+             (CP.slice_column(cust, i * rows // HLL_PARTIALS,
+                              (i + 1) * rows // HLL_PARTIALS)
+              for i in range(HLL_PARTIALS))]
+    partials = CP.concat_columns(parts)
+    merged = ops_call(res, f"hllpp_merge_{HLL_PARTIALS}",
+                      lambda: HLL.reduce_merge_hllpp(partials, p), device,
+                      HLL_PARTIALS, ROUTE_TORCH, iters)
+    same_nested(merged, sk, "merged partial sketches == the whole")
+    est = ops_call(res, "hllpp_estimate",
+                   lambda: HLL.estimate_from_hll_sketches(sk, p), device,
+                   1, ROUTE_TORCH, iters)
+    for name, fn, cols in (
+            ("hllpp_reduce", lambda c: HLL.reduce_hllpp(c, p), (cust,)),
+            ("hllpp_group_402", lambda c, s: HLL.group_hllpp(
+                c, s.data, 402, p), (cust, batch["ss_store_sk"]))):
+        card = fn(*[CP.slice_column(c, 0, cpu_rows) for c in cols])
+        want = fn(*[on_cpu(CP.slice_column(c, 0, cpu_rows)) for c in cols])
+        same_nested(card, want, f"{name} sketch over {cpu_rows} rows: card "
+                    f"== CPU")
+    exact = int(torch.unique(cust.data[cust.valid_mask()]).shape[0])
+    got = int(est.data[0])
+    res["hllpp_estimate"].update(estimate=got, exact=exact,
+                                 rel_err=abs(got - exact) / exact)
+    check(abs(got - exact) / exact < HLL_MAX_ERR,
+          f"HLL++ estimate {got} within {HLL_MAX_ERR} of {exact}")
+    same_nested(est, HLL.estimate_from_hll_sketches(on_cpu(sk), p),
+                "hllpp_estimate of the reduce sketch: card == CPU")
+    gest = HLL.estimate_from_hll_sketches(grouped, p)
+    same_nested(gest, HLL.estimate_from_hll_sketches(on_cpu(grouped), p),
+                "hllpp_estimate of the 402 store sketches: card == CPU")
+    check(grouped.length == 402 and bool((gest.data > 0).all()),
+          "a positive estimate for each of the 402 stores")
+
+
+def histogram_calls(res, device, batch, cpu_rows, iters):
+    qty = batch["ss_quantity"]
+    rows = qty.length
+    ones = Column(dtypes.INT64, rows, data=torch.ones(
+        rows, dtype=torch.int64, device=device))
+    per_row = ops_call(res, "histogram_create_rows",
+                       lambda: HG.create_histogram_if_valid(qty, ones),
+                       device, rows, ROUTE_TORCH, iters)
+    vs_cpu(HG.create_histogram_if_valid, (qty, ones), cpu_rows, per_row,
+           "histogram_create_rows")
+    counts = torch.bincount(qty.data[qty.valid_mask()].to(torch.int64),
+                            minlength=101)[1:]
+    values = Column(dtypes.INT32, 100, data=torch.arange(
+        1, 101, dtype=torch.int32, device=device))
+    freq = Column(dtypes.INT64, 100, data=counts)
+    h = ops_call(res, "histogram_create_counts",
+                 lambda: HG.create_histogram_if_valid(values, freq),
+                 device, 100, ROUTE_TORCH, iters)
+    vs_cpu(HG.create_histogram_if_valid, (values, freq), 100, h,
+           "histogram_create_counts")
+    merged = Column(dtypes.LIST, 1, offsets=torch.tensor(
+        [0, h.children[0].length], dtype=torch.int32, device=device),
+        children=h.children)
+    pct = ops_call(res, "histogram_percentile",
+                   lambda: HG.percentile_from_histogram(
+                       merged, list(HIST_PERCENTILES)), device, 1,
+                   ROUTE_HOST, iters)
+    got = pct.to_pylist()[0]
+    q = np.sort(qty.data[qty.valid_mask()].cpu().numpy())
+    want = []
+    for p in HIST_PERCENTILES:
+        pos = p * (q.shape[0] - 1)
+        lo, hi = math.floor(pos), math.ceil(pos)
+        want.append(float(q[lo]) + (pos - lo) * float(q[hi] - q[lo]))
+    check(got == want, f"percentiles {got} == sorted quantities' {want}")
+    res["histogram_percentile"]["values"] = got
+
+
+def zorder_iceberg_calls(res, device, batch, cust, keys, ts, cpu_rows,
+                         host_rows, iters):
+    item = batch["ss_item_sk"]
+    rows = item.length
+    cust32 = Column(dtypes.INT32, rows, data=cust.data.to(torch.int32),
+                    validity=cust.validity)
+    for name, fn in (("interleave_bits", Z.interleave_bits),
+                     ("hilbert_index_18",
+                      lambda cols: Z.hilbert_index(HILBERT_BITS, cols))):
+        out = ops_call(res, name, lambda fn=fn: fn([item, cust32]), device,
+                       rows, ROUTE_TORCH, iters)
+        vs_cpu(lambda a, b, fn=fn: fn([a, b]), (item, cust32), cpu_rows,
+               out, name)
+    price = batch["ss_sales_price"]
+    for name, fn, col, n, route in (
+            ("iceberg_bucket_int64",
+             lambda c: IB.bucket(c, ICEBERG_BUCKETS), price, cpu_rows,
+             ROUTE_TORCH),
+            ("iceberg_bucket_string",
+             lambda c: IB.bucket(c, ICEBERG_BUCKETS), keys, cpu_rows,
+             ROUTE_TORCH),
+            ("iceberg_truncate_int64",
+             lambda c: IB.truncate(c, ICEBERG_WIDTH), price, cpu_rows,
+             ROUTE_TORCH),
+            ("iceberg_truncate_string",
+             lambda c: IB.truncate(c, ICEBERG_WIDTH),
+             CP.slice_column(keys, 0, host_rows), host_rows, ROUTE_HOST),
+            ("iceberg_year", IB.year, ts, cpu_rows, ROUTE_TORCH),
+            ("iceberg_month", IB.month, ts, cpu_rows, ROUTE_TORCH),
+            ("iceberg_day", IB.day, ts, cpu_rows, ROUTE_TORCH),
+            ("iceberg_hour", IB.hour, ts, cpu_rows, ROUTE_TORCH)):
+        out = ops_call(res, name, lambda fn=fn, col=col: fn(col), device,
+                       col.length, route, iters)
+        vs_cpu(fn, (col,), n, out, name)
+
+
+def misc_string_calls(res, device, batch, urls, cpu_rows, uuid_rows,
+                      iters):
+    for delim, count in SUBSTRING_CALLS:
+        name = f"substring_index {delim!r} {count}"
+        out = ops_call(res, name, lambda d=delim, k=count:
+                       substring_index_op(urls, d, k), device, urls.length,
+                       ROUTE_TORCH, iters)
+        vs_cpu(lambda c, d=delim, k=count: substring_index_op(c, d, k),
+               (urls,), cpu_rows, out, name)
+    u = ops_call(res, "random_uuids", lambda: UG.random_uuids(
+        uuid_rows, OPS_SEED, device), device, uuid_rows, ROUTE_TORCH, iters)
+    check(torch.equal(u.data, UG.random_uuids(uuid_rows, OPS_SEED,
+                                              device).data),
+          "the same seed gives the same UUIDs")
+    head_uuids = CP.slice_column(u, 0, cpu_rows).to_pylist()
+    check(all(UUID_TEXT.match(x) for x in head_uuids)
+          and len(set(head_uuids)) == len(head_uuids),
+          "UUIDs well formed (version 4, variant 8-b), no repeats")
+    b = batch
+    whens = []
+    for col, fn in ((b["ss_quantity"], lambda d: d > 50),
+                    (b["ss_sales_price"], lambda d: d > 10_000),
+                    (b["ss_net_paid"], lambda d: d > 500.0),
+                    (b["ss_store_sk"], lambda d: d < 100)):
+        whens.append(Column(dtypes.BOOL8, col.length,
+                            data=fn(col.data).to(torch.uint8),
+                            validity=col.validity))
+    out = ops_call(res, "select_first_true_index",
+                   lambda: CW.select_first_true_index(whens), device,
+                   b.num_rows, ROUTE_TORCH, iters)
+    vs_cpu(lambda *c: CW.select_first_true_index(list(c)), whens, cpu_rows,
+           out, "select_first_true_index")
+
+
+UUID_TEXT = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-4[0-9a-f]{3}-[89ab]"
+                       r"[0-9a-f]{3}-[0-9a-f]{12}$")
+
+
+def customer_keys(rows, device, seed, customers=J1_CUSTOMERS):
+    """(ss_customer_sk as INT64 over `rows`, 4% null; c_customer_sk,
+    J1's 2,000,000 unique keys) on `device`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    sk = torch.randint(1, customers + 1, (rows,), generator=g,
+                       dtype=torch.int64, device=device)
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= J1_NULL_SHARE).to(torch.uint8)
+    dim = torch.randperm(customers, generator=g, device=device) + 1
+    return (Column(dtypes.INT64, rows, data=sk, validity=valid),
+            Column(dtypes.INT64, customers, data=dim))
+
+
+def timestamp_column(rows, device, seed):
+    """A TIMESTAMP[us] column of years 1500-2100, 4% null (the ingest
+    phase's distribution)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    us = torch.randint(*DT_US_RANGE, (rows,), generator=g,
+                       dtype=torch.int64, device=device)
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= DT_NULL_SHARE).to(torch.uint8)
+    return Column(dtypes.TIMESTAMP_MICROS, rows, data=us, validity=valid)
+
+
+def ops_phase(device="cuda", rows=OPS_ROWS, dec_rows=OPS_ROWS_DEC,
+              str_rows=STR_OPS_ROWS, url_rows=URL_ROWS,
+              ts_rows=OPS_TS_ROWS, bin_rows=OPS_BIN_ROWS,
+              uuid_rows=OPS_UUID_ROWS, cpu_rows=OPS_CPU_ROWS,
+              wide_cpu_rows=OPS_WIDE_CPU_ROWS, host_rows=OPS_HOST_ROWS,
+              customers=J1_CUSTOMERS, iters=OPS_ITERS):
+    """Every op of the slice on `device` (see the module docstring);
+    returns {call: numbers} and each group's seconds."""
+    res = {}
+    clock = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(OPS_SEED)
+    batch = store_sales_batch(rows, OPS_SEED, device)
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        res.setdefault("group_s", {})[name] = now - clock
+        clock = now
+
+    decimal_calls(res, device, batch["ss_net_paid"], dec_rows, cpu_rows,
+                  OPS_SEED, iters)
+    lap("decimals")
+    arithmetic_calls(res, device, batch, g, wide_cpu_rows, iters)
+    lap("arithmetic")
+    keys = string_key_column(str_rows, STR_DISTINCT, 8, 50, OPS_SEED,
+                             device)
+    cast_calls(res, device, batch, keys, host_rows, bin_rows, OPS_SEED,
+               iters)
+    lap("casts")
+    sha_calls(res, device, batch, keys, cpu_rows, iters)
+    lap("sha")
+    cust, customers = customer_keys(rows, device, OPS_SEED, customers)
+    bloom_calls(res, device, customers, cust, wide_cpu_rows, iters)
+    hll_calls(res, device, batch, cust, wide_cpu_rows, iters)
+    histogram_calls(res, device, batch, wide_cpu_rows, iters)
+    lap("sketches")
+    ts = timestamp_column(ts_rows, device, OPS_SEED)
+    zorder_iceberg_calls(res, device, batch, cust, keys, ts, wide_cpu_rows,
+                         host_rows, iters)
+    del ts, customers
+    lap("zorder_iceberg")
+    urls = url_column(url_rows, OPS_SEED, device)
+    misc_string_calls(res, device, batch, urls, cpu_rows, uuid_rows, iters)
+    lap("strings")
+    return res
+
+
+def run_ops(device="cuda", **kw):
+    """The rest of the op breadth on the card (see the module
+    docstring)."""
+    RA.reset_launches()
+    clock = time.perf_counter()
+    res = ops_phase(device, **kw)
+    res["phase_s"] = time.perf_counter() - clock
+    print(json.dumps({"ops": res}), flush=True)
+    launches = read_launches("ops")
+    check(not any(launches.values()),
+          "the ops path launches none of the row kernels")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3845,6 +4527,8 @@ def main() -> int:
     phase("json")
     by_path["ingest"], _ = run_ingest()
     phase("ingest")
+    by_path["ops"], _ = run_ops()
+    phase("ops")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

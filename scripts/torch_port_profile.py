@@ -20,8 +20,12 @@ of chip_smoke.py's flat (2^25 rows) and nested (2^22 rows) batches over
 and without the edge vocabulary, string_to_integer) and parse_url HOST
 over its 2^22 URLs, and chip_smoke.py's JSON calls (get_json_object
 with each engine pinned, the raw map and flat structs through the
-tokenizer; `_json` says at which sizes), with torch.profiler
-(`--only strings` or `--only json` profiles just that group).  For
+tokenizer; `_json` says at which sizes), and chip_smoke.py's ops
+phase's decimal divide (q49's decimal(35,20) over 2^25 rows on the
+limbs), SHA-512 over its 2^22 STRING keys and 2^25 INT64 values and
+HLL++ (precision 9) over its 2^25 ss_customer_sk, with torch.profiler
+(`--only strings`, `--only json` or `--only ops` profiles just that
+group).  For
 each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
@@ -286,10 +290,40 @@ def _json(chip_smoke):
         lambda c: JU.from_json_to_structs(c, chip_smoke.JSON_STRUCT_FIELDS))
 
 
+def _ops(chip_smoke):
+    """(phase, call) for chip_smoke's ops phase at its sizes: the q49
+    divide on the limbs, SHA-512 of the STRING keys and of the INT64
+    prices, and the HLL++ reduce."""
+    from spark_rapids_tpu_torch.ops import decimal_utils as DU
+    from spark_rapids_tpu_torch.ops import hllpp as HLL
+    from spark_rapids_tpu_torch.ops import sha as SHA
+
+    C = chip_smoke
+    batch = C.store_sales_batch(C.OPS_ROWS, C.OPS_SEED, "cuda")
+    a, b = C.decimal_columns(batch["ss_net_paid"], C.OPS_ROWS_DEC,
+                             C.OPS_SEED, "cuda")
+    zero = C.Column(C.dtypes.decimal128(-2), a.length,
+                    data=torch.zeros((a.length, 4), dtype=torch.int32,
+                                     device="cuda"))
+    a4 = DU.add_decimal128(a, zero, -4)[1]
+    b4 = DU.add_decimal128(b, zero, -4)[1]
+    del a, b, zero
+    yield "dec_divide_q49", lambda: DU.divide_decimal128(a4, b4, -20)
+    del a4, b4
+    keys = C.string_key_column(C.STR_OPS_ROWS, C.STR_DISTINCT, 8, 50,
+                               C.OPS_SEED, "cuda")
+    yield "sha512_strings", lambda: SHA.sha512_nulls_preserved(keys)
+    price = batch["ss_sales_price"]
+    yield "sha512_int64", lambda: SHA.sha512_nulls_preserved(price)
+    cust, _ = C.customer_keys(C.OPS_ROWS, "cuda", C.OPS_SEED)
+    yield ("hllpp_reduce",
+           lambda: HLL.reduce_hllpp(cust, C.HLL_PRECISION))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
-    ap.add_argument("--only", choices=["strings", "json"],
+    ap.add_argument("--only", choices=["strings", "json", "ops"],
                     help="profile only this group of phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -302,7 +336,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}")
     if args.only is None:
         _main_paths(chip_smoke, args.out)
-    groups = {"strings": _strings, "json": _json}
+    groups = {"strings": _strings, "json": _json, "ops": _ops}
     for group, phases in groups.items():
         if args.only not in (None, group):
             continue

@@ -8,7 +8,11 @@ base), parse_url and the assorted string ops (conv, GBK decode,
 list_slice, the literal-range regex fast path); get_json_object, the
 from_json family and the map ops; the datetime ops (timezone
 conversion, calendar rebase, truncate) and the ORC writer-zone
-rectification."""
+rectification; SHA-2 and CRC32, Spark multiply and round, decimal128
+arithmetic (host big-int and device limbs), bin/hex/format_number and
+the string -> date/timestamp parsers, CASE WHEN's first-true index,
+substring_index, z-order and Hilbert indexes, the bloom filter, HLL++
+and histogram sketches, the Iceberg transforms and random UUIDs."""
 
 from spark_rapids_tpu_torch.ops.hash import (  # noqa: F401
     DEFAULT_XXHASH64_SEED,
@@ -56,6 +60,58 @@ from spark_rapids_tpu_torch.ops import map_utils  # noqa: F401
 from spark_rapids_tpu_torch.ops import json_utils  # noqa: F401
 from spark_rapids_tpu_torch.ops import datetime_ops  # noqa: F401
 from spark_rapids_tpu_torch.ops import orc_timezones  # noqa: F401
+
+from spark_rapids_tpu_torch.ops.sha import (  # noqa: F401
+    host_crc32,
+    sha224_nulls_preserved,
+    sha256_nulls_preserved,
+    sha384_nulls_preserved,
+    sha512_nulls_preserved,
+)
+from spark_rapids_tpu_torch.ops.arithmetic import (  # noqa: F401
+    HALF_EVEN,
+    HALF_UP,
+    multiply,
+    round_column,
+)
+from spark_rapids_tpu_torch.ops.aggregation64 import (  # noqa: F401
+    assemble64_from_sum,
+    extract_chunk32_from_64bit,
+)
+from spark_rapids_tpu_torch.ops.case_when import (  # noqa: F401
+    select_first_true_index,
+)
+from spark_rapids_tpu_torch.ops.substring_index import substring_index  # noqa: F401
+from spark_rapids_tpu_torch.ops.zorder import (  # noqa: F401
+    hilbert_index,
+    interleave_bits,
+)
+from spark_rapids_tpu_torch.ops import bloom_filter  # noqa: F401
+from spark_rapids_tpu_torch.ops.exceptions import (  # noqa: F401
+    CastException,
+    ExceptionWithRowIndex,
+)
+from spark_rapids_tpu_torch.ops.groupby import groupby_aggregate  # noqa: F401
+from spark_rapids_tpu_torch.ops import hllpp  # noqa: F401
+from spark_rapids_tpu_torch.ops.histogram import (  # noqa: F401
+    create_histogram_if_valid,
+    percentile_from_histogram,
+)
+from spark_rapids_tpu_torch.ops import decimal_utils  # noqa: F401
+from spark_rapids_tpu_torch.ops import iceberg  # noqa: F401
+from spark_rapids_tpu_torch.ops.uuid_gen import random_uuids  # noqa: F401
+from spark_rapids_tpu_torch.ops.sorting import order_by, sort_table  # noqa: F401
+from spark_rapids_tpu_torch.ops.cast_more import (  # noqa: F401
+    bytes_to_hex,
+    decimal_to_non_ansi_string,
+    format_number,
+    long_to_binary_string,
+    long_to_hex_string,
+    parse_strings_to_date,
+    parse_timestamp_strings,
+    parse_timestamp_strings_with_format,
+)
+# ROADMAP step 4: `protobuf` joins these with ops/protobuf.py
 
 # ROADMAP A14: the JAX package wraps every public op here with
 # utils.tracing.instrument (its _TRACED table: maybe_inject + op_range)

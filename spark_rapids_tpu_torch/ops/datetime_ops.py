@@ -41,6 +41,17 @@ def _fdiv(a, b):
 
 # ----------------------------------------------------- civil date helpers
 
+def civil_days_scalar(y: int, m: int, d: int) -> int:
+    """Scalar Hinnant days-from-civil (shared by host-loop parsers)."""
+    y -= m <= 2
+    era = (y if y >= 0 else y - 399) // 400
+    yoe = y - era * 400
+    mp = (m - 3) % 12
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
 def _days_to_ymd(z):
     """Proleptic-Gregorian days-since-epoch -> (y, m, d)."""
     z = z + 719468

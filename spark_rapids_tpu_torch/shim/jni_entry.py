@@ -1,0 +1,271 @@
+"""Embedded-interpreter entry points for the JNI shim, the op half
+(native/jni/spark_rapids_tpu_jni.cpp calls these by name).
+
+Every function here takes and returns only primitives, strings, bytes
+and flat lists of them: the shapes a hand-written JNI layer can marshal
+without any Python C-API object gymnastics.  This is the
+process-boundary twin of shim/jni_api.py: jni_api mirrors the
+reference's *Jni.cpp export signatures (unwrap jlong handles -> op ->
+wrap), and this module adapts those to the embedded-CPython calling
+convention (reference: src/main/cpp/src/hash/HashJni.cpp:31-46 unwraps
+jlongs the same way before calling the native op).  Names and arguments
+are the JAX package's; columns made from host values go to `device`,
+"cuda" unless the caller asks for the CPU, and every op runs on the
+device of the columns its handles name.
+
+ROADMAP step 6 (A16's rest) brings the remainder of the JAX module to
+this one: initialize/shutdown (which configured JAX there), the bulk
+string ingest and readback, the kudo write memo that `free` purges and
+the host tables (both guarded there by locks from analysis.lockdep:
+plain threading.Locks here until A14 brings lockdep), the
+observability, query-server and profiler entries, and the entries of
+the ops that earlier slices ported into jni_api (hashes, row
+conversion, the string casts, parse_url, JSON, joins, datetime,
+ingest).  The comments below mark where each group goes.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from spark_rapids_tpu_torch.columns import dtypes
+from spark_rapids_tpu_torch.columns.dtypes import DType
+from spark_rapids_tpu_torch.ops import arithmetic as _arith
+from spark_rapids_tpu_torch.ops import bloom_filter as _bf
+from spark_rapids_tpu_torch.ops import cast_more as _cm
+from spark_rapids_tpu_torch.ops import decimal_utils as _du
+from spark_rapids_tpu_torch.ops import histogram as _hist
+from spark_rapids_tpu_torch.ops import hllpp as _hllpp
+from spark_rapids_tpu_torch.ops import iceberg as _ib
+from spark_rapids_tpu_torch.ops.case_when import select_first_true_index \
+    as _first_true
+from spark_rapids_tpu_torch.ops.string_utils import random_uuids as _uuids
+from spark_rapids_tpu_torch.ops.substring_index import substring_index \
+    as _substring_index
+from spark_rapids_tpu_torch.ops import zorder as _zorder
+from spark_rapids_tpu_torch.shim import jni_api
+from spark_rapids_tpu_torch.shim.errors import ShimArgumentError
+from spark_rapids_tpu_torch.shim.handles import REGISTRY
+
+# ROADMAP step 6: initialize() and shutdown() (the latter also stops the
+# query server, clears the kudo memo and the host tables and shuts the
+# profiler down) go here.
+
+
+def live_handles() -> int:
+    return REGISTRY.live_count()
+
+
+# ------------------------------------------------------------- columns
+
+
+def from_longs(values: Sequence[int], device="cuda") -> int:
+    return jni_api.make_column_from_host(list(values), dtypes.INT64,
+                                         device)
+
+
+def from_ints(values: Sequence[int], device="cuda") -> int:
+    return jni_api.make_column_from_host(list(values), dtypes.INT32,
+                                         device)
+
+
+def from_doubles(values: Sequence[float], device="cuda") -> int:
+    return jni_api.make_column_from_host(list(values), dtypes.FLOAT64,
+                                         device)
+
+
+def from_strings(values: Sequence[Optional[str]], device="cuda") -> int:
+    return jni_api.make_column_from_host(list(values), dtypes.STRING,
+                                         device)
+
+
+# ROADMAP step 6: from_strings_bulk, string_column_chars and
+# string_column_offsets (whole-buffer string ingest and readback) go
+# here.
+
+
+def free(handle: int) -> None:
+    """Release a column handle (exactly once: a double free raises
+    ``ValueError`` from the registry without corrupting the table)."""
+    jni_api.release_column(handle)
+    # ROADMAP step 6: the JAX package purges the handle's kudo write
+    # memo entries here, after the release
+
+
+# ROADMAP step 6: gather (copying.gather over two handles) goes here.
+
+
+def column_to_host(handle: int):
+    return jni_api.column_to_host(handle)
+
+
+def struct_child(handle: int, index: int) -> int:
+    """Child column of a STRUCT/LIST handle (cudf-java
+    ColumnView.getChildColumnView shape)."""
+    return REGISTRY.register(REGISTRY.get(handle).children[index])
+
+
+def from_decimals(unscaled: Sequence[int], scale: int, type_id: str,
+                  device="cuda") -> int:
+    """Decimal column from UNSCALED int values (cudf-java
+    ColumnVector.decimalFromLongs shape; scale follows the cudf
+    convention -- negative scale = fraction digits)."""
+    return jni_api.make_column_from_host(list(unscaled),
+                                         DType(type_id, scale), device)
+
+
+# ----------------------------------------------------------------- ops
+# ROADMAP step 6: the entries of the ops earlier slices put in jni_api
+# (murmur_hash3_32, xx_hash_64, hive_hash, convert_to_rows,
+# convert_from_rows, string_to_integer, string_to_float,
+# float_to_string, get_json_object, parse_uri,
+# parse_uri_query_with_key, charset_decode_to_utf8,
+# number_converter_convert, datetime_truncate, datetime_rebase,
+# sort_merge_inner_join, extract_chunk32_from_64bit,
+# assemble64_from_sum, literal_range_pattern, timezone_convert,
+# get_json_object_multiple_paths, map_sort) go beside these.  ROADMAP
+# A16 and A14: the JAX package's op layer opens each with maybe_inject
+# and an op_range.
+
+
+def random_uuids(rows: int, seed: int, device="cuda") -> int:
+    return REGISTRY.register(_uuids(rows, seed, device))
+
+
+def substring_index(handle: int, delim: str, count: int) -> int:
+    return REGISTRY.register(_substring_index(REGISTRY.get(handle), delim,
+                                              count))
+
+
+def interleave_bits(handles: Sequence[int]) -> int:
+    return REGISTRY.register(_zorder.interleave_bits(
+        jni_api._cols(handles)))
+
+
+def hilbert_index(num_bits: int, handles: Sequence[int]) -> int:
+    return REGISTRY.register(_zorder.hilbert_index(
+        num_bits, jni_api._cols(handles)))
+
+
+def select_first_true_index(handles: Sequence[int]) -> int:
+    return REGISTRY.register(_first_true(jni_api._cols(handles)))
+
+
+def bloom_filter_create(num_hashes: int, num_longs: int, version: int,
+                        device="cuda") -> int:
+    return REGISTRY.register(_bf.create(num_hashes, num_longs, version,
+                                        device=device))
+
+
+def bloom_filter_put(bf_handle: int, col_handle: int) -> int:
+    return REGISTRY.register(
+        _bf.put(REGISTRY.get(bf_handle), REGISTRY.get(col_handle)))
+
+
+def bloom_filter_probe(bf_handle: int, col_handle: int) -> int:
+    return REGISTRY.register(
+        _bf.probe(REGISTRY.get(bf_handle), REGISTRY.get(col_handle)))
+
+
+def bloom_filter_merge(bf_handles: Sequence[int]) -> int:
+    return REGISTRY.register(
+        _bf.merge([REGISTRY.get(h) for h in bf_handles]))
+
+
+def bloom_filter_serialize(bf_handle: int) -> bytes:
+    return _bf.serialize(REGISTRY.get(bf_handle))
+
+
+def bloom_filter_deserialize(data: bytes, device="cuda") -> int:
+    return REGISTRY.register(_bf.deserialize(bytes(data), device))
+
+
+def arithmetic_multiply(lhs: int, rhs: int, ansi: bool,
+                        try_mode: bool) -> int:
+    return REGISTRY.register(_arith.multiply(
+        REGISTRY.get(lhs), REGISTRY.get(rhs), ansi, try_mode))
+
+
+def arithmetic_round(handle: int, decimal_places: int, mode: str) -> int:
+    return REGISTRY.register(_arith.round_column(
+        REGISTRY.get(handle), decimal_places, method=mode))
+
+
+def histogram_create(values: int, frequencies: int) -> int:
+    return REGISTRY.register(_hist.create_histogram_if_valid(
+        REGISTRY.get(values), REGISTRY.get(frequencies)))
+
+
+def histogram_percentile(histogram: int,
+                         percentages: Sequence[float]) -> int:
+    return REGISTRY.register(_hist.percentile_from_histogram(
+        REGISTRY.get(histogram), list(percentages)))
+
+
+def cast_strings_to_date(handle: int, ansi: bool) -> int:
+    return REGISTRY.register(_cm.parse_strings_to_date(
+        REGISTRY.get(handle), ansi))
+
+
+def long_to_binary_string(handle: int) -> int:
+    return REGISTRY.register(_cm.long_to_binary_string(
+        REGISTRY.get(handle)))
+
+
+def format_number(handle: int, digits: int) -> int:
+    return REGISTRY.register(_cm.format_number(REGISTRY.get(handle),
+                                               digits))
+
+
+# ROADMAP step 4: protobuf_decode_to_struct goes here with
+# ops/protobuf.py.
+
+
+def iceberg_bucket(handle: int, num_buckets: int) -> int:
+    return REGISTRY.register(_ib.bucket(REGISTRY.get(handle), num_buckets))
+
+
+def iceberg_truncate(handle: int, width: int) -> int:
+    return REGISTRY.register(_ib.truncate(REGISTRY.get(handle), width))
+
+
+def iceberg_datetime(handle: int, component: str) -> int:
+    table = {"year": _ib.year, "month": _ib.month, "day": _ib.day,
+             "hour": _ib.hour}
+    if component not in table:
+        raise ShimArgumentError(f"unsupported component {component!r}: "
+                                f"expected year|month|day|hour")
+    return REGISTRY.register(table[component](REGISTRY.get(handle)))
+
+
+def hllpp_reduce(handle: int, precision: int) -> int:
+    """HLL++ sketch of a whole column (reduce path,
+    hyper_log_log_plus_plus.hpp reduce_hyper_log_log_plus_plus)."""
+    return REGISTRY.register(_hllpp.reduce_hllpp(REGISTRY.get(handle),
+                                                 precision))
+
+
+def hllpp_estimate(handle: int, precision: int) -> int:
+    return REGISTRY.register(_hllpp.estimate_from_hll_sketches(
+        REGISTRY.get(handle), precision))
+
+
+# ROADMAP step 6: arrow_ingest, parquet_read_table,
+# parquet_footer_read_and_filter, version_is_vanilla_320, the thread
+# registry and task priority entries go here.
+
+
+def decimal128_binop(op: str, a: int, b: int, out_scale: int) -> List[int]:
+    """DecimalUtils surface: returns (overflow BOOL8, result) handles
+    (the decimal_utils.hpp:2-33 (flag, column) table shape)."""
+    fn = {"multiply": _du.multiply_decimal128,
+          "divide": _du.divide_decimal128,
+          "add": _du.add_decimal128,
+          "sub": _du.sub_decimal128}[op]
+    ovf, res = fn(REGISTRY.get(a), REGISTRY.get(b), out_scale)
+    return [REGISTRY.register(ovf), REGISTRY.register(res)]
+
+
+# ROADMAP step 6: device_attr_is_integrated, then the profiler, kudo
+# write/merge (with its memo), host-table spill, observability and
+# query-server entries go here.

@@ -25,7 +25,11 @@ corpus, and chip_smoke.py's json phase at a small size; and ingest: the
 parquet reader and the Arrow door onto the card against their CPU
 reads, the file-backed queries on the card against the CPU and their
 in-memory twins, the datetime ops on the card against the CPU, and
-chip_smoke.py's ingest phase at a small size.
+chip_smoke.py's ingest phase at a small size; and the rest of the op
+breadth: the decimal limbs on the card (routed there by the columns'
+device) against the CPU's limbs and host loop, SHA-256/512, the bloom
+filter, HLL++ and z-order on the card against the CPU, and
+chip_smoke.py's ops phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -845,3 +849,111 @@ def test_ingest_phase_functions_on_card(cuda, tmp_path, monkeypatch):
     res = C.ingest_phase("cuda", **INGEST_SMALL)
     assert res["files"]["store_sales_dict"]["whole"]["peak_mib"] > 0
     assert set(res["queries"]) >= {"tpcds_q3_file", "tpcds_q9_file"}
+
+
+# ------------------------------------------------- the rest of the ops
+
+
+OPS_SMALL = dict(rows=1 << 14, dec_rows=1 << 14, str_rows=1 << 13,
+                 url_rows=1 << 12, ts_rows=1 << 13, bin_rows=1 << 13,
+                 uuid_rows=1 << 13, cpu_rows=1 << 11, wide_cpu_rows=1 << 12,
+                 host_rows=1 << 11, customers=20_000, iters=1)
+
+
+def _dec_pair(rows, seed):
+    import chip_smoke as C
+    batch = store_sales_batch(rows, seed, "cuda")
+    return C.decimal_columns(batch["ss_net_paid"], rows, seed, "cuda",
+                             edge_every=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,scales", [
+    ("multiply", (-2, -2, -4)), ("add", (-2, -2, -2)),
+    ("sub", (-2, -2, -3)), ("divide", (-4, -4, -20)),
+    ("integer_divide", (-2, -2, 0)), ("remainder", (-2, -2, -2))])
+def test_decimal_limbs_on_card_match_cpu(cuda, op, scales, monkeypatch):
+    """The router sends card columns to the limbs; their bytes equal the
+    CPU limbs', their flags and non-overflow values the host loop's."""
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import decimal_device as DD
+    from spark_rapids_tpu_torch.ops import decimal_utils as DU
+    monkeypatch.delenv(C.FORCE_DEC, raising=False)
+    a, b = _dec_pair(5000, len(op))
+    sa, sb, out_scale = scales
+    a = Column(dtypes.decimal128(sa), a.length, data=a.data,
+               validity=a.validity)
+    b = Column(dtypes.decimal128(sb), b.length, data=b.data,
+               validity=b.validity)
+    fn = getattr(DU, f"{op}_decimal128")
+    calls = []
+    for name in ("multiply128_device", "add128_device", "sub128_device",
+                 "divide128_device", "remainder128_device"):
+        real = getattr(DD, name)
+        monkeypatch.setattr(DD, name, lambda *x, real=real, name=name:
+                            calls.append(name) or real(*x))
+    got = fn(a, b, out_scale)
+    assert calls and got[1].data.is_cuda
+    assert C.same_decimal(got, lambda x, y: fn(x, y, out_scale), (a, b),
+                          5000, op) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [224, 256, 384, 512])
+def test_sha_on_card_matches_cpu(cuda, bits):
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import sha as SHA
+    fn = getattr(SHA, f"sha{bits}_nulls_preserved")
+    keys = string_key_column(3000, 100, 0, 130, 3, "cuda")
+    price = store_sales_batch(3000, 4, "cuda")["ss_sales_price"]
+    for col in (keys, price):
+        got = card_and_cpu(fn, [col], f"sha{bits}")
+        assert got.data.is_cuda
+        assert got.to_pylist() == C.hashlib_rows(col, bits, 3000)
+
+
+@pytest.mark.gpu
+def test_bloom_and_hllpp_on_card_match_cpu(cuda):
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import bloom_filter as BF
+    from spark_rapids_tpu_torch.ops import hllpp as HLL
+    cust, dim = C.customer_keys(1 << 16, "cuda", 5, customers=30_000)
+    bits = C.bloom_num_bits(dim.length, C.BLOOM_FPP)
+    k = C.bloom_num_hashes(dim.length, bits)
+    card = BF.put(BF.create(k, (bits + 63) // 64, 2, 3, "cuda"), dim)
+    cpu = BF.put(BF.create(k, (bits + 63) // 64, 2, 3, "cpu"), on_cpu(dim))
+    assert card.words.is_cuda and BF.serialize(card) == BF.serialize(cpu)
+    assert bool(BF.probe(card, dim).data.all())
+    same_nested(BF.probe(card, cust), BF.probe(cpu, on_cpu(cust)), "probe")
+    for p in (9, 12):
+        sk = card_and_cpu(lambda c: HLL.reduce_hllpp(c, p), [cust], "hll")
+        est = card_and_cpu(lambda s: HLL.estimate_from_hll_sketches(s, p),
+                           [sk], "estimate")
+        exact = int(torch.unique(cust.data[cust.valid_mask()]).shape[0])
+        assert abs(int(est.data[0]) - exact) / exact < C.HLL_MAX_ERR
+    gids = torch.randint(0, 402, (cust.length,), device="cuda")
+    got = HLL.group_hllpp(cust, gids, 402, 9)
+    want = HLL.group_hllpp(on_cpu(cust), gids.cpu(), 402, 9)
+    same_nested(got, want, "grouped sketches")
+
+
+@pytest.mark.gpu
+def test_zorder_on_card_matches_cpu(cuda):
+    from spark_rapids_tpu_torch.ops import zorder as Z
+    b = store_sales_batch(5000, 6, "cuda")
+    cols = [b["ss_item_sk"], b["ss_quantity"]]
+    card_and_cpu(lambda *c: Z.interleave_bits(list(c)), cols, "interleave")
+    card_and_cpu(lambda *c: Z.hilbert_index(18, list(c)), cols, "hilbert")
+    net = [b["ss_net_paid"], b["ss_net_paid"]]
+    card_and_cpu(lambda *c: Z.interleave_bits(list(c)), net, "f64 bits")
+
+
+@pytest.mark.gpu
+def test_ops_phase_functions_on_card(cuda):
+    """chip_smoke's ops phase at a small size: every call on the card
+    against the CPU (and the decimals against the host loop)."""
+    import chip_smoke as C
+    res = C.ops_phase("cuda", **OPS_SMALL)
+    assert res["dec_divide_q49"]["route"] == "device limbs"
+    assert res["dec_divide_q49"]["kernels"] > 0
+    assert res["sha512_int64"]["peak_added_mb"] > 0
