@@ -101,11 +101,13 @@
    for byte except the float sums and means, which the card adds with
    atomics in a varying order: those are held to |card - cpu| <=
    4 * count * 2^-53 * sum|x| per group (plus 2 ulps for a mean).
-   Prints the median of 5 synchronized calls (3 for the sorts), the
-   peak device memory and the branch each group-by took.
+   Prints the median of 5 synchronized calls (3 for the sorts and the
+   host-branch group-by), the peak device memory and the branch each
+   group-by took.
 9. The join layer (ops/joins.py, ops/hash_join.py, perf/calibrate.py)
-   at one executor's share of 8 of TPC-DS SF100, each cell drawn on the
-   card from a seed: J1 store_sales (2^25 rows, ss_customer_sk INT32
+   at one executor's share of 8 of TPC-DS SF100 (J1, J2 and the star
+   join's store_sales at a share of 16), each cell drawn on the
+   card from a seed: J1 store_sales (2^24 rows, ss_customer_sk INT32
    about 4% null, NULL_UNEQUAL) x customer (SF100's 2,000,000 unique
    keys); J2 store_sales x 2^22 store_returns drawn from the sales rows
    on (ss_item_sk INT32, ss_ticket_number INT64); J3 q72's cut
@@ -115,7 +117,8 @@
    engine (host_rank, host_hash, device_sort, device_hash) runs by
    name on every cell and must equal a numpy oracle byte for byte
    (int32 pairs on the card); the device engines are timed as the
-   median of 5 synchronized calls, the host engines once, each with
+   median of 5 synchronized calls, the host engines once on the first
+   2^21 rows of the left side (JOIN_HOST_ROWS), each with
    the peak device memory its first call added to what was already
    held (`peak_added_mb`); device_hash's first call must double its
    pair capacity on J3 and its second start from the learned one.
@@ -123,7 +126,7 @@
    its engine, its verdict and calibration seconds, and its pairs
    against the oracle (keys over 256 bytes must route host_rank).  The
    JNI door's sort_merge_inner_join on J1 through handles, every
-   handle released; and models.query.simple_star_join_agg over 2^25
+   handle released; and models.query.simple_star_join_agg over 2^24
    store_sales rows x 204,000 items grouped by i_brand_id (1,000), SUM
    of INT64 cents and COUNT exact against numpy.
 10. The kudo shuffle (shuffle/): an executor's shuffle write and read
@@ -153,7 +156,7 @@
    nested hashes' ms, on a `shuffle` line.
 11. The memory runtime (memory/, robustness/retry.py, ops/out_of_core.py,
    CompiledStage.run_spilled), every batch drawn on the card from a
-   seed.  J2 (step 9: store_sales 2^25 x store_returns 2^22 on
+   seed.  J2 (step 9: store_sales 2^24 x store_returns 2^22 on
    (ss_item_sk, ss_ticket_number)) out of core at a budget of the build
    side's bytes / 8, so 8 partitions, once on the host tier and once
    with every partition demoted to disk under build/spill: the pairs
@@ -270,12 +273,14 @@
    scan steps of each chunk.
 14. Ingest and the read-side datetime ops (io/, models/filesource.py,
    the JNI door's parquet_read_table and arrow_ingest, ops/datetime_ops
-   and ops/orc_timezones).  The operator batch (2^25 store_sales rows,
-   4% null) and the 2^22 STRING keys of 8-50 bytes go to parquet with
+   and ops/orc_timezones).  The operator batch's generator at 2^23
+   store_sales rows (a share of 32: cut so steps 16 and 17 fit the
+   script's time; 4% null) and the 2^22 STRING keys of 8-50 bytes go to parquet with
    pyarrow under build/ingest: uncompressed with pyarrow's default
    encodings (dictionary pages, v1, 2^20-row groups); the batch once
    more snappy-compressed, as pyarrow and Spark write by default; and a
-   2^22-row cut of both (6 columns) uncompressed, once PLAIN v1 and
+   2^21-row cut of both (6 columns; 2^22 before steps 16 and 17 needed
+   the script's time) uncompressed, once PLAIN v1 and
    once PLAIN v2.  Each file is read whole onto the card and onto the
    CPU, and the batch's uncompressed file and the cuts also projected
    to ss_item_sk and ss_net_paid: every column equal to its source in
@@ -283,7 +288,7 @@
    byte for byte to the CPU's, the projection fetching fewer bytes.
    parquet_read_table of the PLAIN v1 cut and arrow_ingest of a
    RecordBatch of the batch equal their sources, every handle released.
-   tpcds_q3_file, tpcds_q7_file and tpcds_q9_file at 2^25 rows (q3 and
+   tpcds_q3_file, tpcds_q7_file and tpcds_q9_file at 2^22 rows (q3 and
    q7 at 204,000 items, q3 at 1,000 brands), each writing and reading
    its files, equal to run_catalog_query of tpcds_q3, q7 and q9 with
    the same params on the card.  A DATE and a TIMESTAMP[us] column
@@ -341,8 +346,53 @@
    Prints an `ops` line: each call's median ms of 3 synchronized calls
    and first call's ms, rows/s, route (device limbs, host loop or plain
    torch), the peak MiB its first call added and the CUDA kernels a
-   call (launches torch.profiler records).  Ends with the seconds each
-   phase took.
+   call (launches torch.profiler records).
+16. The protobuf decoder (ops/protobuf.py's router and host oracle,
+   ops/protobuf_device.py's field-step engine, jni_entry's entry):
+   2^22 clickstream events as Kafka values decoded by Spark's
+   from_protobuf, drawn on the card from a seed (`protobuf_events`):
+   event_id (required), user_id up to 2^40, a URL from step 12's
+   vocabulary, a 2026 ts_us, a double price, an int32 quantity (default
+   1), a sint64 ZIGZAG delta with negatives, a bool, a float score, a
+   fixed32 shard, a nested device message (os, version, mobile), 0-16
+   packed int64 item_ids and 0-4 unpacked string tags; 150-400 bytes
+   each (about 0.9 GB of chars), 4% null rows, a seeded 1/64 of edge
+   rows (PB_EDGES: truncated varint and payload, wire types 3, 4, 6 and
+   7, a missing event_id, unknown fields, wire-type mismatches,
+   duplicates where the last wins, empty messages and packed payloads,
+   a malformed nested message, length varints of 2^63 and 2^64 - 1).  The call must take the device route
+   (the card column's device, no fallback); its first 2^18 rows equal
+   the host oracle over a CPU copy on every valid row (pb_canonical:
+   the engine keeps what it captured under null rows).  A 2^16-row
+   column whose last row holds 40 item_ids (past the repeat cap of 32)
+   must take the host route whole, counted, equal to the oracle; one
+   call through jni_entry.protobuf_decode_to_struct on handles with the
+   flat fields, every handle released.  Prints a `protobuf` line: the
+   first call's ms and the median of 3 synchronized calls, MB/s of
+   chars, the chunk size, the scan steps of each chunk, the CUDA
+   kernels a call (launches torch.profiler records), the scalars read
+   back to the host and the rows sent there, the peak MiB the first call
+   added.
+17. Distributed q5 and q72 (distributed/: the launcher, the runner, the
+   shuffle service over unix sockets, kudo between the processes) as
+   worker processes sharing the card, each regenerating step 6's seeded
+   data on the card and taking its shard, partials and finish through
+   plan/catalog's fused stages (inductor's and Triton's caches under
+   build/ shared with step 6).  Launch A: two ranks, q5 (2^25 x 2^22,
+   402 stores) and q72 (2^22 x 2^21, 204,000 items); launch B: q72 with
+   rank 1's first reduce-scatter send to rank 0 corrupted, NAKed and
+   resent; launch C: the elastic protocol over three ranks, q5, rank 2
+   killed after its partials and before broadcasting them, respawned
+   once.  B and C run op by op (models/tpcds' map and reduce sides):
+   they test the link and the fleet.  Every rank's result must equal single_q5 / single_q72 run in
+   this process at the same params, byte for byte; B's summaries must
+   show the NAK and the resend, and C a survivor's record of rank 2's
+   death and of taking its shard.  Prints a `distributed` line per
+   launch: wall s, and per rank boot s (spawn to a CUDA context), the
+   fused stages' compile s, each query's s, partials and exchange ms,
+   bytes and frames over the sockets, NAKs and resends, the fleet's
+   events, the mesh mode and the peak MiB the worker allocated.
+   Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`.  Any failed check raises, so the exit code is not 0 and no
@@ -410,6 +460,8 @@ from spark_rapids_tpu_torch.ops import orc_timezones as OTZ  # noqa: E402
 from spark_rapids_tpu_torch.ops import out_of_core as OOC  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri as U  # noqa: E402
 from spark_rapids_tpu_torch.ops import parse_uri_device as UD  # noqa: E402
+from spark_rapids_tpu_torch.ops import protobuf as PBF  # noqa: E402
+from spark_rapids_tpu_torch.ops import protobuf_device as PD  # noqa: E402
 from spark_rapids_tpu_torch.ops import raw_map_device as RM  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA  # noqa: E402
 from spark_rapids_tpu_torch.ops import row_conversion as RC  # noqa: E402
@@ -532,8 +584,10 @@ U53 = 2.0 ** -53
 # ticket); J3 q72's catalog_sales x inventory on the item (q72's cut
 # sizes above); J4 brand-like STRING keys against a brand dim, and keys
 # over DEVICE_STR_KEY_MAX_LEN (the host_rank route); the star join
-# store_sales x item grouped by i_brand_id
-J1_ROWS = 1 << 25
+# store_sales x item grouped by i_brand_id.  The store_sales side is cut
+# to 2^24 rows (a share of 16) to make room for steps 16 and 17 in the
+# script's time: the host engines' time follows it
+J1_ROWS = 1 << 24
 J1_CUSTOMERS = 2_000_000
 J1_NULL_SHARE = 0.04
 J2_RETURNS = 1 << 22
@@ -545,6 +599,10 @@ J4_LONG_DATA = dict(rows=LONG_STR_ROWS, distinct=LONG_STR_DISTINCT, lo=257,
 STAR_ITEMS = 204_000
 STAR_BRANDS = 1_000
 JOIN_ENGINES = ("host_rank", "host_hash", "device_sort", "device_hash")
+# the host engines probe with the first 2^21 rows of a cell's left side
+# (its oracle pairs cut to them): host-bound, they took 2.6-14.5 s a
+# cell at 2^22-2^24 rows, and steps 16 and 17 needed the time
+JOIN_HOST_ROWS = 1 << 21
 # an executor's shuffle write and read: spark.sql.shuffle.partitions'
 # default of 200, rows placed as Spark's HashPartitioning places them
 # (pmod(murmur3_32(keys, 42), partitions)); the flat batch is the
@@ -616,7 +674,9 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "strings": (),
                 "json": (),
                 "ingest": (),
-                "ops": ()}
+                "ops": (),
+                "protobuf": (),
+                "distributed": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1505,8 +1565,9 @@ def run_operators():
                                      counts, False, f"{name} sum"),
                     close_float_sums(out.columns[5], want.columns[5],
                                      counts, True, f"{name} mean"))
+        # the host rank branch's calls take seconds: 3 of them
         ms, peak = timed(lambda: G.groupby_aggregate(keys, s_vals, s_aggs),
-                         STEP_ITERS)
+                         3 if name == "long_string" else STEP_ITERS)
         res[f"{name}_groupby"] = {
             "rows": rows, "groups": out.num_rows, "key_bytes": [lo, hi],
             "branch": taken, "ms": ms, "peak_mb": peak,
@@ -1647,15 +1708,30 @@ def same_pairs(got, want, what):
           f"{what}: pairs == the oracle's")
 
 
-def run_join_cell(name, left, right, nulls, want):
+def left_prefix(left, want, rows):
+    """The first `rows` rows of a join's left side and the oracle pairs
+    they make (the oracle lists left rows ascending)."""
+    if left.num_rows <= rows:
+        return left, want
+    keep = want[0] < rows
+    return (Table([CP.slice_column(c, 0, rows) for c in left.columns]),
+            (want[0][keep], want[1][keep]))
+
+
+def run_join_cell(name, left, right, nulls, want,
+                  host_rows=JOIN_HOST_ROWS):
     """Every engine by name on one cell, each held to the oracle; the
     device engines timed (median of 5 synchronized calls), the host
-    engines once; then the router unpinned."""
+    engines once on the first `host_rows` left rows; then the router
+    unpinned."""
     res = {"left_rows": left.num_rows, "right_rows": right.num_rows,
            "nulls": nulls, "pairs": int(want[0].shape[0]), "engines": {}}
     engines = J._join_engines()
+    full = (left, want)
     for engine in JOIN_ENGINES:
         fn = engines[engine]
+        left, want = left_prefix(*full, host_rows) \
+            if engine.startswith("host") else full
         if engine == "device_hash":
             HJ._LEARNED_CAPACITY.clear()
         torch.cuda.synchronize()
@@ -1667,7 +1743,8 @@ def run_join_cell(name, left, right, nulls, want):
         first_ms = (time.perf_counter() - t0) * 1e3
         # the engine's own working set: the peak over what the inputs
         # and earlier phases already held
-        r = {"first_ms": first_ms, "peak_added_mb":
+        r = {"first_ms": first_ms, "left_rows": left.num_rows,
+             "peak_added_mb":
              (torch.cuda.max_memory_allocated() - before) / 2**20}
         same_pairs(got, want, f"{name} {engine}")
         del got
@@ -1679,6 +1756,7 @@ def run_join_cell(name, left, right, nulls, want):
         if engine.startswith("device"):
             r["ms"] = host_ms(lambda: fn(left, right, nulls), STEP_ITERS)
         res["engines"][engine] = r
+    left, want = full
     CAL.forget()
     with join_route_log() as log:
         t0 = time.perf_counter()
@@ -3472,19 +3550,23 @@ def run_json(device="cuda", **kw):
 # one executor's share of 8 of TPC-DS SF100, as the operator phases: the
 # 2^25-row store_sales batch and the 2^22-row STRING keys, written with
 # pyarrow's default encodings (dictionary pages, v1, 2^20-row groups),
-# the batch once uncompressed and once snappy, and a 2^22-row cut of
+# the batch once uncompressed and once snappy, and a 2^21-row cut of
 # both once PLAIN v1 and once PLAIN v2
 INGEST_ROW_GROUP = 1 << 20
-INGEST_CUT_ROWS = 1 << 22
+INGEST_ROWS = 1 << 23      # the batch's rows (2^25, OPS_ROWS, before
+                           # steps 16 and 17 needed the script's time)
+INGEST_CUT_ROWS = 1 << 21  # 2^22 before steps 16 and 17
 INGEST_PROJECTED = ("ss_item_sk", "ss_net_paid")   # 2 of the 5 columns
 INGEST_SEED = 14
-# the file-backed queries at 2^25 rows: q3 and q9 as run_catalog_stages
-# runs their in-memory twins, q7 over SF100's 204,000 items
+# the file-backed queries: q3 and q9 as run_catalog_stages runs their
+# in-memory twins, q7 over SF100's 204,000 items, at 2^22 rows (2^25
+# before steps 16 and 17 needed the script's time: each query writes
+# and reads its files on the host)
 FILE_QUERIES = {
-    "tpcds_q3_file": dict(rows=1 << 25, items=204_000, brands=1_000,
+    "tpcds_q3_file": dict(rows=1 << 22, items=204_000, brands=1_000,
                           seed=3),
-    "tpcds_q7_file": dict(rows=1 << 25, items=204_000, seed=7),
-    "tpcds_q9_file": dict(rows=1 << 25, seed=9),
+    "tpcds_q7_file": dict(rows=1 << 22, items=204_000, seed=7),
+    "tpcds_q9_file": dict(rows=1 << 22, seed=9),
 }
 # a DATE and a TIMESTAMP[us] column of years 1500-2100 (Julian dates and
 # pre-1970 instants), 4% null; the CPU run covers the first DT_CPU_ROWS
@@ -3559,7 +3641,7 @@ def timed_read(path, device, columns=None):
                    "pages": stats["pages"], "peak_mib": peak}
 
 
-def ingest_files(device="cuda", rows=OPS_ROWS, str_rows=STR_OPS_ROWS,
+def ingest_files(device="cuda", rows=INGEST_ROWS, str_rows=STR_OPS_ROWS,
                  cut_rows=INGEST_CUT_ROWS, row_group=INGEST_ROW_GROUP):
     """The operator batch and the STRING keys to parquet and back (see
     the module docstring).  Returns (numbers, the batch, its arrow
@@ -4419,6 +4501,496 @@ def run_ops(device="cuda", **kw):
     return launches, res
 
 
+# ------------------------------------------------------------ protobuf (16)
+
+# 2^22 clickstream events as Kafka values decoded by Spark's
+# from_protobuf (one executor batch), drawn from a seed on `device`:
+# 150-400 bytes each, about 0.8 GB of chars, 4% null rows, a seeded
+# 1/64 replaced by edge rows
+PB_ROWS = 1 << 22
+PB_CHECK_ROWS = 1 << 18     # card result vs the host oracle on a CPU copy
+PB_FALLBACK_ROWS = 1 << 16  # one row of 40 item_ids: the host route
+PB_NULL_SHARE = 0.04
+PB_EDGE_EVERY = 64
+PB_SEED = 16
+PB_ITERS = 3
+PB_EDGES = ("trunc_varint", "trunc_payload", "wire3", "wire4", "wire6",
+            "wire7", "missing_id", "unknown", "mismatch", "duplicate",
+            "empty", "empty_packed", "bad_nested", "huge_len",
+            "huge_len_unknown")
+PB_OS = ["android", "ios", "windows", "macos", "linux", "chromeos"]
+PB_TAGS = ["new", "vip", "mobile", "desktop", "returning", "promo",
+           "sale", "beta", "gift", "repeat"]
+
+
+def pb_fields():
+    """The event schema (field numbers as protoc assigns them)."""
+    from spark_rapids_tpu_torch.ops import protobuf as PBF
+    F = PBF.Field
+    device_msg = (F(1, dtypes.STRING, name="os"),
+                  F(2, dtypes.INT32, name="version"),
+                  F(3, dtypes.BOOL8, name="mobile"))
+    return [
+        F(1, dtypes.INT64, required=True, name="event_id"),
+        F(2, dtypes.INT64, name="user_id"),
+        F(3, dtypes.STRING, name="url"),
+        F(4, dtypes.INT64, name="ts_us"),
+        F(5, dtypes.FLOAT64, name="price"),
+        F(6, dtypes.INT32, default=1, name="quantity"),
+        F(7, dtypes.INT64, encoding=PBF.ZIGZAG, name="delta"),
+        F(8, dtypes.BOOL8, name="flag"),
+        F(9, dtypes.FLOAT32, name="score"),
+        F(10, dtypes.INT32, encoding=PBF.FIXED, name="shard"),
+        F(11, dtypes.STRUCT, children=device_msg, name="device"),
+        F(12, dtypes.INT64, repeated=True, name="item_ids"),
+        F(13, dtypes.STRING, repeated=True, name="tags"),
+    ]
+
+
+def pb_varint_bytes(v):
+    """(rows, 10) uint8 varint encodings of int64 lanes (u64 bits) and
+    their lengths."""
+    from spark_rapids_tpu_torch.utils.u64math import shr
+    parts = [shr(v, 7 * i) for i in range(10)]
+    n = 1 + sum((p != 0).to(torch.int64) for p in parts[1:])
+    cols = [(p & 0x7F) | torch.where(i < n - 1, 0x80, 0)
+            for i, p in enumerate(parts)]
+    return torch.stack(cols, 1).to(torch.uint8), n
+
+
+def pb_key(num, wire):
+    out = bytearray()
+    v = (num << 3) | wire
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def pb_segment(mat, lens, keep):
+    """STRING column of each row's first lens bytes of `mat` (rows, W),
+    empty where `keep` is False."""
+    rows, w = mat.shape
+    return SB.build_string_column(
+        mat.reshape(-1), torch.arange(rows, device=mat.device) * w,
+        torch.where(keep, lens, 0))
+
+
+def pb_const_bytes(data: bytes, rows, device):
+    return torch.tensor(list(data), dtype=torch.uint8,
+                        device=device).expand(rows, len(data))
+
+
+def pb_varint_field(num, v, keep, wire=0):
+    """tag(num, wire) + varint(v) where `keep`."""
+    rows = v.shape[0]
+    key = pb_key(num, wire)
+    vb, n = pb_varint_bytes(v)
+    mat = torch.cat([pb_const_bytes(key, rows, v.device), vb], 1)
+    return pb_segment(mat, n + len(key), keep)
+
+
+def pb_fixed_field(num, v, width, keep):
+    """tag(num, I64/I32) + the low `width` little-endian bytes of v."""
+    rows = v.shape[0]
+    key = pb_key(num, 1 if width == 8 else 5)
+    raw = v.to(torch.int64).contiguous().view(torch.uint8).reshape(
+        rows, 8)[:, :width]
+    mat = torch.cat([pb_const_bytes(key, rows, v.device), raw], 1)
+    return pb_segment(mat, torch.full((rows,), len(key) + width,
+                                      device=v.device), keep)
+
+
+def pb_len_field(num, payload, keep):
+    """tag(num, LEN) + varint(len) + payload where `keep`."""
+    lens = payload.string_lengths().to(torch.int64)
+    head = pb_varint_field(num, lens, keep, wire=2)
+    return concat_rows([head, masked(payload, keep)], None)
+
+
+def pb_grouped(elems, counts):
+    """Rows of consecutive elements of a STRING column: row i is the
+    concatenation of the next counts[i] elements."""
+    lens = elems.string_lengths().to(torch.int64)
+    ends = torch.cumsum(lens, 0)
+    row_end = torch.cumsum(counts, 0)
+    offs = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                       device=counts.device)
+    nz = row_end > 0
+    offs[1:] = torch.where(nz, ends[(row_end - 1).clamp(min=0)], 0) \
+        if lens.shape[0] else 0
+    base = elems.offsets[0].to(torch.int64)
+    return Column(dtypes.STRING, counts.shape[0],
+                  data=elems.data[base:base + int(offs[-1])],
+                  offsets=offs.to(torch.int32))
+
+
+def protobuf_events(rows, seed, device="cuda", edge_every=PB_EDGE_EVERY,
+                    null_share=PB_NULL_SHARE, max_items=16):
+    """`rows` serialized events of pb_fields()' schema as a STRING
+    (binary) column on `device` (see PB_ROWS)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, n=rows):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int64,
+                             device=device)
+
+    edge_at = ints(0, edge_every) == 0
+    kind = torch.where(edge_at, ints(0, len(PB_EDGES)), -1)
+
+    def is_edge(name):
+        return kind == PB_EDGES.index(name)
+
+    yes = torch.ones(rows, dtype=torch.bool, device=device)
+    empty = ~is_edge("empty")
+    segs = [pb_varint_field(1, ints(1, 1 << 62), empty
+                            & ~is_edge("missing_id")),
+            pb_varint_field(2, ints(0, 1 << 40), empty),
+            pb_len_field(3, url_column(rows, seed, device), empty),
+            pb_varint_field(4, ints(1767225600 * 10**6,
+                                    1798761600 * 10**6), empty),
+            pb_fixed_field(5, (torch.rand(rows, generator=g,
+                                          dtype=torch.float64,
+                                          device=device) * 500
+                               ).view(torch.int64), 8, empty),
+            pb_varint_field(6, ints(1, 100), empty
+                            & (ints(0, 8) > 0)),
+            pb_varint_field(7, (lambda d: (d << 1) ^ (d >> 63))(
+                ints(-(1 << 33), 1 << 33)), empty),
+            pb_varint_field(8, ints(0, 2), empty),
+            pb_fixed_field(9, torch.randn(rows, generator=g,
+                                          device=device).view(torch.int32),
+                           4, empty),
+            pb_fixed_field(10, ints(0, 1 << 32), 4, empty)]
+    dev = concat_rows([pb_len_field(1, pick(PB_OS, g, rows, device), yes),
+                       pb_varint_field(2, ints(1, 30), yes),
+                       pb_varint_field(3, ints(0, 2), yes)], None)
+    segs.append(pb_len_field(11, dev, empty & (ints(0, 16) > 0)))
+    counts = ints(0, max_items + 1)
+    total = int(counts.sum())
+    ib, inb = pb_varint_bytes(torch.randint(1, 1 << 35, (total,),
+                                            generator=g, device=device))
+    packed = pb_grouped(pb_segment(ib, inb, torch.ones(
+        total, dtype=torch.bool, device=device)), counts)
+    segs.append(pb_len_field(12, packed, empty & (counts > 0)))
+    tcounts = ints(0, 5)
+    ttotal = int(tcounts.sum())
+    tag_elems = pb_len_field(13, pick(PB_TAGS, g, ttotal, device),
+                             torch.ones(ttotal, dtype=torch.bool,
+                                        device=device))
+    segs.append(masked(pb_grouped(tag_elems, tcounts), empty))
+    # edge rows: appended records (the last record of a field wins)
+    edge_bytes = {
+        "trunc_varint": pb_key(2, 0) + b"\xff\xff",
+        "trunc_payload": pb_key(3, 2) + b"\x28abc",
+        "wire3": pb_key(20, 3) + b"\x00", "wire4": pb_key(20, 4),
+        "wire6": pb_key(20, 6) + b"\x00", "wire7": pb_key(20, 7),
+        "unknown": pb_key(99, 0) + b"\xb9\x60" + pb_key(98, 2) + b"\x03zzz"
+        + pb_key(97, 1) + bytes(8) + pb_key(96, 5) + bytes(4),
+        "mismatch": pb_key(5, 0) + b"\x07" + pb_key(3, 0) + b"\x01",
+        "duplicate": pb_key(6, 0) + b"\xe7\x07" + pb_key(3, 2) + b"\x03dup",
+        "empty_packed": pb_key(12, 2) + b"\x00",
+        "bad_nested": pb_key(11, 2) + b"\x0c" + pb_key(1, 0) + b"\xff" * 11,
+        # length varints of 2^63 and 2^64 - 1: negative on int64 lanes
+        "huge_len": pb_key(3, 2) + b"\x80" * 9 + b"\x01" + b"ab",
+        "huge_len_unknown": pb_key(98, 2) + b"\xff" * 9 + b"\x01",
+    }
+    vocab = [edge_bytes.get(e, b"") for e in PB_EDGES]
+    segs.append(CP.gather(Column.from_strings(vocab, device),
+                          kind.clamp(min=0)))
+    segs[-1] = masked(segs[-1], edge_at)
+    valid = (torch.rand(rows, generator=g, device=device)
+             >= null_share).to(torch.uint8)
+    return concat_rows(segs, valid)
+
+
+def pb_fallback_column(rows, seed, device="cuda"):
+    """`rows` events whose last row holds 40 packed item_ids: past the
+    engine's repeat cap (32), so the whole column takes the host route."""
+    long_row = (pb_key(1, 0) + b"\x07" + pb_key(12, 2) + bytes([40])
+                + bytes(range(1, 41)))
+    return CP.concat_columns([protobuf_events(rows - 1, seed, device),
+                              Column.from_strings([long_row], device)])
+
+
+def pb_canonical(col, valid=None):
+    """`col` with every row under a null (its own or an ancestor's)
+    emptied: fixed-width data zeroed, strings and lists of no elements,
+    validity explicit at every level.  The device engine keeps what it
+    captured under null rows and the host oracle does not; their
+    canonical forms are equal byte for byte."""
+    dev = col.device
+    ok = col.valid_mask() if valid is None else valid & col.valid_mask()
+    v8 = ok.to(torch.uint8)
+    if col.dtype.kind == "struct":
+        return Column(col.dtype, col.length, validity=v8,
+                      children=tuple(pb_canonical(c, ok)
+                                     for c in col.children))
+    if col.dtype.is_string:
+        out = masked(col, ok)
+        return Column(col.dtype, col.length, data=out.data, validity=v8,
+                      offsets=out.offsets)
+    if col.dtype.kind == "list":
+        lens = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+        lens = torch.where(ok, lens, 0)
+        offs = torch.zeros(col.length + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(lens, 0, out=offs[1:])
+        total = int(offs[-1])
+        row = torch.repeat_interleave(torch.arange(col.length, device=dev),
+                                      lens, output_size=total)
+        idx = (col.offsets[:-1].to(torch.int64)[row]
+               + torch.arange(total, device=dev) - offs[:-1][row])
+        child = pb_canonical(CP.gather(col.children[0], idx))
+        return Column(col.dtype, col.length, validity=v8,
+                      offsets=offs.to(torch.int32), children=(child,))
+    data = torch.where(ok, col.data, torch.zeros_like(col.data))
+    return Column(col.dtype, col.length, data=data, validity=v8)
+
+
+def pb_same_as_oracle(got, col, what):
+    """The decode `got` equals the host oracle over a CPU copy of `col`
+    on every valid row (canonical forms, byte for byte)."""
+    want = PBF.decode_protobuf_host(on_cpu(col), pb_fields())
+    same_nested(on_cpu(pb_canonical(got)), pb_canonical(want), what)
+
+
+def pb_call(col):
+    return PBF.decode_protobuf_to_struct(col, pb_fields())
+
+
+def protobuf_phase(device="cuda", rows=PB_ROWS, check_rows=PB_CHECK_ROWS,
+                   fallback_rows=PB_FALLBACK_ROWS, iters=PB_ITERS):
+    """The protobuf decoder on `device` (see the module docstring)."""
+    res = {}
+    col = protobuf_events(rows, PB_SEED, device)
+    sync(device)
+    mb = chars_mb(col)
+    PD.reset_stats()
+    t0 = time.perf_counter()
+    out, peak = peak_added(lambda: pb_call(col), device)
+    first = (time.perf_counter() - t0) * 1e3
+    call = dict(PD.LAST_CALL)
+    check(call.get("route") == "device" and not call.get("fallback"),
+          f"protobuf: the main column took the device engine ({call})")
+    check(out.device.type == torch.device(device).type,
+          "protobuf: the result is on the column's device")
+    ms = wall_ms(lambda: pb_call(col), iters, device)
+    kernels, recorded = device_kernels(lambda: pb_call(col), device)
+    res["decode"] = {
+        "rows": rows, "chars_mb": mb, "first_ms": first, "ms": ms,
+        "mb_per_s": mb / ms * 1e3, "chunk_rows": PD.DEVICE_ROW_CHUNK,
+        "check_every": PD.CHECK_EVERY, "chunk_steps": call["chunk_steps"],
+        "scan_steps": call["scan_steps"], "decodes": call["decodes"],
+        "host_syncs": call["host_syncs"], "host_bytes": call["host_bytes"],
+        "host_rows": call["host_rows"], "kernels": kernels,
+        "kernels_recorded": recorded, "peak_added_mb": peak,
+        "null_rows": int((out.valid_mask() == 0).sum()),
+        "route": call["route"]}
+    n = min(check_rows, rows)
+    pb_same_as_oracle(CP.slice_column(out, 0, n), CP.slice_column(col, 0, n),
+                      "protobuf: card == host oracle")
+    del out
+    # a column with one row past the repeat cap: the whole column on the
+    # host oracle (the reference's routing), counted and equal to it
+    fb = pb_fallback_column(fallback_rows, PB_SEED + 1, device)
+    t0 = time.perf_counter()
+    got = pb_call(fb)
+    sync(device)
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    fb_call = dict(PD.LAST_CALL)
+    check(fb_call.get("route") == "host" and fb_call.get("fallback")
+          and fb_call.get("host_rows") == fallback_rows,
+          f"protobuf: the 40-item row sent its column to the host "
+          f"({fb_call})")
+    check(len(got.to_pylist()[-1][11]) == 40, "protobuf: 40 item_ids")
+    same_nested(on_cpu(got), PBF.decode_protobuf_host(on_cpu(fb),
+                                                      pb_fields()),
+                "protobuf: host route == oracle")
+    res["fallback"] = {"rows": fallback_rows, "ms": fb_ms,
+                       "route": fb_call["route"],
+                       "host_rows": fb_call["host_rows"]}
+    # the JNI door on handles, a flat schema
+    flat = [f for f in pb_fields() if not f.is_message and not f.repeated]
+    live = JE.live_handles()
+    head_col = CP.slice_column(col, 0, min(rows, PB_FALLBACK_ROWS))
+    h = REGISTRY.register(head_col)
+    out_h = JE.protobuf_decode_to_struct(
+        h, [f.field_number for f in flat], [f.dtype.kind for f in flat],
+        [f.encoding for f in flat], [f.required for f in flat])
+    got = REGISTRY.get(out_h)
+    check(PD.LAST_CALL.get("route") == "device",
+          "protobuf: the JNI door's call took the device engine")
+    want = PBF.decode_protobuf_host(on_cpu(head_col),
+                                    [PBF.Field(f.field_number, f.dtype,
+                                               f.encoding, False,
+                                               f.required)
+                                     for f in flat])
+    same_nested(on_cpu(pb_canonical(got)), pb_canonical(want),
+                "protobuf: JNI door == oracle")
+    release_all(h, out_h)
+    check(JE.live_handles() == live, "protobuf: every handle released")
+    res["stats"] = dict(PD.STATS)
+    return res
+
+
+def run_protobuf(device="cuda", **kw):
+    """The protobuf decoder on the card (see the module docstring)."""
+    RA.reset_launches()
+    clock = time.perf_counter()
+    res = protobuf_phase(device, **kw)
+    res["phase_s"] = time.perf_counter() - clock
+    print(json.dumps({"protobuf": res}), flush=True)
+    launches = read_launches("protobuf")
+    check(not any(launches.values()),
+          "the protobuf path launches none of the row kernels")
+    return launches, res
+
+
+# -------------------------------------------------------- distributed (17)
+
+# step 6's q5 and q72 as worker processes sharing the card, their
+# tables moved by kudo over unix sockets (distributed/launcher.py)
+DIST_Q5 = dict(rows=Q5_DATA["rows"], stores=Q5_DATA["stores"],
+               days=Q5_DATA["days"], join_capacity=Q5_CAPACITY)
+DIST_Q72 = dict(cs_rows=Q72_DATA["cs_rows"], inv_rows=Q72_DATA["inv_rows"],
+                items=Q72_DATA["items"], days=Q72_DATA["days"],
+                join_capacity=Q72_CAPACITY, max_week=Q72_MAX_WEEK,
+                limit=Q72_LIMIT, week0=Q72_WEEK0)
+DIST_TIMEOUT_S = 400
+DIST_RESPAWN_DELAY_S = 2.0
+# launches B and C test the link and the fleet: their workers run op by
+# op (the runner's escape hatch), sparing each process inductor's start
+# and compiles (about 16 s a worker, measured on one H100)
+DIST_OP_BY_OP = {"SPARK_RAPIDS_TPU_STAGE_FUSION": "0"}
+
+
+def dist_dir():
+    return os.path.join(_BUILD, "dist")
+
+
+def same_results(got, want, what):
+    for k, v in want.items():
+        check(np.asarray(got[k]).tobytes() == np.asarray(v).tobytes(),
+              f"{what}: {k} byte-equal to the single process")
+
+
+def launch_numbers(res):
+    """Per-rank numbers of a finished launch: boot, compile and query
+    seconds, partials and exchange ms, socket bytes and frames, NAKs
+    and resends, mesh mode, peak MiB."""
+    ranks = []
+    for s in res["summaries"]:
+        r = s["rank"]
+        ranks.append({
+            "rank": r, "respawned": s["respawned"],
+            "boot_s": s["t_ready"] - res["spawned"][r][-1],
+            "compile_s": s["compile_s"], "op_s": s["op_s"],
+            "times_ms": s["times"], "link": s["link"],
+            "link_retries": s["link_retries"],
+            "mesh": s["mesh"]["mode"], "peak_mib": s["peak_mib"],
+            "epoch": s["epoch"],
+            "fleet_events": s["fleet_events"],
+            "service_events": [e for e in s["service_events"]
+                               if e["kind"] != "shuffle_dup_dropped"],
+            "dup_dropped": sum(e["kind"] == "shuffle_dup_dropped"
+                               for e in s["service_events"])})
+    return {"wall_s": res["wall_s"], "deaths": res["deaths"],
+            "respawns": len(res["respawns"]), "ranks": ranks}
+
+
+def dist_launch(name, world, ops, params, device="cuda", **kw):
+    from spark_rapids_tpu_torch.distributed import launcher as DL
+    outdir = os.path.join(dist_dir(), name)
+    shutil.rmtree(outdir, ignore_errors=True)
+    res = DL.launch(world, outdir, ops=ops, params=params, device=device,
+                    timeout_s=DIST_TIMEOUT_S, **kw)
+    results = [{op: dict(np.load(os.path.join(
+        outdir, f"result_{op}_rank{r}.npz"))) for op in ops}
+        for r in range(world)]
+    return res, results
+
+
+def distributed_phase(device="cuda", q5=None, q72=None):
+    """Launches A-C on `device` (see the module docstring)."""
+    from spark_rapids_tpu_torch.distributed import runner as DR
+    q5 = dict(DIST_Q5, **(q5 or {}))
+    q72 = dict(DIST_Q72, **(q72 or {}))
+    res = {}
+    clock = time.perf_counter()
+    want = {w: DR.single_q5(dict(q5, world=w), device=device)
+            for w in (2, 3)}
+    want72 = DR.single_q72(dict(q72, world=2), device=device)
+    res["single_s"] = time.perf_counter() - clock
+    # the workers share the card: hand back this process's cached blocks
+    gc.collect()
+    sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(dist_dir(), ignore_errors=True)
+    try:
+        # A: q5 and q72 over two ranks
+        a, got = dist_launch("a", 2, ("q5", "q72"),
+                             {"q5": q5, "q72": q72}, device)
+        for r in range(2):
+            same_results(got[r]["q5"], want[2], f"launch A rank {r} q5")
+            same_results(got[r]["q72"], want72, f"launch A rank {r} q72")
+        res["a"] = launch_numbers(a)
+        # B: q72 with rank 1's first reduce-scatter send corrupted
+        b, got = dist_launch("b", 2, ("q72",), {"q72": q72}, device,
+                             fault="corrupt:0:111", fault_rank=1,
+                             worker_env=DIST_OP_BY_OP)
+        for r in range(2):
+            same_results(got[r]["q72"], want72, f"launch B rank {r} q72")
+        s0, s1 = b["summaries"]
+        check(s0["link"]["naks_sent"] == 1 and s1["link"]["naks_recv"] == 1
+              and s1["link"]["resends"] >= 1,
+              f"launch B: the corrupt payload was NAKed and resent "
+              f"({s0['link']}, {s1['link']})")
+        res["b"] = launch_numbers(b)
+        # C: elastic q5 over three ranks; rank 2 dies after its partials,
+        # before broadcasting them, and is respawned once
+        c, got = dist_launch("c", 3, ("q5",), {"q5": q5}, device,
+                             elastic=True, die="q5:partials", die_rank=2,
+                             respawn=True,
+                             respawn_delay_s=DIST_RESPAWN_DELAY_S,
+                             worker_env=DIST_OP_BY_OP)
+        for r in range(3):
+            same_results(got[r]["q5"], want[3], f"launch C rank {r} q5")
+        check([(d["rank"], d["rc"]) for d in c["deaths"]] == [(2, 13)],
+              f"launch C: rank 2's injected death ({c['deaths']})")
+        survivors = c["summaries"][:2]
+        deaths = [e for s in survivors for e in s["fleet_events"]
+                  if e["change"] == "death" and 2 in e["dead"]]
+        inherit = [e for s in survivors for e in s["service_events"]
+                   if e["kind"] in ("fleet_inherit", "fleet_speculation")
+                   and e["part"] == 2]
+        check(deaths and inherit,
+              "launch C: a survivor recorded rank 2's death and took "
+              "its shard")
+        res["c"] = launch_numbers(c)
+    finally:
+        shutil.rmtree(dist_dir(), ignore_errors=True)
+    return res
+
+
+def run_distributed(device="cuda", **kw):
+    """Distributed q5/q72 as worker processes on the card (see the
+    module docstring)."""
+    RA.reset_launches()
+    clock = time.perf_counter()
+    res = distributed_phase(device, **kw)
+    res["phase_s"] = time.perf_counter() - clock
+    print(json.dumps({"distributed": res}, default=str), flush=True)
+    launches = read_launches("distributed")
+    check(not any(launches.values()),
+          "the distributed path launches none of the row kernels")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -4529,6 +5101,10 @@ def main() -> int:
     phase("ingest")
     by_path["ops"], _ = run_ops()
     phase("ops")
+    by_path["protobuf"], _ = run_protobuf()
+    phase("protobuf")
+    by_path["distributed"], _ = run_distributed()
+    phase("distributed")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

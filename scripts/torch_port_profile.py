@@ -23,9 +23,10 @@ with each engine pinned, the raw map and flat structs through the
 tokenizer; `_json` says at which sizes), and chip_smoke.py's ops
 phase's decimal divide (q49's decimal(35,20) over 2^25 rows on the
 limbs), SHA-512 over its 2^22 STRING keys and 2^25 INT64 values and
-HLL++ (precision 9) over its 2^25 ss_customer_sk, with torch.profiler
-(`--only strings`, `--only json` or `--only ops` profiles just that
-group).  For
+HLL++ (precision 9) over its 2^25 ss_customer_sk, and one protobuf
+decode of chip_smoke.py's 2^22 clickstream events on the device
+engine, with torch.profiler (`--only strings`, `--only json`, `--only
+ops` or `--only protobuf` profiles just that group).  For
 each it
 prints one JSON line: wall milliseconds (synchronized), summed device
 time of the kernels and copies, the device's busy share of the wall
@@ -320,10 +321,23 @@ def _ops(chip_smoke):
            lambda: HLL.reduce_hllpp(cust, C.HLL_PRECISION))
 
 
+def _protobuf(chip_smoke):
+    """(phase, call) for chip_smoke's protobuf phase: one decode of its
+    2^22 clickstream events through the router (the device engine)."""
+    from spark_rapids_tpu_torch.ops import protobuf as PBF
+
+    C = chip_smoke
+    col = C.protobuf_events(C.PB_ROWS, C.PB_SEED, "cuda")
+    fields = C.pb_fields()
+    yield "protobuf_decode", lambda: PBF.decode_protobuf_to_struct(
+        col, fields)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
-    ap.add_argument("--only", choices=["strings", "json", "ops"],
+    ap.add_argument("--only",
+                    choices=["strings", "json", "ops", "protobuf"],
                     help="profile only this group of phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -336,7 +350,8 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}")
     if args.only is None:
         _main_paths(chip_smoke, args.out)
-    groups = {"strings": _strings, "json": _json, "ops": _ops}
+    groups = {"strings": _strings, "json": _json, "ops": _ops,
+              "protobuf": _protobuf}
     for group, phases in groups.items():
         if args.only not in (None, group):
             continue

@@ -7,9 +7,17 @@ capacity-parameterized program factory and re-runs it at double the
 budget whenever the program reports overflow, under the same
 RetryPolicy the task-level retry drivers use (robustness/retry.py).
 
+Table-granularity exchanges (the kudo shuffle) go through a pluggable
+TRANSPORT: by default an in-process loopback that still round-trips
+the real wire bytes (kudo write -> kudo read/merge), and, when the
+distributed runtime installs its ShuffleService
+(spark_rapids_tpu_torch/distributed/), unix/TCP socket links between
+worker processes.  Callers write against ``exchange_tables`` and never
+know which side of a process boundary their peers live on.
+
 The fixed-capacity exchange over `torch.distributed` comes with ROADMAP
-A10; the retry journal and spans, and the process compile cache's step
-memo with A14.
+A10(b); the retry journal and spans, and the process compile cache's
+step memo with A14.
 """
 
 from typing import Callable, Optional
@@ -131,3 +139,82 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
             cap *= 2
 
     return run
+
+
+# ------------------------------------------------- pluggable transport
+
+
+class InProcessKudoTransport:
+    """Single-process loopback transport: every destination is this
+    process.  Partitions still serialize through the kudo wire format
+    and merge back through ``read_tables``/``merge_to_table`` (KCRC
+    trailers included), so the byte path is the socket transport's,
+    only the socket is elided.  The merge lands on the device the
+    caller's tables live on."""
+
+    rank = 0
+    world = 1
+
+    def exchange(self, op_id: int, tables_by_dest, fields=None):
+        import io
+
+        from spark_rapids_tpu_torch.shuffle import kudo as _kudo
+        from spark_rapids_tpu_torch.shuffle.schema import schema_of_table
+        if len(tables_by_dest) != 1:
+            raise ValueError(
+                "in-process transport has world=1; got "
+                f"{len(tables_by_dest)} destinations (install a "
+                "distributed transport via set_table_transport)")
+        table = tables_by_dest[0]
+        if fields is None:
+            fields = schema_of_table(table)
+        buf = io.BytesIO()
+        _kudo.write_to_stream_with_metrics(
+            table.columns, buf, 0, table.num_rows)
+        buf.seek(0)
+        return _kudo.merge_to_table(_kudo.read_tables(buf), fields,
+                                    device=table_device(table))
+
+    def allgather(self, op_id: int, table, fields=None):
+        return self.exchange(op_id, [table], fields)
+
+
+def table_device(table) -> torch.device:
+    """The device a table's columns live on (the CPU for a table
+    without columns)."""
+    return table.device if table.num_columns else torch.device("cpu")
+
+
+_TABLE_TRANSPORT = [None]
+
+
+def set_table_transport(transport) -> object:
+    """Install the process's table transport (the distributed runtime
+    registers its ShuffleService here; ``None`` restores the in-process
+    loopback).  Returns the prior transport."""
+    prior = _TABLE_TRANSPORT[0]
+    _TABLE_TRANSPORT[0] = transport
+    return prior
+
+
+def table_transport():
+    """The installed transport, or the in-process loopback default."""
+    t = _TABLE_TRANSPORT[0]
+    if t is None:
+        t = _TABLE_TRANSPORT[0] = InProcessKudoTransport()
+    return t
+
+
+def exchange_tables(op_id: int, tables_by_dest, fields=None):
+    """All-to-all at table granularity over the installed transport:
+    ``tables_by_dest[d]`` goes to rank ``d``; returns the merged Table
+    of everything addressed to THIS rank, partitions concatenated in
+    source-rank order (a deterministic merge: the property the
+    byte-identity checks rest on)."""
+    return table_transport().exchange(op_id, tables_by_dest, fields)
+
+
+def allgather_table(op_id: int, table, fields=None):
+    """Every rank contributes ``table``; every rank receives the
+    rank-ordered concatenation of all contributions."""
+    return table_transport().allgather(op_id, table, fields)

@@ -7,8 +7,10 @@ library supplies the throw side (``SparkResourceAdaptor`` raising
 actually recover.  This package is the plugin half: task-level retry
 drivers with checkpoint/restore, bounded attempts + exponential backoff
 + deadline, halving split-and-retry down to a one-element floor, and
-forced-OOM polling for compute-only sections.  The lifeguard, fleet and
-link supervisors are ROADMAP A14.
+forced-OOM polling for compute-only sections.  ``links`` judges the
+distributed shuffle's link failures over the same RetryPolicy, and
+``fleet`` the elastic fleet's membership, speculation and skew; the
+lifeguard is ROADMAP A14.
 """
 
 from spark_rapids_tpu_torch.robustness.retry import (  # noqa: F401

@@ -1,0 +1,421 @@
+"""Elastic-fleet policy: who inherits a dead rank's work, who
+speculates for a straggler, when a hot partition re-splits, and the
+epoch fence that keeps stale peers out.
+
+A fixed-N world turns a dead peer into a terminal
+``PeerDiedException`` and lets a slow rank stall every exchange
+barrier.  This module is the judgement layer that turns those events
+into *policy*:
+
+  * :class:`FleetView`: an EPOCH-STAMPED membership snapshot, the live
+    set, the departed set, and a deterministic shard assignment.  The
+    assignment is a pure function of ``(world0, departed)``: every
+    survivor that agrees on who is dead agrees on who inherits WITHOUT
+    a consensus round (int64 partials are order-independent and
+    recomputes are seeded-deterministic, so any agreeing subset
+    converges to the same bytes).
+  * :class:`ElasticPolicy`: the choices.  A dead rank's shards go to
+    the least-loaded survivors (ties to the lowest rank); the
+    speculator for a straggling shard is the least-loaded live rank
+    that is not the flagged owner; a partition re-splits when its
+    payload dwarfs the median of its op's other partitions.
+  * :class:`ElasticFleet`: one per worker.  Tracks membership + epoch,
+    keeps each op's part arrival gaps, decides speculation (robust-z
+    over the arrival window, with a wall-clock floor so a cold window
+    still speculates) and keeps every membership change in ``events``.
+
+ROADMAP A14: the JAX package also feeds stage walls and arrival gaps to
+the flight recorder's ``observability.anomaly.StragglerDetector``
+(journal ``fleet_straggler``), records every decision as ``srt_fleet_*``
+metrics and ``fleet_*`` journal events, and triggers a
+``fleet_incident`` bundle on a death.  The robust-z arithmetic that
+``should_speculate`` needs is kept here (:func:`robust_z`).
+
+Epoch fencing: every elastic frame carries the sender's epoch; a
+receiver ahead of the sender answers the ``E`` verdict (stale-epoch
+NAK) instead of merging, so a zombie rank that everyone rebalanced away
+from cannot push partitions into a round that already reassigned its
+work.  The zombie learns the current epoch from the verdict and must
+re-join before it is merged again.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Tuple
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def robust_z(value: float, samples) -> float:
+    """Robust z-score of ``value`` against ``samples`` via median/MAD
+    (consistent-estimator scaling 1.4826).  The MAD is floored at 5%
+    of the median (and at 1.0) so a near-constant sample set cannot
+    turn ordinary jitter into an infinite score."""
+    xs = sorted(samples)
+    n = len(xs)
+    if n == 0:
+        return 0.0
+    med = (xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2.0)
+    devs = sorted(abs(x - med) for x in xs)
+    mad = (devs[n // 2] if n % 2
+           else (devs[n // 2 - 1] + devs[n // 2]) / 2.0)
+    scale = max(1.4826 * mad, 0.05 * abs(med), 1.0)
+    return (value - med) / scale
+
+
+class StaleEpochError(RuntimeError):
+    """A peer fenced our frame: its membership epoch is ahead of ours
+    (``E`` verdict).  Carries the peer's epoch so the sender can
+    fast-forward its view and replay under the current epoch instead
+    of burning its resend budget on frames that will never merge."""
+
+    def __init__(self, peer, epoch: int):
+        self.peer = str(peer)
+        self.epoch = int(epoch)
+        super().__init__(
+            f"peer {peer} fenced a stale-epoch frame (peer epoch "
+            f"{epoch})")
+
+
+class FleetView:
+    """Immutable epoch-stamped membership + shard-assignment
+    snapshot."""
+
+    __slots__ = ("epoch", "world0", "live", "departed", "assignment")
+
+    def __init__(self, epoch: int, world0: int, live, departed,
+                 assignment: Tuple[int, ...]):
+        self.epoch = int(epoch)
+        self.world0 = int(world0)
+        self.live = frozenset(int(r) for r in live)
+        self.departed = frozenset(int(r) for r in departed)
+        self.assignment = tuple(int(r) for r in assignment)
+
+    def owner(self, shard: int) -> int:
+        return self.assignment[shard]
+
+    def shards_of(self, rank: int) -> List[int]:
+        return [s for s, r in enumerate(self.assignment) if r == rank]
+
+    def loads(self) -> Dict[int, int]:
+        out = {r: 0 for r in self.live}
+        for r in self.assignment:
+            if r in out:
+                out[r] += 1
+        return out
+
+    def to_dict(self) -> dict:
+        return {"epoch": self.epoch, "world0": self.world0,
+                "live": sorted(self.live),
+                "departed": sorted(self.departed),
+                "assignment": list(self.assignment)}
+
+
+class ElasticPolicy:
+    """The fleet's deterministic choices.  Pure functions of a view (no
+    clocks, no randomness), so every rank computing a decision from the
+    same membership facts reaches the same answer."""
+
+    def assign(self, world0: int, departed) -> Tuple[int, ...]:
+        """Shard -> owner.  Shard ``i`` starts on rank ``i``; each
+        departed rank's shards move to the least-loaded survivor (ties
+        to the lowest rank), dead shards reassigned in index order so
+        the walk is reproducible everywhere."""
+        dead = set(int(r) for r in departed)
+        survivors = [r for r in range(world0) if r not in dead]
+        if not survivors:
+            return tuple(range(world0))  # nobody left to inherit
+        load = {r: 1 for r in survivors}
+        assignment = list(range(world0))
+        for shard in range(world0):
+            if shard in dead:
+                heir = min(survivors, key=lambda r: (load[r], r))
+                assignment[shard] = heir
+                load[heir] += 1
+        return tuple(assignment)
+
+    def speculator(self, view: FleetView, owner: int) -> Optional[int]:
+        """Least-loaded live rank other than the flagged owner (ties to
+        the lowest rank); None when the owner is the only rank left."""
+        candidates = sorted(r for r in view.live if r != owner)
+        if not candidates:
+            return None
+        load = view.loads()
+        return min(candidates, key=lambda r: (load.get(r, 0), r))
+
+    def resplit_factor(self, view: FleetView) -> int:
+        """How many sub-partitions a hot partition splits into: one per
+        live rank so the whole fleet shares the hot key's bytes."""
+        return max(len(view.live), 1)
+
+
+class ElasticFleet:
+    """Per-worker membership + elasticity brain.
+
+    Thread-safe; the shuffle service consults it from the exchange
+    thread AND the listener's handler threads (death notices, joins,
+    stale-epoch checks arrive on connections).  ``threshold`` is the
+    robust-z a current wait must reach to speculate (the JAX package's
+    straggler detector threshold for the fleet)."""
+
+    def __init__(self, rank: int, world: int, *,
+                 policy: Optional[ElasticPolicy] = None,
+                 threshold: float = 4.0,
+                 spec_delay_s: Optional[float] = None,
+                 skew_ratio: Optional[float] = None,
+                 min_arrivals: int = 3):
+        self.rank = int(rank)
+        self.world0 = int(world)
+        self.policy = policy or ElasticPolicy()
+        # ROADMAP A14: the JAX package builds a flight-recorder
+        # StragglerDetector here (threshold 4.0, min_samples
+        # min_arrivals, cooldown 5 s) and exports it as `detector`
+        self.threshold = float(threshold)
+        self.spec_delay_s = (spec_delay_s if spec_delay_s is not None
+                             else _env_float(
+                                 "SPARK_RAPIDS_TPU_FLEET_SPEC_DELAY_S",
+                                 5.0))
+        self.skew_ratio = (skew_ratio if skew_ratio is not None
+                           else _env_float(
+                               "SPARK_RAPIDS_TPU_FLEET_SKEW_RATIO",
+                               4.0))
+        self.min_arrivals = int(min_arrivals)
+        self._lock = threading.Lock()
+        self._epoch = 0
+        self._departed: set = set()
+        self._left: set = set()      # departed by a graceful leave
+        self._live: set = set(range(self.world0))
+        self._view: Optional[FleetView] = None
+        self._arrivals: Dict[int, deque] = {}
+        self._part_bytes: Dict[int, deque] = {}
+        self._link_base: Dict[Tuple[str, str], float] = {}
+        # membership changes, in order ({"change", "dead", "epoch",
+        # "live", "moved"[, "joined"]}): the journal's
+        # fleet_membership records of the JAX package
+        self.events: List[dict] = []
+
+    # ---------------------------------------------------- membership
+
+    def view(self) -> FleetView:
+        with self._lock:
+            if self._view is None:
+                self._view = FleetView(
+                    self._epoch, self.world0, self._live,
+                    self._departed,
+                    self.policy.assign(self.world0, self._departed))
+            return self._view
+
+    @property
+    def epoch(self) -> int:
+        with self._lock:
+            return self._epoch
+
+    def _record(self, change: str, **detail) -> None:
+        with self._lock:
+            self.events.append(dict(change=change, **detail))
+
+    def note_death(self, ranks: Iterable[int],
+                   epoch_hint: int = 0) -> bool:
+        """Fold newly-observed dead ranks into the view.  Returns True
+        when membership actually changed (the caller then gossips a
+        death notice so every survivor converges without waiting out
+        its own timeout).  Epoch = max(local+1, peer hint) so relayed
+        notices can never rewind the fence."""
+        with self._lock:
+            # a rank never marks ITSELF departed: a respawned worker
+            # receiving the survivors' view (which lists its previous
+            # incarnation as dead) must stay live: it recomputes its
+            # old shards and the (op, part) dedup collapses them
+            # against the inheritor's byte-identical copies
+            new = (set(int(r) for r in ranks) - self._departed
+                   - {self.rank})
+            if not new:
+                if epoch_hint > self._epoch:
+                    self._epoch = int(epoch_hint)
+                    self._view = None
+                return False
+            before = self.policy.assign(self.world0, self._departed)
+            self._departed |= new
+            self._live -= new
+            self._epoch = max(self._epoch + 1, int(epoch_hint))
+            self._view = None
+            after = self.policy.assign(self.world0, self._departed)
+            epoch = self._epoch
+            live = sorted(self._live)
+        moved = {s: after[s] for s in range(self.world0)
+                 if after[s] != before[s]}
+        # ROADMAP A14: record_fleet_membership and the flight
+        # recorder's fleet_incident trigger
+        self._record("death", dead=sorted(new), epoch=epoch, live=live,
+                     moved=moved)
+        return True
+
+    def note_leave(self, rank: int) -> bool:
+        """A peer announced a GRACEFUL departure (teardown after its
+        work completed): same membership consequences as a death
+        (departed set, epoch bump, assignment) but recorded as a
+        'leave'.  A waiter blocked on the leaver's barrier sentinel
+        unblocks: the leave proves the peer passed its own barrier.
+
+        A leave from a rank already departed (one a peer's gossip
+        declared dead while it was alive, e.g. slow to boot) still
+        records it as left, so a respawn-mode barrier stops waiting for
+        its sentinel; the membership is unchanged.  The JAX package
+        drops such a leave."""
+        rank = int(rank)
+        with self._lock:
+            if rank == self.rank or rank in self._left:
+                return False
+            if rank in self._departed:
+                self._left.add(rank)
+                return True
+            before = self.policy.assign(self.world0, self._departed)
+            self._departed.add(rank)
+            self._left.add(rank)
+            self._live.discard(rank)
+            self._epoch += 1
+            self._view = None
+            after = self.policy.assign(self.world0, self._departed)
+            epoch = self._epoch
+            live = sorted(self._live)
+        moved = {s: after[s] for s in range(self.world0)
+                 if after[s] != before[s]}
+        self._record("leave", dead=[rank], epoch=epoch, live=live,
+                     moved=moved)
+        return True
+
+    def note_join(self, rank: int) -> bool:
+        """A (re)joining worker: live again for barriers and FUTURE
+        work, but the shard assignment keeps riding the departed set:
+        mid-query ownership must not churn back under a round that
+        already rebalanced away from it."""
+        rank = int(rank)
+        with self._lock:
+            if rank in self._live:
+                return False
+            self._live.add(rank)
+            self._left.discard(rank)
+            self._epoch += 1
+            self._view = None
+            epoch = self._epoch
+            live = sorted(self._live)
+        self._record("join", dead=[], epoch=epoch, live=live,
+                     joined=rank)
+        return True
+
+    @property
+    def left(self) -> frozenset:
+        """Ranks departed by a graceful leave (and not back since)."""
+        with self._lock:
+            return frozenset(self._left)
+
+    def learn_epoch(self, epoch: int) -> None:
+        """Fast-forward the fence after a stale-epoch (``E``) verdict
+        or a peer's view notice.  Membership facts arrive separately
+        (death notices); the epoch alone fences our outbound frames."""
+        with self._lock:
+            if int(epoch) > self._epoch:
+                self._epoch = int(epoch)
+                self._view = None
+
+    def is_stale(self, frame_epoch: int) -> bool:
+        with self._lock:
+            return int(frame_epoch) < self._epoch
+
+    # --------------------------------------------------- straggling
+
+    def note_stage_wall(self, stage: str, wall_ns: int) -> None:
+        """Distributed runners feed their per-stage wall times here.
+        ROADMAP A14: the JAX package runs them through the straggler
+        detector, whose outliers reach the journal as fleet_straggler."""
+
+    def note_arrival(self, op_id: int, part: int, src: int,
+                     dt_ns: int) -> None:
+        with self._lock:
+            win = self._arrivals.get(op_id)
+            if win is None:
+                win = self._arrivals[op_id] = deque(maxlen=64)
+            win.append(float(dt_ns))
+
+    def should_speculate(self, op_id: int, elapsed_ns: int
+                         ) -> Optional[dict]:
+        """Is a still-missing part a straggler worth re-executing?
+        Judged as a robust-z outlier of the CURRENT wait against the
+        op's arrival-gap window; a cold window (fewer arrivals than
+        ``min_arrivals``) falls back to the wall-clock floor so the
+        fleet still makes progress when there is nothing to compare
+        against.  Returns the evidence dict (None = keep waiting)."""
+        with self._lock:
+            win = list(self._arrivals.get(op_id, ()))
+        if len(win) >= self.min_arrivals:
+            z = robust_z(float(elapsed_ns), win)
+            if z >= self.threshold:
+                return {"reason": "robust_z", "robust_z": round(z, 2),
+                        "samples": len(win),
+                        "elapsed_ms": elapsed_ns // 1_000_000}
+            # an arrival window dominated by fast peers: ALSO honor the
+            # floor (a window with one prior slow arrival must not mute
+            # the floor forever)
+        if elapsed_ns >= self.spec_delay_s * 1e9:
+            return {"reason": "delay_floor",
+                    "floor_s": self.spec_delay_s,
+                    "elapsed_ms": elapsed_ns // 1_000_000,
+                    "samples": len(win)}
+        return None
+
+    # --------------------------------------------------------- skew
+
+    def note_part_bytes(self, op_id: int, nbytes: int) -> None:
+        with self._lock:
+            win = self._part_bytes.get(op_id)
+            if win is None:
+                win = self._part_bytes[op_id] = deque(maxlen=64)
+            win.append(int(nbytes))
+
+    def hot_part(self, op_id: int, nbytes: int) -> Optional[dict]:
+        """Is this payload a skew outlier for its op?  Compared to the
+        median of the op's PRIOR partition payloads (>=2 samples so a
+        first-of-op payload can never be "hot" against nothing)."""
+        with self._lock:
+            win = sorted(self._part_bytes.get(op_id, ()))
+        if len(win) < 2:
+            return None
+        med = win[len(win) // 2]
+        if med > 0 and nbytes > self.skew_ratio * med:
+            return {"median_bytes": int(med), "bytes": int(nbytes),
+                    "ratio": round(nbytes / med, 2)}
+        return None
+
+    def link_skew(self, link_bytes: Optional[dict] = None) -> dict:
+        """Per-peer link byte deltas since the last call + the fleet
+        skew ratio (max/median of per-peer recv bytes), the live-counter
+        signal the re-split decision reads.  ``link_bytes`` maps
+        (direction, peer) to cumulative bytes; by default the
+        transport's own counters (the JAX package reads
+        ``srt_shuffle_link_bytes_total``: ROADMAP A14)."""
+        if link_bytes is None:
+            from spark_rapids_tpu_torch.distributed import transport
+            link_bytes = transport.link_bytes()
+        deltas: Dict[Tuple[str, str], float] = {}
+        with self._lock:
+            for key, cur in link_bytes.items():
+                key = (str(key[0]), str(key[1]))
+                deltas[key] = float(cur) - self._link_base.get(key, 0.0)
+                self._link_base[key] = float(cur)
+        recv = sorted(v for (d, _p), v in deltas.items()
+                      if d == "recv" and v > 0)
+        ratio = None
+        med = recv[(len(recv) - 1) // 2] if recv else 0  # lower median
+        if len(recv) >= 2 and med > 0:
+            ratio = round(recv[-1] / med, 2)
+        return {"deltas": {f"{d}:{p}": v
+                           for (d, p), v in sorted(deltas.items())},
+                "skew_ratio": ratio}

@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.ops import decimal_utils as _du
 from spark_rapids_tpu_torch.ops import histogram as _hist
 from spark_rapids_tpu_torch.ops import hllpp as _hllpp
 from spark_rapids_tpu_torch.ops import iceberg as _ib
+from spark_rapids_tpu_torch.ops import protobuf as _pb
 from spark_rapids_tpu_torch.ops.case_when import select_first_true_index \
     as _first_true
 from spark_rapids_tpu_torch.ops.string_utils import random_uuids as _uuids
@@ -217,8 +218,19 @@ def format_number(handle: int, digits: int) -> int:
                                                digits))
 
 
-# ROADMAP step 4: protobuf_decode_to_struct goes here with
-# ops/protobuf.py.
+def protobuf_decode_to_struct(handle: int,
+                              field_numbers: Sequence[int],
+                              type_ids: Sequence[str],
+                              encodings: Sequence[int],
+                              required: Sequence[bool]) -> int:
+    """Protobuf.java surface over the decoder's router (ops/protobuf.py;
+    ProtobufSchemaDescriptor's parallel vectors collapse to these arrays
+    for flat messages)."""
+    fields = [_pb.Field(n, DType(t), enc, False, bool(req))
+              for n, t, enc, req in zip(field_numbers, type_ids,
+                                        encodings, required)]
+    return REGISTRY.register(
+        _pb.decode_protobuf_to_struct(REGISTRY.get(handle), fields))
 
 
 def iceberg_bucket(handle: int, num_buckets: int) -> int:

@@ -29,7 +29,11 @@ chip_smoke.py's ingest phase at a small size; and the rest of the op
 breadth: the decimal limbs on the card (routed there by the columns'
 device) against the CPU's limbs and host loop, SHA-256/512, the bloom
 filter, HLL++ and z-order on the card against the CPU, and
-chip_smoke.py's ops phase at a small size.
+chip_smoke.py's ops phase at a small size; and protobuf and the process
+harness: the decoder's engine on card columns (flat, and nested with
+repeated fields) against the host oracle and the CPU engine, q5 with
+two ranks in one process on the card, and two worker processes sharing
+the card.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -957,3 +961,102 @@ def test_ops_phase_functions_on_card(cuda):
     assert res["dec_divide_q49"]["route"] == "device limbs"
     assert res["dec_divide_q49"]["kernels"] > 0
     assert res["sha512_int64"]["peak_added_mb"] > 0
+
+
+# ------------------------------------------- protobuf and distribution
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schema", ["flat", "nested_repeated"])
+def test_protobuf_engine_on_card_matches_cpu(cuda, schema):
+    """The field-step engine on a card column (routed there by its
+    device, replayed as CUDA graphs) equal to the host oracle on a CPU
+    copy in canonical form, and to the engine on CPU tensors byte for
+    byte; only the fallback-free device route is taken."""
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import protobuf as PBF
+    from spark_rapids_tpu_torch.ops import protobuf_device as PD
+    fields = C.pb_fields()
+    if schema == "flat":
+        fields = [f for f in fields if not f.is_message and not f.repeated]
+    col = C.protobuf_events(3000, 5, "cuda", edge_every=8)
+    got = PBF.decode_protobuf_to_struct(col, fields)
+    assert PD.LAST_CALL["route"] == "device" and not PD.LAST_CALL["fallback"]
+    assert got.device.type == "cuda"
+    want = PBF.decode_protobuf_host(on_cpu(col), fields)
+    same_nested(on_cpu(C.pb_canonical(got)), C.pb_canonical(want), schema)
+    engine_cpu = PD.decode_protobuf_to_struct_device(on_cpu(col), fields)
+    same_nested(on_cpu(got), engine_cpu, f"{schema}: card == CPU engine")
+
+
+@pytest.mark.gpu
+def test_protobuf_small_card_column_takes_the_engine(cuda):
+    """A card column of a few rows goes to the engine (the router reads
+    the column's device alone), equal to the oracle on a CPU copy."""
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import protobuf as PBF
+    from spark_rapids_tpu_torch.ops import protobuf_device as PD
+    fields = C.pb_fields()
+    col = C.protobuf_events(3, 7, "cuda", edge_every=2)
+    got = PBF.decode_protobuf_to_struct(col, fields)
+    assert PD.LAST_CALL["route"] == "device" and not PD.LAST_CALL["fallback"]
+    want = PBF.decode_protobuf_host(on_cpu(col), fields)
+    same_nested(on_cpu(C.pb_canonical(got)), C.pb_canonical(want), "3 rows")
+
+
+@pytest.mark.gpu
+def test_dist_q5_two_ranks_in_process_on_card(cuda, tmp_path):
+    """q5 with two ranks in one process over unix sockets, data and
+    stages on the card, byte-equal to single_q5 on the card."""
+    import os
+    import threading
+    from spark_rapids_tpu_torch.distributed import runner as R
+    from spark_rapids_tpu_torch.distributed.service import ShuffleService
+    from spark_rapids_tpu_torch.shuffle import kudo
+    prior = kudo.set_crc_enabled(True)
+    addrs = [f"unix:{os.path.join(str(tmp_path), f'g{r}.sock')}"
+             for r in range(2)]
+    svcs = [ShuffleService(r, 2, addrs).start() for r in range(2)]
+    params = dict(rows=1 << 16, stores=402, join_capacity=1 << 16)
+    outs = [None, None]
+    try:
+        ts = [threading.Thread(target=lambda r=r: outs.__setitem__(
+            r, R.run_dist_q5(params, transport=svcs[r], device="cuda")))
+            for r in range(2)]
+        [t.start() for t in ts]
+        [t.join(300) for t in ts]
+    finally:
+        for s in svcs:
+            s.stop()
+        kudo.set_crc_enabled(prior)
+    want = R.single_q5(dict(params, world=2), device="cuda")
+    for r in range(2):
+        for k in ("key", "sales", "rets", "profit", "overflow"):
+            assert outs[r][k].tobytes() == want[k].tobytes(), (r, k)
+
+
+@pytest.mark.gpu
+def test_launch_two_workers_on_card(cuda, tmp_path):
+    """Two worker processes sharing the card: q5 and q72 byte-equal to
+    the single-process runs, each worker on cuda, in harness mode."""
+    import os
+    from spark_rapids_tpu_torch.distributed import launcher as DL
+    from spark_rapids_tpu_torch.distributed import runner as R
+    params = {"q5": dict(rows=1 << 16, stores=402,
+                         join_capacity=1 << 16),
+              "q72": dict(cs_rows=1 << 12, inv_rows=1 << 10, items=512,
+                          join_capacity=1 << 18)}
+    torch.cuda.empty_cache()
+    res = DL.launch(2, str(tmp_path), ops=("q5", "q72"), params=params,
+                    device="cuda", timeout_s=300.0)
+    want = {"q5": R.single_q5(dict(params["q5"], world=2), "cuda"),
+            "q72": R.single_q72(dict(params["q72"], world=2), "cuda")}
+    for r in range(2):
+        s = res["summaries"][r]
+        assert s["device"] == "cuda" and s["mesh"]["mode"] == "harness"
+        assert s["peak_mib"] > 0
+        for op in ("q5", "q72"):
+            got = dict(np.load(os.path.join(str(tmp_path),
+                                            f"result_{op}_rank{r}.npz")))
+            for k, v in want[op].items():
+                assert got[k].tobytes() == v.tobytes(), (r, op, k)
