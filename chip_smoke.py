@@ -391,7 +391,33 @@
    launch: wall s, and per rank boot s (spawn to a CUDA context), the
    fused stages' compile s, each query's s, partials and exchange ms,
    bytes and frames over the sockets, NAKs and resends, the fleet's
-   events, the mesh mode and the peak MiB the worker allocated.
+   events, the mesh mode and the peak MiB the worker allocated.  The
+   workers run with metrics and tracing on (as the JAX worker does),
+   and each rank's span, metrics and journal dumps beside its summary
+   must agree with it: every span carries the launcher's trace id, the
+   link byte and frame counters equal the summary's, every failed link
+   attempt is counted (NAKs received and sent too); launch B's workers
+   run with SPARK_RAPIDS_TPU_LOCKDEP=1, and their journals and metrics
+   must show no lock-order cycle and the link lock instrumented.
+18. The observability core (observability/, analysis/lockdep.py,
+   utils/telemetry.py): the flagship step (2^22 rows, launching the
+   fixed-width to-rows kernel), one map task's kudo write of a 2^22-row
+   store_sales batch in 200 hash partitions and their merge onto the
+   card, and memory's forced retry and forced split task rounds (2^20
+   rows), first with observability off, then with metrics and tracing
+   on under one root span while the telemetry Monitor samples every
+   50 ms.  The flagship outputs and the merged table must be byte-equal
+   between the runs (the task group-bys within close_float_sums'
+   bound), every traced kudo table must be the untraced bytes behind a
+   20-byte KTRX prefix naming its own kudo_write span, the counters
+   must equal the known counts (bytes written, rows merged, one
+   injected retry and one split), the journal and span ring must drop
+   nothing, every span of the run must nest under the root, both dumps
+   must parse, and the Monitor's HBM samples in a quiet window must be
+   within 1% of torch.cuda.memory_allocated() read in the same listener
+   call.  Prints an `observability` line: the flagship step and the
+   shuffle write ms off and on, spans finished, journal events,
+   samples and the phase's seconds.
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -676,7 +702,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "ingest": (),
                 "ops": (),
                 "protobuf": (),
-                "distributed": ()}
+                "distributed": (),
+                "observability": ("to_rows",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -4902,6 +4929,77 @@ def launch_numbers(res):
             "respawns": len(res["respawns"]), "ranks": ranks}
 
 
+def dist_observability(res, lockdep=False):
+    """A finished launch's per-rank dumps beside its summaries: every
+    span carries the launcher's trace id, the link counters equal the
+    bytes and frames the summaries count, and (with lockdep on in the
+    workers) the journal and metrics show no lock-order cycle.  Returns
+    per-rank counts."""
+    out = []
+    for s in res["summaries"]:
+        r = s["rank"]
+
+        def dump(kind, ext):
+            return os.path.join(res["outdir"], f"{kind}_rank{r}{ext}")
+
+        with open(dump("spans", ".jsonl")) as f:
+            spans = [json.loads(line) for line in f]
+        check(spans and all(x["trace_id"] == res["trace_id"]
+                            for x in spans),
+              f"rank {r}: every span carries the launcher's trace id")
+        with open(dump("metrics", ".json")) as f:
+            reg = json.load(f)
+        with open(dump("journal", ".jsonl")) as f:
+            journal = [json.loads(line) for line in f]
+        sums = {}
+        for fam in ("srt_shuffle_link_bytes_total",
+                    "srt_shuffle_link_msgs_total"):
+            for x in reg[fam]["series"]:
+                key = (fam, x["labels"][0])
+                sums[key] = sums.get(key, 0) + x["value"]
+        link = s["link"]
+        for fam, d, stat in (
+                ("srt_shuffle_link_bytes_total", "send", "bytes_sent"),
+                ("srt_shuffle_link_bytes_total", "recv", "bytes_recv"),
+                ("srt_shuffle_link_msgs_total", "send", "frames_sent"),
+                ("srt_shuffle_link_msgs_total", "recv", "frames_recv")):
+            check(sums.get((fam, d), 0) == link[stat],
+                  f"rank {r}: {fam}{{{d}}} == summary {stat} "
+                  f"({sums.get((fam, d), 0)} vs {link[stat]})")
+        retries = sum(x["value"] for x in
+                      reg["srt_shuffle_link_retries_total"]["series"])
+        naks = sum(x["value"] for x in
+                   reg["srt_shuffle_link_retries_total"]["series"]
+                   if x["labels"][1] == "nak")
+        crc = sum(x["value"] for x in reg["srt_kudo_corrupt_total"]["series"]
+                  if x["labels"] == ["crc"])
+        # every failed attempt is counted, the last of an exhausted
+        # send too (no resend follows it)
+        lr = s["link_retries"]
+        check(retries == lr["nak"] + lr["link"]
+              and link["resends"] == retries - lr["exhausted"]
+              and naks == lr["nak"] == link["naks_recv"]
+              and crc == link["naks_sent"],
+              f"rank {r}: link retries {retries} vs {lr} and "
+              f"{link['resends']} resends, NAKs received "
+              f"{naks}/{link['naks_recv']}, sent {crc}/{link['naks_sent']}")
+        row = {"rank": r, "spans": len(spans), "journal": len(journal),
+               "link_bytes": sums.get(
+                   ("srt_shuffle_link_bytes_total", "send"), 0)}
+        if lockdep:
+            cycles = [e for e in journal if e["kind"] == "lockdep"
+                      and e.get("event") == "cycle"]
+            blocking = sum(x["value"] for x in
+                           reg["srt_lockdep_blocking_total"]["series"])
+            check(not cycles and not reg["srt_lockdep_cycles_total"][
+                "series"], f"rank {r}: lockdep saw no cycle ({cycles})")
+            check(blocking > 0, f"rank {r}: lockdep's locks were "
+                  "instrumented (the link's held-across-send marker)")
+            row["lockdep_blocking"] = blocking
+        out.append(row)
+    return out
+
+
 def dist_launch(name, world, ops, params, device="cuda", **kw):
     from spark_rapids_tpu_torch.distributed import launcher as DL
     outdir = os.path.join(dist_dir(), name)
@@ -4939,10 +5037,13 @@ def distributed_phase(device="cuda", q5=None, q72=None):
             same_results(got[r]["q5"], want[2], f"launch A rank {r} q5")
             same_results(got[r]["q72"], want72, f"launch A rank {r} q72")
         res["a"] = launch_numbers(a)
-        # B: q72 with rank 1's first reduce-scatter send corrupted
+        res["a"]["observability"] = dist_observability(a)
+        # B: q72 with rank 1's first reduce-scatter send corrupted, the
+        # workers' locks under lockdep
         b, got = dist_launch("b", 2, ("q72",), {"q72": q72}, device,
                              fault="corrupt:0:111", fault_rank=1,
-                             worker_env=DIST_OP_BY_OP)
+                             worker_env=dict(DIST_OP_BY_OP,
+                                             SPARK_RAPIDS_TPU_LOCKDEP="1"))
         for r in range(2):
             same_results(got[r]["q72"], want72, f"launch B rank {r} q72")
         s0, s1 = b["summaries"]
@@ -4951,6 +5052,7 @@ def distributed_phase(device="cuda", q5=None, q72=None):
               f"launch B: the corrupt payload was NAKed and resent "
               f"({s0['link']}, {s1['link']})")
         res["b"] = launch_numbers(b)
+        res["b"]["observability"] = dist_observability(b, lockdep=True)
         # C: elastic q5 over three ranks; rank 2 dies after its partials,
         # before broadcasting them, and is respawned once
         c, got = dist_launch("c", 3, ("q5",), {"q5": q5}, device,
@@ -4972,6 +5074,7 @@ def distributed_phase(device="cuda", q5=None, q72=None):
               "launch C: a survivor recorded rank 2's death and took "
               "its shard")
         res["c"] = launch_numbers(c)
+        res["c"]["observability"] = dist_observability(c)
     finally:
         shutil.rmtree(dist_dir(), ignore_errors=True)
     return res
@@ -4989,6 +5092,296 @@ def run_distributed(device="cuda", **kw):
     check(not any(launches.values()),
           "the distributed path launches none of the row kernels")
     return launches, res
+
+
+# ------------------------------------------------------ observability
+
+OBS_FLAGSHIP_ROWS = FLAGSHIP_ROWS
+OBS_SHUFFLE_ROWS = 1 << 22   # a store_sales batch, 200 partitions
+OBS_TASK_ROWS = 1 << 20      # the forced retry and split task rounds
+OBS_MONITOR_MS = 50
+OBS_QUIET_S = 0.3            # the HBM check's window, nothing allocating
+OBS_HBM_TOL = 0.01
+
+
+def obs_dir():
+    return os.path.join(_BUILD, "observability")
+
+
+def obs_partitions(table, device):
+    """Rows ordered by pmod(murmur3_32(store, item), 200) (the shuffle
+    cell's partitioning) and the 200 partitions' row bounds."""
+    h = H.murmur3_32(Table(table.columns[:2]), SHUFFLE_SEED).data
+    pid = torch.remainder(h, SHUFFLE_PARTITIONS)
+    order = S.order_by(Table([Column(dtypes.INT32, h.shape[0], data=pid)]))
+    ordered = CP.gather_table(table, order)
+    counts = torch.bincount(pid, minlength=SHUFFLE_PARTITIONS).tolist()
+    bounds = [0] + list(itertools.accumulate(counts))
+    sync(device)
+    return ordered, bounds
+
+
+def obs_write(views, bounds):
+    """One map task's kudo write of every partition into one stream,
+    through the metered writer: (stream bytes, each write's bytes)."""
+    out = io.BytesIO()
+    sizes = [K.write_to_stream_with_metrics(
+        views, out, lo, hi - lo).written_bytes
+        for lo, hi in zip(bounds, bounds[1:])]
+    return out.getvalue(), sizes
+
+
+def obs_traced_task(ctx, *args):
+    """memory's task_run with the phase's root span as this thread's
+    parent, so the task's OOM and retry spans join its tree."""
+    from spark_rapids_tpu_torch import observability as obs
+    with obs.TRACER.activate(ctx):
+        return task_run(*args)
+
+
+def obs_task_rounds(device, rows, ctx=None):
+    """memory's forced retry and split rounds, one task each, on `rows`
+    rows: (outputs, per-task numbers)."""
+    outs, nums = [], {}
+    for name, force in (("forced_retry", rmm_spark.force_retry_oom),
+                        ("forced_split",
+                         rmm_spark.force_split_and_retry_oom)):
+        store = spill_store("host")
+        adaptor = rmm_spark.set_event_handler(1 << 60)
+        PS.install(store)
+        try:
+            args = (1, rows, device, store, adaptor,
+                    threading.Barrier(1), force)
+            fn, fargs = ((task_run, args) if ctx is None
+                         else (obs_traced_task, (ctx,) + args))
+            (out,) = run_task_threads([(fn, fargs)])
+            check(adaptor.resource.used == 0
+                  and adaptor.thread_state_dump() == [],
+                  f"observability {name}: nothing left reserved")
+        finally:
+            PS.uninstall()
+            rmm_spark.clear_event_handler()
+        outs.append(out[0])
+        nums[name] = {"retries": out[1], "split_retries": out[2]}
+    return outs, nums
+
+
+def obs_run(device, inputs, views, bounds, fields, rows, ctx=None):
+    """The phase's three workloads once: the flagship step, one map
+    task's kudo write of 200 partitions and their merge, and the forced
+    retry and split task rounds.  Returns (outputs, numbers)."""
+    t0 = time.perf_counter()
+    flag = F.flagship_step(*inputs)
+    sync(device)
+    flag_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    blob, sizes = obs_write(views, bounds)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    merged, mm = K.merge_to_table_with_metrics(
+        K.read_tables(io.BytesIO(blob)), fields, device)
+    sync(device)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    tasks, task_nums = obs_task_rounds(device, rows, ctx)
+    return ((flag, blob, sizes, merged, tasks),
+            {"flagship_ms": flag_ms, "write_ms": write_ms,
+             "merge_ms": merge_ms, "merged_rows": mm.total_rows,
+             "tasks": task_nums})
+
+
+def obs_metric(snap, name, labels=()):
+    """One counter or gauge series' value in a registry snapshot (0
+    when absent)."""
+    for s in snap[name]["series"]:
+        if tuple(s["labels"]) == tuple(labels):
+            return s["value"]
+    return 0
+
+
+def obs_one_tree(recs, root):
+    """Every span record descends from `root` (same trace, parents
+    inside the set)."""
+    by_id = {r["span_id"]: r for r in recs}
+    for r in recs:
+        check(r["trace_id"] == root["trace_id"],
+              f"span {r['name']} in the phase's trace")
+        hops = 0
+        while r["parent_id"] is not None:
+            r = by_id[r["parent_id"]]
+            hops += 1
+            check(hops < 64, "span parents end")
+        check(r is root, "every span nests under the phase's root")
+
+
+def observability_phase(device="cuda", flagship_rows=OBS_FLAGSHIP_ROWS,
+                        shuffle_rows=OBS_SHUFFLE_ROWS,
+                        task_rows=OBS_TASK_ROWS, iters=STEP_ITERS):
+    """Step 18 (see the module docstring): the flagship step, a kudo
+    shuffle write and merge, and the forced retry and split task rounds,
+    once with observability off and once with metrics and tracing on
+    under one root span, with the telemetry Monitor sampling."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.utils import telemetry
+    clock = time.perf_counter()
+    shutil.rmtree(obs_dir(), ignore_errors=True)
+    os.makedirs(obs_dir())
+    prior = (obs.is_enabled(), obs.is_tracing_enabled())
+    obs.disable()
+    obs.disable_tracing()
+    obs.reset()
+    res = {"flagship_rows": flagship_rows, "shuffle_rows": shuffle_rows,
+           "partitions": SHUFFLE_PARTITIONS, "task_rows": task_rows}
+    inputs = F.example_inputs(flagship_rows, device=device)
+    table = store_sales_batch(shuffle_rows, seed=18, device=device)
+    ordered, bounds = obs_partitions(table, device)
+    del table
+    views = K.prepare_host_columns(ordered.columns)
+    fields = schema_of_table(ordered)
+    try:
+        off, res["off"] = obs_run(device, inputs, views, bounds, fields,
+                                  task_rows)
+        res["off"]["flagship_step_ms"] = wall_ms(
+            lambda: F.flagship_step(*inputs), iters, device)
+        res["off"]["write_ms_median"] = wall_ms(
+            lambda: obs_write(views, bounds), iters, device)
+        check(len(obs.JOURNAL) == 0 and len(obs.TRACER) == 0,
+              "observability off records nothing")
+        obs.enable()
+        obs.enable_tracing()
+        samples = []
+
+        def listener(infos):
+            if torch.device(device).type == "cuda":
+                samples.append((infos[0].memory_stats["bytes_in_use"],
+                                torch.cuda.memory_allocated(0),
+                                time.monotonic()))
+            else:
+                samples.append((0, 0, time.monotonic()))
+
+        mon = telemetry.Monitor(OBS_MONITOR_MS, listener, device=device)
+        mon.start()
+        try:
+            with obs.TRACER.span("observability_phase",
+                                 kind="query") as root:
+                on, res["on"] = obs_run(device, inputs, views, bounds,
+                                        fields, task_rows, root.context)
+            res["on"]["flagship_step_ms"] = wall_ms(
+                lambda: F.flagship_step(*inputs), iters, device)
+            res["on"]["write_ms_median"] = wall_ms(
+                lambda: obs_write(views, bounds), iters, device)
+            sync(device)
+            quiet_from = time.monotonic()
+            time.sleep(OBS_QUIET_S)
+        finally:
+            mon.stop()
+        # outputs: the flagship and shuffle byte for byte, the task
+        # group-bys within memory's float bound
+        for name, a, b in zip(("murmur3_32", "xxhash64", "rows",
+                               "bucket sums"), on[0], off[0]):
+            check(torch.equal(a, b), f"observability: flagship {name} "
+                  "equal with observability on")
+        for i, (a, b) in enumerate(zip(on[3].columns, off[3].columns)):
+            same_nested(a, b, f"observability: merged column {i}")
+        res["task_float_diff_of_bound"] = same_task_results(
+            on[4], off[4], "observability on vs off")
+        check(res["on"]["tasks"] == res["off"]["tasks"]
+              == {"forced_retry": {"retries": 1, "split_retries": 0},
+                  "forced_split": {"retries": 0, "split_retries": 1}},
+              f"observability: one injected retry and one split "
+              f"({res['on']['tasks']})")
+        # each kudo table is the untraced bytes behind a KTRX prefix
+        # naming its own kudo_write span
+        blob_on, sizes_on = on[1], on[2]
+        blob_off, sizes_off = off[1], off[2]
+        check([n - 20 for n in sizes_on] == sizes_off,
+              "observability: each traced table is 20 bytes longer")
+        writes = [r for r in obs.TRACER.records()
+                  if r["name"] == "kudo_write"]
+        want, at = [], 0
+        for n, rec in zip(sizes_off, writes[:len(sizes_off)]):
+            want.append(K.TRACE_MAGIC + int(rec["trace_id"], 16).to_bytes(
+                8, "big") + int(rec["span_id"], 16).to_bytes(8, "big"))
+            want.append(blob_off[at:at + n])
+            at += n
+        check(blob_on == b"".join(want),
+              "observability: traced stream == KTRX prefix + untraced "
+              "table, table by table")
+        # counters equal the known counts; the journal dropped nothing
+        snap = obs.METRICS.snapshot()
+        written = obs_metric(snap, "srt_shuffle_write_bytes_total")
+        check(written == len(blob_on) + iters * len(blob_on),
+              f"observability: {written} bytes written counted")
+        merged_rows = obs_metric(snap, "srt_shuffle_merge_rows_total")
+        check(merged_rows == shuffle_rows,
+              f"observability: {merged_rows} rows merged counted")
+        for fam, n in (("srt_oom_retry_total", 1),
+                       ("srt_oom_split_retry_total", 1)):
+            got = obs_metric(snap, fam, ("device",))
+            check(got == n, f"observability: {fam} {got} == {n}")
+        check(obs_metric(snap, "srt_retry_splits_total") == 1,
+              "observability: one split counted")
+        check(obs.JOURNAL.dropped == 0 and obs.TRACER.dropped == 0,
+              "observability: the journal and the span ring dropped "
+              "nothing")
+        recs = [r for r in obs.TRACER.records()
+                if r["trace_id"] == f"{root.trace_id:016x}"]
+        (root_rec,) = [r for r in recs if r["parent_id"] is None]
+        check(root_rec["name"] == "observability_phase",
+              "observability: the phase's root span")
+        obs_one_tree(recs, root_rec)
+        names = {r["name"] for r in recs}
+        for n in ("kudo_write", "kudo_merge", "retry_episode:task1",
+                  "oom_retry", "oom_split_retry"):
+            check(n in names, f"observability: a {n} span")
+        # both dumps parse
+        spans_path = os.path.join(obs_dir(), "spans.jsonl")
+        journal_path = os.path.join(obs_dir(), "journal.jsonl")
+        n_spans = obs.dump_spans_jsonl(spans_path)
+        n_journal = obs.dump_journal_jsonl(journal_path)
+        for path, n in ((spans_path, n_spans), (journal_path, n_journal)):
+            with open(path) as f:
+                lines = [json.loads(line) for line in f]
+            check(len(lines) == n, f"observability: {path} parses")
+        # HBM samples: within 1% of memory_allocated() read in the same
+        # listener call, over the quiet window
+        quiet = [(a, b) for a, b, t in samples if t >= quiet_from]
+        check(len(samples) >= 2 and quiet,
+              f"observability: Monitor samples ({len(samples)})")
+        worst = max(abs(a - b) / max(b, 1) for a, b in quiet)
+        check(worst <= OBS_HBM_TOL,
+              f"observability: HBM samples within 1% ({worst})")
+        if torch.device(device).type == "cuda":
+            check(obs_metric(snap, "srt_hbm_bytes_in_use", ("0",)) > 0,
+                  "observability: the HBM gauge")
+        res.update(spans_finished=len(obs.TRACER),
+                   journal_events=len(obs.JOURNAL),
+                   journal_by_kind=obs.JOURNAL.counts_by_kind(),
+                   samples=len(samples), quiet_samples=len(quiet),
+                   hbm_worst_rel_diff=worst,
+                   bytes_written_per_stream=len(blob_on))
+    finally:
+        obs.reset()
+        (obs.enable if prior[0] else obs.disable)()
+        (obs.enable_tracing if prior[1] else obs.disable_tracing)()
+        shutil.rmtree(obs_dir(), ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - clock
+    return res
+
+
+def run_observability(device="cuda", **kw):
+    """Step 18 on the card (see the module docstring)."""
+    RA.reset_launches()
+    res = observability_phase(device, **kw)
+    line = {k: res[k] for k in ("spans_finished", "journal_events",
+                                "samples", "phase_s")}
+    line.update(
+        flagship_step_ms={"off": res["off"]["flagship_step_ms"],
+                          "on": res["on"]["flagship_step_ms"]},
+        shuffle_write_ms={"off": res["off"]["write_ms_median"],
+                          "on": res["on"]["write_ms_median"]},
+        detail=res)
+    print(json.dumps({"observability": line}, default=str), flush=True)
+    return read_launches("observability"), res
 
 
 def main() -> int:
@@ -5105,6 +5498,8 @@ def main() -> int:
     phase("protobuf")
     by_path["distributed"], _ = run_distributed()
     phase("distributed")
+    by_path["observability"], _ = run_observability()
+    phase("observability")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -14,9 +14,9 @@ runs a death is an EXPECTED event: the launcher respawns the dead rank
 once (``respawn=True``), without the injected-death env, and the
 rejoined worker converges by rebalance + replay.
 
-ROADMAP A14: the JAX launcher also opens the fleet's root span, seeds
-its trace context into every worker (``SPARK_RAPIDS_TPU_DIST_TRACE_CTX``)
-and dumps the launcher's spans beside the workers' (``span_files``).
+One trace covers the fleet: the launcher opens the root span, seeds
+its context into every worker (``SPARK_RAPIDS_TPU_DIST_TRACE_CTX``)
+and dumps its own spans beside the workers' (:func:`span_files`).
 """
 
 from __future__ import annotations
@@ -184,10 +184,22 @@ def launch(world: int, outdir: str, *,
     remaining ranks and raises :class:`WorkerFailed` with its exit code
     immediately.  The workers inherit this process's environment
     (inductor's and Triton's cache directories included) plus
-    ``worker_env``."""
+    ``worker_env``.  The result also names the fleet's ``trace_id``."""
+    from spark_rapids_tpu_torch import observability as obs
+
     t_launch = time.perf_counter()
     os.makedirs(outdir, exist_ok=True)
     addrs = make_addresses(world, outdir, transport)
+
+    # one trace for the whole fleet: the launcher owns the root span;
+    # workers parent their process spans under it via the env context
+    prior_tracing = obs.TRACER.enabled
+    obs.enable_tracing()
+    root = obs.TRACER.start_span(
+        "dist_query", kind="query",
+        attrs={"world": world, "ops": ",".join(ops),
+               "transport": transport, "elastic": elastic})
+    trace_ctx = f"{root.trace_id:016x}:{root.span_id:016x}"
 
     def worker_cmd(r: int) -> List[str]:
         cmd = [sys.executable, "-m",
@@ -204,11 +216,9 @@ def launch(world: int, outdir: str, *,
 
     def worker_environ(r: int, *, respawned: bool = False) -> dict:
         env = dict(os.environ)
-        # ROADMAP A14: the JAX launcher seeds its root span's context
-        # here (SPARK_RAPIDS_TPU_DIST_TRACE_CTX) so the workers' spans
-        # stitch into one trace
         env.update({
             "SPARK_RAPIDS_TPU_KUDO_CRC": "1",
+            "SPARK_RAPIDS_TPU_DIST_TRACE_CTX": trace_ctx,
             "PYTHONPATH": _REPO_ROOT + os.pathsep
             + env.get("PYTHONPATH", ""),
         })
@@ -289,6 +299,10 @@ def launch(world: int, outdir: str, *,
                     pass
         for log in logs:
             log.close()
+        root.end()
+        _dump_launcher_spans(outdir, f"{root.trace_id:016x}")
+        if not prior_tracing:
+            obs.disable_tracing()
 
     summaries = []
     for r in range(world):
@@ -296,9 +310,27 @@ def launch(world: int, outdir: str, *,
                                f"summary_rank{r}.json")) as f:
             summaries.append(json.load(f))
     return {"summaries": summaries, "addresses": addrs,
+            "trace_id": f"{root.trace_id:016x}",
             "outdir": outdir, "world": world, "ops": list(ops),
             "deaths": deaths, "respawns": respawns, "spawned": spawned,
             "wall_s": time.perf_counter() - t_launch}
+
+
+def _dump_launcher_spans(outdir: str, trace_id: str) -> None:
+    """Write the launcher's OWN spans for this trace (the fleet root)
+    so the cross-process merge has the tree's apex."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.observability.dumpio import dump_via
+
+    recs = [r for r in obs.TRACER.records()
+            if r.get("trace_id") == trace_id]
+
+    def _write(f):
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+        return len(recs)
+
+    dump_via(os.path.join(outdir, "spans_launcher.jsonl"), _write)
 
 
 def _tail(outdir: str, rank: int, n: int = 2000) -> str:
@@ -312,3 +344,11 @@ def _tail(outdir: str, rank: int, n: int = 2000) -> str:
         except OSError:
             continue
     return "<no log>"
+
+
+def span_files(outdir: str, world: int) -> List[str]:
+    """Every per-process span dump of a finished run, launcher first."""
+    paths = [os.path.join(outdir, "spans_launcher.jsonl")]
+    paths += [os.path.join(outdir, f"spans_rank{r}.jsonl")
+              for r in range(world)]
+    return [p for p in paths if os.path.exists(p)]

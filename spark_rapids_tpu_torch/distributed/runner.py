@@ -30,10 +30,14 @@ processes.  Several ranks may share one card.
 
 Run as a module (``python -m spark_rapids_tpu_torch.distributed.runner``)
 by the launcher; the per-query entry points are also importable for
-in-process tests against any table transport.  ROADMAP A14: the JAX
-worker also opens query spans, per-rank query profiles, the trace
-context its launcher seeds (``SPARK_RAPIDS_TPU_DIST_TRACE_CTX``), and
-dumps spans, metrics, journal and timeseries next to its summary.
+in-process tests against any table transport.  Each query opens a
+query span; a worker runs with metrics and tracing on, parents its
+process span under the trace context its launcher seeds
+(``SPARK_RAPIDS_TPU_DIST_TRACE_CTX``), and dumps its spans, metrics and
+journal next to its summary (``spans_rank{r}.jsonl``,
+``metrics_rank{r}.json``, ``journal_rank{r}.jsonl``).
+ROADMAP A14 step 5(b): the per-rank query profiles and the timeseries
+dumps.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+
+from spark_rapids_tpu_torch import observability as _obs
 
 # default query shapes: the launcher AND the single-process reference
 # import these so the comparison can never drift
@@ -238,25 +244,29 @@ def run_dist_q5(params: Optional[dict] = None, *, transport=None,
     if transport is None:
         transport = X.table_transport()
     rank, world = transport.rank, transport.world
-    rows = max(int(p["rows"]) // (8 * world), 1) * 8 * world
-    d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
-                 device=device)
-    # one read per query: a mid-query env flip must not leave the
-    # finish step without the partials step's engine
-    fused = _fused()
-    t0 = time.perf_counter()
-    sales, rets, profit, seen, of = _q5_partials(
-        _q5_shard_args(d, rank, world), p, fused)
-    of = bool(of)
-    t1 = time.perf_counter()
-    (sales, rets, profit, seen), of_any = _reduce_scatter_allgather(
-        transport, OpIds.Q5_REDUCE_SCATTER, OpIds.Q5_ALLGATHER,
-        [sales, rets, profit, seen], of, device)
-    t2 = time.perf_counter()
-    LAST_TIMES["q5"] = {"partials_ms": (t1 - t0) * 1e3,
-                        "exchange_ms": (t2 - t1) * 1e3}
-    return _q5_finish(sales, rets, profit, seen, of_any, d, p, fused,
-                      device)
+    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
+    # worker's _profiled session) opens beside this span
+    with _obs.TRACER.span("dist_q5", kind="query",
+                          attrs={"rank": rank, "world": world}):
+        rows = max(int(p["rows"]) // (8 * world), 1) * 8 * world
+        d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
+                     device=device)
+        # one read per query: a mid-query env flip must not leave the
+        # finish step without the partials step's engine
+        fused = _fused()
+        t0 = time.perf_counter()
+        sales, rets, profit, seen, of = _q5_partials(
+            _q5_shard_args(d, rank, world), p, fused)
+        of = bool(of)
+        t1 = time.perf_counter()
+        (sales, rets, profit, seen), of_any = _reduce_scatter_allgather(
+            transport, OpIds.Q5_REDUCE_SCATTER, OpIds.Q5_ALLGATHER,
+            [sales, rets, profit, seen], of, device)
+        t2 = time.perf_counter()
+        LAST_TIMES["q5"] = {"partials_ms": (t1 - t0) * 1e3,
+                            "exchange_ms": (t2 - t1) * 1e3}
+        return _q5_finish(sales, rets, profit, seen, of_any, d, p, fused,
+                          device)
 
 
 def single_q5(params: Optional[dict] = None,
@@ -306,53 +316,57 @@ def run_elastic_q5(params: Optional[dict] = None, *, transport=None,
         return run_dist_q5(params, transport=transport, device=device)
     fleet = transport.fleet
     rank, world0 = transport.rank, fleet.world0
-    rows = max(int(p["rows"]) // (8 * world0), 1) * 8 * world0
-    d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
-                 device=device)
-    _maybe_die("q5:scan")
-    fused = _fused()
+    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
+    # worker's _profiled session) opens beside this span
+    with _obs.TRACER.span("elastic_q5", kind="query",
+                          attrs={"rank": rank, "world": world0}):
+        rows = max(int(p["rows"]) // (8 * world0), 1) * 8 * world0
+        d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
+                     device=device)
+        _maybe_die("q5:scan")
+        fused = _fused()
 
-    def compute_part(shard: int, ctx=None):
-        """Deterministic per-shard partials -> one int64 kudo table.
-        Runs for our own shards, for INHERITED shards after a
-        rebalance, and (cancel-aware via ``ctx``) as a speculative
-        re-execution of a straggler's shard."""
-        t0 = time.monotonic_ns()
-        outs = _q5_partials(_q5_shard_args(d, shard, world0), p, fused,
-                            check=None if ctx is None
-                            else ctx.check_cancel)
-        sales, rets, profit, seen, of = outs
-        fleet.note_stage_wall("q5.partials", time.monotonic_ns() - t0)
-        n = sales.shape[0]
-        return _int64_table([sales, rets, profit, seen,
-                             np.full(n, int(bool(of)), dtype=np.int64)],
-                            device)
+        def compute_part(shard: int, ctx=None):
+            """Deterministic per-shard partials -> one int64 kudo table.
+            Runs for our own shards, for INHERITED shards after a
+            rebalance, and (cancel-aware via ``ctx``) as a speculative
+            re-execution of a straggler's shard."""
+            t0 = time.monotonic_ns()
+            outs = _q5_partials(_q5_shard_args(d, shard, world0), p, fused,
+                                check=None if ctx is None
+                                else ctx.check_cancel)
+            sales, rets, profit, seen, of = outs
+            fleet.note_stage_wall("q5.partials", time.monotonic_ns() - t0)
+            n = sales.shape[0]
+            return _int64_table([sales, rets, profit, seen,
+                                 np.full(n, int(bool(of)), dtype=np.int64)],
+                                device)
 
-    t0 = time.perf_counter()
-    view = fleet.view()
-    for shard in view.shards_of(rank):
-        t = compute_part(shard)
-        _maybe_die("q5:partials")
-        transport.broadcast_part(OpIds.EQ5_PARTS, shard, t)
-    t1 = time.perf_counter()
-    got = transport.gather_parts(
-        OpIds.EQ5_PARTS, range(world0), compute=compute_part,
-        deadline_s=transport.recv_timeout_s)
-    fields = schema_of_table(_int64_table([[0]] * 5, "cpu"))
-    vecs = None
-    of_any = False
-    for shard in range(world0):
-        merged = _kudo.merge_to_table(got[shard], fields, device=device)
-        cols = [c.data for c in merged.columns]
-        of_any = of_any or bool((cols[-1] > 0).any())
-        vecs = cols[:-1] if vecs is None else [
-            a + b for a, b in zip(vecs, cols[:-1])]
-    t2 = time.perf_counter()
-    LAST_TIMES["q5"] = {"partials_ms": (t1 - t0) * 1e3,
-                        "exchange_ms": (t2 - t1) * 1e3}
-    sales, rets, profit, seen = vecs
-    return _q5_finish(sales, rets, profit, seen, of_any, d, p, fused,
-                      device)
+        t0 = time.perf_counter()
+        view = fleet.view()
+        for shard in view.shards_of(rank):
+            t = compute_part(shard)
+            _maybe_die("q5:partials")
+            transport.broadcast_part(OpIds.EQ5_PARTS, shard, t)
+        t1 = time.perf_counter()
+        got = transport.gather_parts(
+            OpIds.EQ5_PARTS, range(world0), compute=compute_part,
+            deadline_s=transport.recv_timeout_s)
+        fields = schema_of_table(_int64_table([[0]] * 5, "cpu"))
+        vecs = None
+        of_any = False
+        for shard in range(world0):
+            merged = _kudo.merge_to_table(got[shard], fields, device=device)
+            cols = [c.data for c in merged.columns]
+            of_any = of_any or bool((cols[-1] > 0).any())
+            vecs = cols[:-1] if vecs is None else [
+                a + b for a, b in zip(vecs, cols[:-1])]
+        t2 = time.perf_counter()
+        LAST_TIMES["q5"] = {"partials_ms": (t1 - t0) * 1e3,
+                            "exchange_ms": (t2 - t1) * 1e3}
+        sales, rets, profit, seen = vecs
+        return _q5_finish(sales, rets, profit, seen, of_any, d, p, fused,
+                          device)
 
 
 # ----------------------------------------------------------------- q72
@@ -372,45 +386,49 @@ def run_dist_q72(params: Optional[dict] = None, *, transport=None,
     if transport is None:
         transport = X.table_transport()
     rank, world = transport.rank, transport.world
-    cs_rows = max(int(p["cs_rows"]) // world, 1) * world
-    d = T.gen_q72(cs_rows=cs_rows, inv_rows=p["inv_rows"],
-                  items=p["items"], days=p["days"], device=device)
-    shard_args = (
-        _shard(d.cs_item, rank, world),
-        _shard(d.cs_date, rank, world),
-        _shard(d.cs_qty, rank, world),
-        d.inv_item, d.inv_date, d.inv_qty, d.item_id)
+    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
+    # worker's _profiled session) opens beside this span
+    with _obs.TRACER.span("dist_q72", kind="query",
+                          attrs={"rank": rank, "world": world}):
+        cs_rows = max(int(p["cs_rows"]) // world, 1) * world
+        d = T.gen_q72(cs_rows=cs_rows, inv_rows=p["inv_rows"],
+                      items=p["items"], days=p["days"], device=device)
+        shard_args = (
+            _shard(d.cs_item, rank, world),
+            _shard(d.cs_date, rank, world),
+            _shard(d.cs_qty, rank, world),
+            d.inv_item, d.inv_date, d.inv_qty, d.item_id)
 
-    fused = _fused()
-    t0 = time.perf_counter()
-    if fused:
-        from spark_rapids_tpu_torch.plan import catalog as C
-        outs, _cap = C.run_q72_partials(
-            shard_args, p["items"], p["max_week"],
-            p["join_capacity"], p["week0"])
-    else:
-        outs, _cap = T.run_with_capacity_retry(
-            lambda cap: T._q72_partials(p["items"], p["max_week"], cap,
-                                        p["week0"]),
-            shard_args, p["join_capacity"])
-    counts, of = outs
-    of = bool(of)
-    t1 = time.perf_counter()
-    (counts,), of_any = _reduce_scatter_allgather(
-        transport, OpIds.Q72_REDUCE_SCATTER,
-        OpIds.Q72_ALLGATHER, [counts], of, device)
-    t2 = time.perf_counter()
-    LAST_TIMES["q72"] = {"partials_ms": (t1 - t0) * 1e3,
-                         "exchange_ms": (t2 - t1) * 1e3}
-    if fused:
-        item, week, cnt, _of = C.run_q72_finish(
-            counts, torch.tensor(of_any, device=device), p["items"],
-            p["max_week"], p["limit"], p["week0"])
-    else:
-        item, week, cnt = T._q72_finish(
-            p["items"], p["max_week"], p["limit"], p["week0"])(counts)
-    return {"item": _host(item), "week": _host(week),
-            "cnt": _host(cnt), "overflow": np.asarray(of_any)}
+        fused = _fused()
+        t0 = time.perf_counter()
+        if fused:
+            from spark_rapids_tpu_torch.plan import catalog as C
+            outs, _cap = C.run_q72_partials(
+                shard_args, p["items"], p["max_week"],
+                p["join_capacity"], p["week0"])
+        else:
+            outs, _cap = T.run_with_capacity_retry(
+                lambda cap: T._q72_partials(p["items"], p["max_week"], cap,
+                                            p["week0"]),
+                shard_args, p["join_capacity"])
+        counts, of = outs
+        of = bool(of)
+        t1 = time.perf_counter()
+        (counts,), of_any = _reduce_scatter_allgather(
+            transport, OpIds.Q72_REDUCE_SCATTER,
+            OpIds.Q72_ALLGATHER, [counts], of, device)
+        t2 = time.perf_counter()
+        LAST_TIMES["q72"] = {"partials_ms": (t1 - t0) * 1e3,
+                             "exchange_ms": (t2 - t1) * 1e3}
+        if fused:
+            item, week, cnt, _of = C.run_q72_finish(
+                counts, torch.tensor(of_any, device=device), p["items"],
+                p["max_week"], p["limit"], p["week0"])
+        else:
+            item, week, cnt = T._q72_finish(
+                p["items"], p["max_week"], p["limit"], p["week0"])(counts)
+        return {"item": _host(item), "week": _host(week),
+                "cnt": _host(cnt), "overflow": np.asarray(of_any)}
 
 
 def single_q72(params: Optional[dict] = None,
@@ -445,6 +463,17 @@ def _compile_seconds() -> float:
                for cs in compiler._STAGE_MEMO.values())
 
 
+def _parse_trace_ctx():
+    spec = os.environ.get("SPARK_RAPIDS_TPU_DIST_TRACE_CTX", "")
+    if ":" not in spec:
+        return None
+    try:
+        tid, sid = spec.split(":")
+        return _obs.SpanContext(int(tid, 16), int(sid, 16))
+    except ValueError:
+        return None
+
+
 def main(argv=None) -> int:
     t_start = time.time()
     ap = argparse.ArgumentParser(
@@ -473,6 +502,7 @@ def main(argv=None) -> int:
     from spark_rapids_tpu_torch.distributed import transport as TR
     from spark_rapids_tpu_torch.distributed.mesh import try_form_mesh
     from spark_rapids_tpu_torch.distributed.service import ShuffleService
+    from spark_rapids_tpu_torch.observability.dumpio import dump_via
     from spark_rapids_tpu_torch.robustness import links
     from spark_rapids_tpu_torch.shuffle import kudo
 
@@ -488,14 +518,23 @@ def main(argv=None) -> int:
     overrides = json.loads(args.params)
 
     kudo.set_crc_enabled(True)
-    # ROADMAP A14: the JAX worker enables metrics and tracing here, and
-    # opens its process span under the launcher's trace context
+    _obs.enable()
+    _obs.enable_tracing()
+
     mesh_info = try_form_mesh(rank, world)
     service = ShuffleService(
         rank, world, args.addresses.split(","),
         elastic=args.elastic).start().install()
     respawned = os.environ.get(
         "SPARK_RAPIDS_TPU_DIST_RESPAWN", "") == "1"
+    root = _obs.TRACER.start_span(
+        "dist_worker", kind="process", parent=_parse_trace_ctx(),
+        attrs={"rank": rank, "world": world,
+               "mesh": mesh_info["mode"],
+               "respawned": respawned})
+    # control/replay daemon threads parent under this worker's
+    # process span so the fleet trace stays ONE connected tree
+    service.trace_ctx = _obs.SpanContext(root.trace_id, root.span_id)
     if args.elastic and respawned:
         # a respawned incarnation: announce ourselves so survivors
         # waiting at the elastic barrier learn we are back, and learn
@@ -519,8 +558,9 @@ def main(argv=None) -> int:
             op_s[op] = time.perf_counter() - t0
             np.savez(os.path.join(
                 outdir, f"result_{op}_rank{rank}.npz"), **result)
-        # ROADMAP A14: the JAX worker dumps each query's profile and
-        # metrics here, and publishes its timeseries window to rank 0
+        # ROADMAP A14 step 5(b): the JAX worker dumps each query's
+        # profile and metrics here, and publishes its timeseries window
+        # to rank 0
         if args.elastic:
             # membership-tolerant: survives peers leaving AND waits
             # for a respawned peer when the launcher may send one
@@ -538,8 +578,16 @@ def main(argv=None) -> int:
             f.write(f"{type(e).__name__}: {e}\n")
         raise
     finally:
-        # ROADMAP A14: the spans, metrics and journal dumps of the JAX
-        # worker go beside this summary
+        root.end()
+        _obs.TRACER.dump_jsonl(
+            os.path.join(outdir, f"spans_rank{rank}.jsonl"))
+        dump_via(os.path.join(outdir, f"metrics_rank{rank}.json"),
+                 lambda f: f.write(_obs.METRICS.snapshot_json()))
+        # the journal carries the fleet evidence spine
+        # (fleet_membership / fleet_speculation / fleet_inherit /
+        # shuffle_dup_dropped)
+        _obs.dump_journal_jsonl(
+            os.path.join(outdir, f"journal_rank{rank}.jsonl"))
         fleet = service.fleet
         summary = {
             "rank": rank, "world": world, "ops": ops,

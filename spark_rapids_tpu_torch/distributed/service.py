@@ -53,12 +53,14 @@ membership and policy:
     without it.
 
 ``events`` keeps the fleet's decisions (``fleet_inherit``,
-``fleet_speculation``, ``fleet_resplit``, ``shuffle_dup_dropped``) as
-the JAX package's journal does.  ROADMAP A14: the metrics
-(``srt_fleet_*``, shuffle wire/wait time), the spans around exchanges
-and gathers, the fleet timeseries merger (``FleetTimeseries``,
-``publish_timeseries``, the ``timeseries`` control message) and the
-trace context of the control threads.
+``fleet_speculation``, ``fleet_resplit``, ``shuffle_dup_dropped``); the
+same decisions go to the observability journal and ``srt_fleet_*``
+counters, exchanges and gathers open ``shuffle_exchange`` /
+``elastic_gather`` spans with their wire and wait times recorded, and
+sender and control threads adopt the caller's (or ``trace_ctx``'s)
+span context.  ROADMAP A14 step 5(b): the fleet timeseries merger
+(``FleetTimeseries``, ``publish_timeseries``, the ``timeseries``
+control message).
 """
 
 from __future__ import annotations
@@ -72,6 +74,9 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Set
 
 import torch
+
+from spark_rapids_tpu_torch import observability as _obs
+from spark_rapids_tpu_torch.analysis.lockdep import make_lock
 
 from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
@@ -128,13 +133,18 @@ class ShuffleService:
             r: PeerLink(self.rank, r, addresses[r], policy=policy)
             for r in range(world) if r != self.rank}
         self._started = False
-        self._lock = threading.Lock()
+        self._lock = make_lock("dist.service")
         # per-op first-touch monotonic ns: arrival gaps feed the
         # straggler window relative to when THIS rank engaged the op
         self._op_t0: Dict[int, int] = {}
-        self._op_t0_lock = threading.Lock()
+        self._op_t0_lock = make_lock("dist.service.op_t0")
         self.events: List[dict] = []
         self._events_lock = threading.Lock()
+        # fallback trace context for control/replay daemon threads
+        # (they have no ambient span: without this every replayed
+        # shuffle_send would root a fresh orphan trace and break the
+        # one-stitched-tree invariant across a worker respawn)
+        self.trace_ctx = None
 
     # ------------------------------------------------------- lifecycle
 
@@ -168,8 +178,6 @@ class ShuffleService:
         self.stop()
 
     def _event(self, kind: str, **detail) -> None:
-        # ROADMAP A14: the JAX package journals these records and counts
-        # them in srt_fleet_* / srt_shuffle_dup_dropped_total
         with self._events_lock:
             self.events.append(dict(kind=kind, **detail))
 
@@ -192,31 +200,42 @@ class ShuffleService:
         mine = tables_by_dest[self.rank]
         if fields is None:
             fields = schema_of_table(mine)
-        # ROADMAP A14: a shuffle_exchange span wraps this round and its
-        # wire and wait times go to the metrics
-        # serialize once per DISTINCT table: allgather passes the same
-        # object to every destination, so an N-rank gather pays one
-        # kudo write, not N identical ones
-        blob_cache: Dict[int, bytes] = {}
-        payloads = []
-        for t in tables_by_dest:
-            blob = blob_cache.get(id(t))
-            if blob is None:
-                blob = blob_cache[id(t)] = self._serialize(t)
-            payloads.append(blob)
-        # local partition loops back through the same parsed form
-        # (read_tables verifies its CRC too: uniform path)
-        local = _kudo.read_tables(io.BytesIO(payloads[self.rank]))
-        self._send_all(op_id, payloads)
-        others = [r for r in range(self.world) if r != self.rank]
-        received = self.inbox.wait(op_id, others, self.recv_timeout_s) \
-            if others else {}
-        received[self.rank] = local
-        tables: List[_kudo.KudoTable] = []
-        for src in range(self.world):
-            tables.extend(received[src])
-        return _kudo.merge_to_table_with_metrics(
-            tables, fields, _exchange.table_device(mine))[0]
+        with _obs.TRACER.span("shuffle_exchange", kind="stage",
+                              attrs={"op": op_id,
+                                     "world": self.world}) as sp:
+            # serialize once per DISTINCT table: allgather passes the
+            # same object to every destination, so an N-rank gather
+            # pays one kudo write, not N identical ones
+            t_wire = time.monotonic_ns()
+            blob_cache: Dict[int, bytes] = {}
+            payloads = []
+            for t in tables_by_dest:
+                blob = blob_cache.get(id(t))
+                if blob is None:
+                    blob = blob_cache[id(t)] = self._serialize(t)
+                payloads.append(blob)
+            # local partition loops back through the same parsed form
+            # (read_tables verifies its CRC too: uniform path)
+            local = _kudo.read_tables(io.BytesIO(payloads[self.rank]))
+            # wire vs wait are sequential, non-overlapping segments on
+            # this thread (_send_all joins every sender before the
+            # inbox wait starts)
+            sent = self._send_all(op_id, payloads)
+            t_wait = time.monotonic_ns()
+            _obs.record_shuffle_wire(op_id, t_wait - t_wire)
+            others = [r for r in range(self.world) if r != self.rank]
+            received = self.inbox.wait(op_id, others,
+                                       self.recv_timeout_s) \
+                if others else {}
+            _obs.record_shuffle_wait(
+                op_id, time.monotonic_ns() - t_wait)
+            received[self.rank] = local
+            tables: List[_kudo.KudoTable] = []
+            for src in range(self.world):
+                tables.extend(received[src])
+            sp.set_attr("bytes_sent", sent)
+            return _kudo.merge_to_table_with_metrics(
+                tables, fields, _exchange.table_device(mine))[0]
 
     def _send_all(self, op_id: int, payloads) -> int:
         """One send per peer link, all in flight CONCURRENTLY: every
@@ -226,12 +245,20 @@ class ShuffleService:
         escalates."""
         sent = [0] * self.world
         errs: List[Optional[BaseException]] = [None] * self.world
+        # sender threads start with an EMPTY tracer context stack:
+        # adopt the caller's open span so each link's shuffle_send
+        # span parents under the exchange instead of rooting a new
+        # (orphan) trace
+        ctx = _obs.TRACER.current_context()
 
         def one(dst: int) -> None:
+            holder = _obs.TRACER.activate(ctx)
             try:
                 sent[dst] = self.links[dst].send(op_id, payloads[dst])
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errs[dst] = e
+            finally:
+                holder.end()
 
         workers = [threading.Thread(
             target=one, args=(dst,),
@@ -274,9 +301,11 @@ class ShuffleService:
 
     def _dup(self, src: int, op_id: int, part: int, status: str) -> None:
         _tr.count("dup_dropped")
+        identical = (None if status == "dup_framing"
+                     else status == "dup_identical")
+        _obs.record_shuffle_dup_dropped(src, op_id, part, identical)
         self._event("shuffle_dup_dropped", src=src, op=op_id, part=part,
-                    identical=None if status == "dup_framing"
-                    else status == "dup_identical")
+                    identical=identical)
 
     def on_edata(self, src: int, op_id: int, seq: int, epoch: int,
                  part_field: int, payload: bytes) -> bytes:
@@ -285,7 +314,7 @@ class ShuffleService:
         listener answers NAK)."""
         fleet = self.fleet
         if fleet.is_stale(epoch):
-            # ROADMAP A14: record_fleet_stale_nak
+            _obs.record_fleet_stale_nak(src, epoch, fleet.epoch)
             _tr.count("stale_naks")
             return STALE + struct.pack(">I", fleet.epoch)
         fleet.learn_epoch(epoch)
@@ -312,7 +341,7 @@ class ShuffleService:
                                time.monotonic_ns() - t0)
             # received payloads feed the op's skew window too
             fleet.note_part_bytes(op_id, len(payload))
-        _tr._note_link("recv", src, len(payload))
+        _tr._note_link("recv", src, len(payload), op_id)
         return ACK
 
     def on_ctrl(self, src: int, epoch: int, payload: bytes) -> bytes:
@@ -348,13 +377,22 @@ class ShuffleService:
             self._spawn(self._replay, src, int(obj.get("op", -1)),
                         obj.get("parts"))
         elif typ == "timeseries":
-            pass    # ROADMAP A14: the fleet timeseries merger folds it
+            pass    # ROADMAP A14 step 5(b): the fleet timeseries merger
         else:
             raise ValueError(f"unknown control type {typ!r}")
         return ACK
 
     def _spawn(self, fn, *args) -> None:
-        threading.Thread(target=fn, args=args, daemon=True,
+        ctx = _obs.TRACER.current_context() or self.trace_ctx
+
+        def run() -> None:
+            holder = _obs.TRACER.activate(ctx)
+            try:
+                fn(*args)
+            finally:
+                holder.end()
+
+        threading.Thread(target=run, daemon=True,
                          name=f"srt-fleet-ctrl-{self.rank}").start()
 
     # ----------------------------------------- elastic: send helpers
@@ -473,9 +511,11 @@ class ShuffleService:
                 _kudo.read_tables(io.BytesIO(blob)), blob)
             subs.append((pack_resplit(part, k, nsub), blob))
         total = sum(len(b) for _, b in subs)
+        evidence = dict(hot, link_skew=self.fleet.link_skew())
+        _obs.record_fleet_resplit(op_id, part, nsub, total,
+                                  evidence=evidence)
         self._event("fleet_resplit", op=op_id, part=part, nsub=nsub,
-                    bytes=total,
-                    evidence=dict(hot, link_skew=self.fleet.link_skew()))
+                    bytes=total, evidence=evidence)
         self._fanout(op_id, subs)
         return total
 
@@ -488,14 +528,19 @@ class ShuffleService:
         peers = [r for r in sorted(view.live) if r != self.rank]
         if not peers:
             return
+        t_wire = time.monotonic_ns()
         dead: List[int] = []  # list.append is GIL-atomic
+        ctx = _obs.TRACER.current_context()
 
         def one(dst: int) -> None:
+            holder = _obs.TRACER.activate(ctx)
             try:
                 for part_field, payload in frames:
                     self._elastic_send(dst, op_id, part_field, payload)
             except (PeerDiedException, OSError):
                 dead.append(dst)
+            finally:
+                holder.end()
 
         workers = [threading.Thread(
             target=one, args=(d,), daemon=True,
@@ -504,6 +549,8 @@ class ShuffleService:
             w.start()
         for w in workers:
             w.join()
+        _obs.record_shuffle_wire(op_id,
+                                 time.monotonic_ns() - t_wire)
         for d in dead:
             self._report_death(d)
 
@@ -541,88 +588,107 @@ class ShuffleService:
         spec_seen: Set[int] = set()  # parts with a resolved decision
         last_fetch = 0.0
         fetch_rr = 0
-        while True:
-            view = fleet.view()
-            want_now = set(want(view) if callable(want) else want)
-            missing = sorted(want_now - self.parts.have(op_id))
-            if not missing:
-                break
-            elapsed = time.monotonic() - t0
-            for p in missing:
-                if owner_of is not None:
-                    orig = resp = owner_of(p)
-                elif 0 <= p < view.world0:
-                    # shard gather: shard p started on rank p; the
-                    # CURRENT assignment names who answers for it after
-                    # any rebalance
-                    orig, resp = p, view.owner(p)
-                else:
-                    orig = resp = p
-                if compute is not None and resp == self.rank \
-                        and p not in done:
-                    # my part: mine originally, or inherited from a
-                    # departed rank at this epoch
-                    if orig != self.rank:
-                        self._event("fleet_inherit", op=op_id, part=p,
-                                    dead_owner=orig, epoch=view.epoch)
-                    done.add(p)
-                    self.broadcast_part(op_id, p, compute(p, None))
-                    continue
-                if compute is not None and p not in spec_seen \
-                        and resp != self.rank \
-                        and resp not in view.departed:
-                    ev = fleet.should_speculate(op_id,
-                                                int(elapsed * 1e9))
-                    if ev:
-                        spec_seen.add(p)
-                        if fleet.policy.speculator(
-                                view, resp) == self.rank:
-                            done.add(p)
-                            self._speculate(op_id, p, resp, compute, ev)
-            if missing and elapsed - last_fetch >= fetch_after \
-                    and elapsed >= fetch_after:
-                # replay fetch (periodic): covers silently-dropped
-                # frames, late joiners catching up on a finished round,
-                # and replays lost to a peer's death (a failed fetch IS
-                # the death detection).  One peer per interval,
-                # round-robin.
-                last_fetch = elapsed
-                fetch_peers = [p for p in sorted(view.live)
-                               if p != self.rank]
-                if fetch_peers:
-                    peer = fetch_peers[fetch_rr % len(fetch_peers)]
-                    fetch_rr += 1
-                    self._spawn(self._fetch_from, peer, op_id,
-                                list(missing))
-            if elapsed >= deadline:
-                missing = sorted(set(want_now) - self.parts.have(op_id))
+        # gather idle, split by cause: waits while any missing part is
+        # under a live speculation decision are a straggler's story
+        # (speculation_wait), the rest ordinary inbox idle
+        wait_ns = 0
+        spec_wait_ns = 0
+        with _obs.TRACER.span("elastic_gather", kind="stage",
+                              attrs={"op": op_id}) as sp:
+            while True:
+                view = fleet.view()
+                want_now = set(want(view) if callable(want) else want)
+                missing = sorted(want_now - self.parts.have(op_id))
                 if not missing:
                     break
-                if drop_departed:
-                    live_missing = [
-                        p for p in missing
-                        if (owner_of(p) if owner_of else p)
-                        not in view.departed]
-                    if not live_missing:
-                        break  # only ghosts missing: proceed
-                    missing = live_missing
-                if compute is not None:
-                    # terminal fallback: every input is seeded and
-                    # deterministic, so local recompute converges (the
-                    # fleet may be unreachable, the answer is not)
-                    for p in missing:
+                elapsed = time.monotonic() - t0
+                for p in missing:
+                    if owner_of is not None:
+                        orig = resp = owner_of(p)
+                    elif 0 <= p < view.world0:
+                        # shard gather: shard p started on rank p; the
+                        # CURRENT assignment names who answers for it after
+                        # any rebalance
+                        orig, resp = p, view.owner(p)
+                    else:
+                        orig = resp = p
+                    if compute is not None and resp == self.rank \
+                            and p not in done:
+                        # my part: mine originally, or inherited from a
+                        # departed rank at this epoch
+                        if orig != self.rank:
+                            _obs.JOURNAL.emit(
+                                "fleet_inherit", op=op_id, part=p,
+                                dead_owner=orig, epoch=view.epoch)
+                            self._event("fleet_inherit", op=op_id, part=p,
+                                        dead_owner=orig, epoch=view.epoch)
+                        done.add(p)
                         self.broadcast_part(op_id, p, compute(p, None))
-                    continue
-                raise PeerDiedException(
-                    ",".join(str(owner_of(p) if owner_of else p)
-                             for p in missing),
-                    0, detail=f"elastic gather op {op_id}: parts "
-                              f"{missing} missing after "
-                              f"{deadline:.1f}s")
-            self.parts.wait_any(op_id, missing, 0.1)
-        have = self.parts.get(op_id)
-        want_final = set(want(fleet.view()) if callable(want) else want)
-        return {p: have[p] for p in want_final if p in have}
+                        continue
+                    if compute is not None and p not in spec_seen \
+                            and resp != self.rank \
+                            and resp not in view.departed:
+                        ev = fleet.should_speculate(op_id,
+                                                    int(elapsed * 1e9))
+                        if ev:
+                            spec_seen.add(p)
+                            if fleet.policy.speculator(
+                                    view, resp) == self.rank:
+                                done.add(p)
+                                self._speculate(op_id, p, resp, compute, ev)
+                if missing and elapsed - last_fetch >= fetch_after \
+                        and elapsed >= fetch_after:
+                    # replay fetch (periodic): covers silently-dropped
+                    # frames, late joiners catching up on a finished round,
+                    # and replays lost to a peer's death (a failed fetch IS
+                    # the death detection).  One peer per interval,
+                    # round-robin.
+                    last_fetch = elapsed
+                    fetch_peers = [p for p in sorted(view.live)
+                                   if p != self.rank]
+                    if fetch_peers:
+                        peer = fetch_peers[fetch_rr % len(fetch_peers)]
+                        fetch_rr += 1
+                        self._spawn(self._fetch_from, peer, op_id,
+                                    list(missing))
+                if elapsed >= deadline:
+                    missing = sorted(set(want_now) - self.parts.have(op_id))
+                    if not missing:
+                        break
+                    if drop_departed:
+                        live_missing = [
+                            p for p in missing
+                            if (owner_of(p) if owner_of else p)
+                            not in view.departed]
+                        if not live_missing:
+                            break  # only ghosts missing: proceed
+                        missing = live_missing
+                    if compute is not None:
+                        # terminal fallback: every input is seeded and
+                        # deterministic, so local recompute converges (the
+                        # fleet may be unreachable, the answer is not)
+                        for p in missing:
+                            self.broadcast_part(op_id, p, compute(p, None))
+                        continue
+                    raise PeerDiedException(
+                        ",".join(str(owner_of(p) if owner_of else p)
+                                 for p in missing),
+                        0, detail=f"elastic gather op {op_id}: parts "
+                                  f"{missing} missing after "
+                                  f"{deadline:.1f}s")
+                t_w = time.monotonic_ns()
+                self.parts.wait_any(op_id, missing, 0.1)
+                dt = time.monotonic_ns() - t_w
+                if spec_seen.intersection(missing):
+                    spec_wait_ns += dt
+                else:
+                    wait_ns += dt
+            _obs.record_shuffle_wait(op_id, wait_ns, spec_wait_ns)
+            have = self.parts.get(op_id)
+            want_final = set(want(fleet.view()) if callable(want) else want)
+            sp.set_attr("parts", len(want_final))
+            sp.set_attr("epoch", fleet.epoch)
+            return {p: have[p] for p in want_final if p in have}
 
     def _fetch_from(self, peer: int, op_id: int, parts=None) -> None:
         try:
@@ -656,6 +722,8 @@ class ShuffleService:
                            cancel_event=cancel)
 
         def outcome(what: str) -> None:
+            _obs.record_fleet_speculation(op_id, part, owner, self.rank,
+                                          what, evidence)
             self._event("fleet_speculation", op=op_id, part=part,
                         owner=owner, by=self.rank, outcome=what,
                         evidence=evidence)

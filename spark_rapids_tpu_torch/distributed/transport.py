@@ -60,10 +60,10 @@ PERSISTENT per-frame delay of ``ms`` milliseconds on every send to
 as a wildcard.  Programmatic twin: :func:`set_link_fault`.
 
 ``STATS`` counts frames, payload bytes, NAKs and resends for the worker
-summaries, and :func:`link_bytes` the bytes per (direction, peer).
-ROADMAP A14: the JAX package records these as ``srt_shuffle_link_*``
-metrics, opens a ``shuffle_send`` span around each send, and guards its
-locks with lockdep (plain ``threading.Lock`` here).
+summaries, and :func:`link_bytes` the bytes per (direction, peer); the
+same deliveries feed the ``srt_shuffle_link_*`` metrics while
+observability is on, a ``shuffle_send`` span wraps each send, and the
+link locks are lockdep's (``dist.*`` classes).
 """
 
 
@@ -77,6 +77,9 @@ import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
 
+from spark_rapids_tpu_torch import observability as _obs
+from spark_rapids_tpu_torch.analysis import lockdep
+from spark_rapids_tpu_torch.analysis.lockdep import make_lock
 from spark_rapids_tpu_torch.robustness.fleet import StaleEpochError
 from spark_rapids_tpu_torch.robustness.links import (
     PeerDiedException, ShuffleLinkError, with_link_retry)
@@ -159,7 +162,12 @@ def count(key: str, n: int = 1) -> None:
         STATS[key] += n
 
 
-def _note_link(direction: str, peer: int, nbytes: int) -> None:
+def _note_link(direction: str, peer: int, nbytes: int,
+               op_id: int = 0) -> None:
+    """One delivered payload: 'send' = acked by the peer, 'recv' =
+    received AND CRC-verified (``srt_shuffle_link_*`` counts the same
+    deliveries)."""
+    _obs.record_shuffle_link(direction, peer, nbytes, op_id)
     with _STATS_LOCK:
         key = "frames_sent" if direction == "send" else "frames_recv"
         STATS[key] += 1
@@ -178,7 +186,7 @@ def link_bytes() -> Dict[Tuple[str, int], int]:
 
 # ----------------------------------------------------- fault injection
 
-_FAULT_LOCK = threading.Lock()
+_FAULT_LOCK = make_lock("dist.fault")
 # {(mode, dst, op): remaining}: armed once from env or set_link_fault
 _FAULTS: Dict[Tuple[str, int, int], int] = {}
 # {dst: delay_ms}: PERSISTENT per-frame injected delay (dst -1 = any)
@@ -249,7 +257,7 @@ class Inbox:
     deadline lapses -> PeerDiedException naming the missing peers)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("dist.inbox")
         self._cv = threading.Condition(self._lock)
         self._slots: Dict[Tuple[int, int], List[_kudo.KudoTable]] = {}
         # (op_id, src) keys whose round died in wait(): a handler
@@ -308,7 +316,7 @@ class PartInbox:
     MAX_OPS = 32  # replay store bound: oldest op evicted past this
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("dist.part_inbox")
         self._cv = threading.Condition(self._lock)
         # op -> {part: [KudoTable]}; payloads keyed (op, part)
         self._parts: Dict[int, Dict[int, list]] = {}
@@ -445,7 +453,7 @@ class Listener:
         self._sock: Optional[socket.socket] = None
         self._threads: List[threading.Thread] = []
         self._conns: set = set()
-        self._conns_lock = threading.Lock()
+        self._conns_lock = make_lock("dist.listener.conns")
         self._stop = threading.Event()
         # (src, op, seq) already delivered: a resend after a lost ACK
         # re-ACKs without re-inserting.  Recorded only AFTER a
@@ -454,7 +462,7 @@ class Listener:
         # Bounded: 4096 message ids dwarf any in-flight window.
         self._seen: Dict[Tuple[int, int, int], bool] = {}
         self._seen_order: List[Tuple[int, int, int]] = []
-        self._seen_lock = threading.Lock()
+        self._seen_lock = make_lock("dist.listener.seen")
 
     def start(self) -> "Listener":
         fam, target = _parse_addr(self.addr)
@@ -566,7 +574,10 @@ class Listener:
                     # truncated link mid-payload: the partial bytes
                     # are unusable; drop them, close, let the sender's
                     # retry resend over a fresh connection
-                    # (ROADMAP A14: record_kudo_corruption "resync")
+                    _obs.record_kudo_corruption(
+                        "resync", skipped_bytes=len(payload),
+                        detail=f"truncated link from rank {src} "
+                               f"op {op_id}")
                     return
                 if kind == KIND_DATA:
                     self._answer(conn, src, op_id, seq, payload)
@@ -601,7 +612,7 @@ class Listener:
             return
         self.inbox.put(op_id, src, tables)
         self._mark_delivered(key)
-        _note_link("recv", src, len(payload))
+        _note_link("recv", src, len(payload), op_id)
         conn.sendall(ACK)
 
     def _answer_elastic(self, conn, kind: int, src: int, op_id: int,
@@ -655,7 +666,7 @@ class PeerLink:
         # and have fresh frames falsely re-ACKed without delivery; the
         # pid offset keeps incarnations disjoint
         self._seq = (os.getpid() & 0x7FFF) << 16
-        self._lock = threading.Lock()
+        self._lock = make_lock("dist.peer_link")
 
     # ------------------------------------------------------- plumbing
 
@@ -758,9 +769,11 @@ class PeerLink:
                     if delay_ms > 0:
                         # injected per-frame straggler delay
                         time.sleep(delay_ms / 1000.0)
-                    # this link mutex is held across the wire
-                    # round-trip BY DESIGN: it serializes one peer's
-                    # protocol (ROADMAP A14: lockdep.note_blocking)
+                    # lockdep marker: this link mutex is held across
+                    # the wire round-trip BY DESIGN (it serializes one
+                    # peer's protocol); the evidence lets an operator
+                    # see exactly how long-held it is
+                    lockdep.note_blocking("transport.send")
                     s.sendall(head + wire)
                     verdict = s.recv(1)
                     peer_epoch = b""
@@ -793,8 +806,11 @@ class PeerLink:
                     f"link to peer {self.peer_rank} closed before "
                     f"verdict (op {op_id})", reason="link")
 
-        # ROADMAP A14: a shuffle_send span wraps this send
-        n = with_link_retry(attempt, peer=self.peer_rank,
-                            policy=self.policy)
-        _note_link("send", self.peer_rank, n)
+        with _obs.TRACER.span("shuffle_send", kind="shuffle_send",
+                              attrs={"peer": self.peer_rank,
+                                     "op": op_id,
+                                     "bytes": len(payload)}):
+            n = with_link_retry(attempt, peer=self.peer_rank,
+                                policy=self.policy)
+        _note_link("send", self.peer_rank, n, op_id)
         return n

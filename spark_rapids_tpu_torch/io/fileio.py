@@ -16,9 +16,13 @@ from __future__ import annotations
 import io
 import os
 import threading
+import time
 from contextlib import closing
 from dataclasses import dataclass
 from typing import List, Optional, Protocol
+
+from spark_rapids_tpu_torch import observability as _obs
+from spark_rapids_tpu_torch.analysis import lockdep
 
 
 @dataclass(frozen=True)
@@ -151,8 +155,11 @@ class RangeReader:
         if offset < 0 or length < 0:
             raise ValueError(
                 f"negative range: offset={offset} length={length}")
-        # ROADMAP A14: the JAX package marks a blocking fetch for lockdep
-        # here (lockdep.note_blocking)
+        # lockdep blocking marker: a storage fetch under a held lock
+        # is the latency bug the analyzer hunts (one bool read when
+        # lockdep is off)
+        lockdep.note_blocking("fileio.read_range")
+        t0 = time.perf_counter_ns()
         with self._lock:
             self._f.seek(offset)
             data = self._f.read(length)
@@ -160,9 +167,8 @@ class RangeReader:
             raise EOFError(
                 f"short read: wanted {length} bytes at {offset} of "
                 f"{self._path}, got {len(data)}")
-        # ROADMAP A14: the JAX package records the fetch's bytes and
-        # time here (observability.record_io_read: srt_io_read_bytes_total,
-        # srt_io_read_ns and an io_read journal event)
+        _obs.record_io_read(self._path, length,
+                            time.perf_counter_ns() - t0)
         return data
 
     def close(self) -> None:

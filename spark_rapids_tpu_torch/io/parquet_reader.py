@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import DType
@@ -524,86 +525,97 @@ def read_table(path: str, columns: Optional[Sequence[str]] = None,
     ``device``.  ``columns`` prunes the footer first (projection
     pushdown — unrequested chunks are never fetched); ``None`` reads
     everything.  ``stats``, when given, is filled with this read's
-    counts (see the module docstring)."""
-    # ROADMAP A14: the JAX package opens an io_read span here
-    # ONE opened stream serves the footer + every column-chunk fetch
-    with RangeReader(path, fileio) as rr:
-        size = rr.length
-        t_all = time.perf_counter_ns()
-        flen = pf.footer_tail_length(
-            size, rr.read(size - 8, 8) if size >= 8 else b"")
-        tree = pf.parse_footer(rr.read(size - 8 - flen, flen))
-        if columns is not None:
-            # dedup, order-preserving: a repeated request resolves to
-            # one leaf, and the missing-list check below stays honest
-            columns = list(dict.fromkeys(columns))
-            tree = pf.prune_columns(tree, list(columns),
-                                    case_sensitive=case_sensitive)
-        leaves = pf.schema_leaves(tree)
-        if columns is not None and len(leaves) != len(columns):
-            have = {lf.name if case_sensitive else lf.name.lower()
-                    for lf in leaves}
-            missing = [c for c in columns
-                       if (c if case_sensitive else c.lower())
-                       not in have]
-            raise pf.ParquetFooterException(
-                f"columns not in {os.path.basename(path)}: {missing}")
-        col_dtypes = [_dtype_for_leaf(lf) for lf in leaves]
-        try:
-            rg_entry = tree[1].get(4)
-            rgs = rg_entry[1][2] if rg_entry is not None else []
-            group_rows = [int(_sval(rg, 3, 0)) for rg in rgs]
-        except (TypeError, IndexError, KeyError, AttributeError) as e:
-            raise pf.ParquetFooterException(
-                f"malformed row-group list: {e}") from e
-        read_bytes = flen + 8
-        decode_ns = 0
-        decompress_ns = 0
-        pages_total = 0
-        parts = [[] for _ in leaves]
-        masks = [[] for _ in leaves]
-        for rg, rows in zip(rgs, group_rows):
-            cols_entry = _sval(rg, 1)
-            chunks = cols_entry[2] if cols_entry is not None else []
-            if len(chunks) != len(leaves):
-                raise ParquetDecodeException(
-                    f"row group has {len(chunks)} chunks for "
-                    f"{len(leaves)} schema leaves")
-            for j, (leaf, cc) in enumerate(zip(leaves, chunks)):
-                meta = _ChunkMeta(cc, leaf.name, size)
-                if meta.num_values != rows:
+    counts (see the module docstring).  Emits an ``io_read`` span,
+    per-fetch ``srt_io_read_*`` metrics, and one ``io_file`` journal
+    record."""
+    span = _obs.TRACER.span("io_read", kind="io",
+                            attrs={"file": os.path.basename(path)})
+    with span:
+        # ONE opened stream serves the footer + every column-chunk fetch
+        with RangeReader(path, fileio) as rr:
+            size = rr.length
+            t_all = time.perf_counter_ns()
+            flen = pf.footer_tail_length(
+                size, rr.read(size - 8, 8) if size >= 8 else b"")
+            tree = pf.parse_footer(rr.read(size - 8 - flen, flen))
+            if columns is not None:
+                # dedup, order-preserving: a repeated request resolves to
+                # one leaf, and the missing-list check below stays honest
+                columns = list(dict.fromkeys(columns))
+                tree = pf.prune_columns(tree, list(columns),
+                                        case_sensitive=case_sensitive)
+            leaves = pf.schema_leaves(tree)
+            if columns is not None and len(leaves) != len(columns):
+                have = {lf.name if case_sensitive else lf.name.lower()
+                        for lf in leaves}
+                missing = [c for c in columns
+                           if (c if case_sensitive else c.lower())
+                           not in have]
+                raise pf.ParquetFooterException(
+                    f"columns not in {os.path.basename(path)}: {missing}")
+            col_dtypes = [_dtype_for_leaf(lf) for lf in leaves]
+            try:
+                rg_entry = tree[1].get(4)
+                rgs = rg_entry[1][2] if rg_entry is not None else []
+                group_rows = [int(_sval(rg, 3, 0)) for rg in rgs]
+            except (TypeError, IndexError, KeyError, AttributeError) as e:
+                raise pf.ParquetFooterException(
+                    f"malformed row-group list: {e}") from e
+            read_bytes = flen + 8
+            decode_ns = 0
+            decompress_ns = 0
+            pages_total = 0
+            parts = [[] for _ in leaves]
+            masks = [[] for _ in leaves]
+            for rg, rows in zip(rgs, group_rows):
+                cols_entry = _sval(rg, 1)
+                chunks = cols_entry[2] if cols_entry is not None else []
+                if len(chunks) != len(leaves):
                     raise ParquetDecodeException(
-                        f"chunk of {leaf.name!r} holds "
-                        f"{meta.num_values} values in a {rows}-row "
-                        f"group (nested data in a flat column?)")
-                buf = rr.read(meta.start, meta.nbytes)
-                read_bytes += meta.nbytes
-                t0 = time.perf_counter_ns()
-                vals, mask, pages = _decode_chunk(buf, leaf, meta)
-                decode_ns += time.perf_counter_ns() - t0
-                decompress_ns += meta.decompress_ns
-                pages_total += pages
-                parts[j].append(vals)
-                masks[j].append(mask)
-    t0 = time.perf_counter_ns()
-    host = [_build_string_column(p, m, group_rows) if dt.is_string
-            else _build_fixed_column(dt, p, m, group_rows)
-            for dt, p, m in zip(col_dtypes, parts, masks)]
-    del parts, masks
-    t1 = time.perf_counter_ns()
-    decode_ns += t1 - t0
-    out_cols = [_upload(h, device) for h in host]
-    upload_ns = time.perf_counter_ns() - t1
-    num_rows = sum(group_rows)
-    if stats is not None:
-        stats.update(path=path, rows=num_rows, columns=len(leaves),
-                     pages=pages_total, read_bytes=read_bytes,
-                     decode_ns=decode_ns, decompress_ns=decompress_ns,
-                     upload_ns=upload_ns,
-                     wall_ns=time.perf_counter_ns() - t_all)
-    # ROADMAP A14: the JAX package records the file here
-    # (observability.record_io_file), notes it to the result cache's
-    # ingest epochs (result_cache.note_ingest, size+mtime fingerprint)
-    # and gives the footer's row count to the stats plane
-    # (STATS.note_source_rows)
-    return Table(out_cols, names=[lf.name for lf in leaves])
+                        f"row group has {len(chunks)} chunks for "
+                        f"{len(leaves)} schema leaves")
+                for j, (leaf, cc) in enumerate(zip(leaves, chunks)):
+                    meta = _ChunkMeta(cc, leaf.name, size)
+                    if meta.num_values != rows:
+                        raise ParquetDecodeException(
+                            f"chunk of {leaf.name!r} holds "
+                            f"{meta.num_values} values in a {rows}-row "
+                            f"group (nested data in a flat column?)")
+                    buf = rr.read(meta.start, meta.nbytes)
+                    read_bytes += meta.nbytes
+                    t0 = time.perf_counter_ns()
+                    vals, mask, pages = _decode_chunk(buf, leaf, meta)
+                    decode_ns += time.perf_counter_ns() - t0
+                    decompress_ns += meta.decompress_ns
+                    pages_total += pages
+                    parts[j].append(vals)
+                    masks[j].append(mask)
+        t0 = time.perf_counter_ns()
+        host = [_build_string_column(p, m, group_rows) if dt.is_string
+                else _build_fixed_column(dt, p, m, group_rows)
+                for dt, p, m in zip(col_dtypes, parts, masks)]
+        del parts, masks
+        t1 = time.perf_counter_ns()
+        decode_ns += t1 - t0
+        out_cols = [_upload(h, device) for h in host]
+        upload_ns = time.perf_counter_ns() - t1
+        num_rows = sum(group_rows)
+        if stats is not None:
+            stats.update(path=path, rows=num_rows, columns=len(leaves),
+                         pages=pages_total, read_bytes=read_bytes,
+                         decode_ns=decode_ns, decompress_ns=decompress_ns,
+                         upload_ns=upload_ns,
+                         wall_ns=time.perf_counter_ns() - t_all)
+        span.set_attr("rows", num_rows)
+        span.set_attr("columns", len(leaves))
+        span.set_attr("bytes", read_bytes)
+        span.set_attr("pages", pages_total)
+        span.set_attr("wall_ns", time.perf_counter_ns() - t_all)
+        _obs.record_io_file(path, columns=len(leaves),
+                            pages=pages_total, rows=num_rows,
+                            read_bytes=read_bytes, decode_ns=decode_ns)
+        # ROADMAP A14 step 5(b): the JAX package notes the file to the
+        # result cache's ingest epochs (result_cache.note_ingest,
+        # size+mtime fingerprint) and gives the footer's row count to the
+        # stats plane (STATS.note_source_rows) here
+        return Table(out_cols, names=[lf.name for lf in leaves])

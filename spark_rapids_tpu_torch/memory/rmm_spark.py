@@ -2,10 +2,9 @@
 (reference RmmSpark.java:85-111 setEventHandler / setCurrentThreadAsTask
 surface, adapted to Python naming).  All module functions operate on the
 installed adaptor; `current_thread_id()` mirrors RmmSpark.getCurrentThreadId.
-
-ROADMAP A14: the JAX package also binds and unbinds threads in its
-observability task table here, and folds each finished task's retry,
-block and memory counters into it; those calls are marked below.
+Each registration also binds (or unbinds) the thread in the
+observability task table, and with observability on a finished task's
+retry, block and memory counters are folded into its rollup.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.memory.resource import LimitingMemoryResource
 from spark_rapids_tpu_torch.memory.spark_resource_adaptor import (
     GPU, CPU, CPU_OR_GPU, SparkResourceAdaptor)  # noqa: F401
@@ -34,8 +34,14 @@ def set_event_handler(limit_bytes: int,
                                         log_path=log_path)
         # native-side adaptor -> managed-side thread registry callback
         # (reference SparkResourceAdaptorJni.cpp:66-80 removeThread);
-        # ROADMAP A14: the observability task table unbinds here too
-        _adaptor.on_thread_removed = REGISTRY.remove_thread
+        # the observability task table unbinds on the same signal so the
+        # two thread->task maps cannot drift
+
+        def _on_removed(thread_id: int):
+            REGISTRY.remove_thread(thread_id)
+            _obs.TASKS.unbind_thread(thread_id)
+
+        _adaptor.on_thread_removed = _on_removed
         return _adaptor
 
 
@@ -64,10 +70,7 @@ def current_thread_id() -> int:
     return threading.get_ident()
 
 
-# thin delegating wrappers (RmmSpark.java public surface); ROADMAP A14:
-# the JAX package binds/unbinds each thread in its observability task
-# table beside each of these calls
-
+# thin delegating wrappers (RmmSpark.java public surface)
 
 def start_dedicated_task_thread(thread_id: int, task_id: int):
     # register BEFORE the adaptor start so a concurrent task_done's
@@ -81,6 +84,7 @@ def start_dedicated_task_thread(thread_id: int, task_id: int):
     except BaseException:
         REGISTRY.remove_thread(thread_id)
         raise
+    _obs.TASKS.bind_thread(thread_id, (task_id,))
 
 
 def current_thread_is_dedicated_to_task(task_id: int):
@@ -96,27 +100,58 @@ def pool_thread_working_on_tasks(is_for_shuffle: bool, thread_id: int,
                                  task_ids):
     get_adaptor().pool_thread_working_on_tasks(is_for_shuffle, thread_id,
                                                task_ids)
+    _obs.TASKS.bind_thread(thread_id, task_ids)
 
 
 def pool_thread_finished_for_tasks(thread_id: int, task_ids):
     get_adaptor().pool_thread_finished_for_tasks(thread_id, task_ids)
+    _obs.TASKS.unbind_thread(thread_id, task_ids)
 
 
 def remove_current_thread_association():
     get_adaptor().remove_thread_association(current_thread_id(), -1)
+    _obs.TASKS.unbind_thread(current_thread_id())
+
+
+def _fold_task(adaptor: SparkResourceAdaptor, task_id: int) -> None:
+    """Pull the state machine's per-task counters (the
+    getAndResetNumRetryThrow / getTotalBlockedOrLostTime analogs) into
+    the observability rollup, then release the bookkeeping."""
+    _obs.TASKS.fold_rmm_task(
+        task_id,
+        retry_oom=adaptor.get_and_reset_num_retry_throw(task_id),
+        split_retry_oom=adaptor.get_and_reset_num_split_retry_throw(
+            task_id),
+        blocked_time_ns=adaptor.get_and_reset_block_time(task_id),
+        lost_time_ns=adaptor.get_and_reset_compute_time_lost_to_retry(
+            task_id),
+        max_device_memory=adaptor.get_and_reset_gpu_max_memory_allocated(
+            task_id))
+    adaptor.remove_task_metrics(task_id)
 
 
 def task_done(task_id: int):
-    # ROADMAP A14: with observability on, the JAX package folds the
-    # task's get_and_reset_* counters into its task rollup here and then
-    # drops them (remove_task_metrics); here they stay for the caller
-    return get_adaptor().task_done(task_id)
+    adaptor = get_adaptor()
+    ret = adaptor.task_done(task_id)
+    if _obs.is_enabled():
+        _fold_task(adaptor, task_id)
+        _obs.JOURNAL.emit("task_done", task=task_id)
+    return ret
 
 
 def force_release_task(task_id: int) -> dict:
     """Lifeguard entry: forcibly unwind a hung task's associations
-    (``SparkResourceAdaptor.force_release_task``)."""
-    return get_adaptor().force_release_task(task_id)
+    (``SparkResourceAdaptor.force_release_task``) and fold its
+    counters into the observability rollup like a normal
+    ``task_done`` would."""
+    adaptor = get_adaptor()
+    info = adaptor.force_release_task(task_id)
+    if _obs.is_enabled():
+        _fold_task(adaptor, task_id)
+        _obs.JOURNAL.emit("task_force_released", task=task_id,
+                          threads=info.get("threads", []),
+                          held_bytes=info.get("held_bytes", 0))
+    return info
 
 
 def force_retry_oom(thread_id: int, num_ooms: int = 1,

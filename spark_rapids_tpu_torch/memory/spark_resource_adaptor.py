@@ -31,10 +31,11 @@ device.  Reservations are accounting: callers reserve the bytes they are
 about to allocate (``allocate``/``deallocate``), as the reference's
 RMM adaptor sees them.
 
-ROADMAP A14: the JAX package also records OOM events, device-memory
-samples, task leaks and the profiler's alloc/free counters here; those
-calls are marked below and not ported.  The ctypes binding to the C++
-port (``native_adaptor.py``) is A12's rest.
+OOM events, device-memory samples and task leaks go to the
+observability spine (``record_oom_event``, ``record_device_memory``,
+``record_task_leak``); each is one switch read while it is off.
+ROADMAP step 6: the profiler's alloc/free counters, marked below.  The
+ctypes binding to the C++ port (``native_adaptor.py``) is A12's rest.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Set
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.memory import exceptions as exc
 from spark_rapids_tpu_torch.memory.resource import (AllocationFailed,
                                                     MemoryResource)
@@ -152,14 +154,19 @@ class _ThreadState:
 
     def before_block(self):
         self._block_start = time.monotonic()
-        # ROADMAP A14: record_oom_event("thread_blocked")
+        _obs.record_oom_event("thread_blocked", thread_id=self.thread_id,
+                              task_id=self.task_id,
+                              is_cpu=self.is_cpu_alloc)
 
     def after_block(self):
         if self._block_start is not None:
             blocked_ns = int((time.monotonic() - self._block_start) * 1e9)
             self.metrics.time_blocked_nanos += blocked_ns
             self._block_start = None
-            # ROADMAP A14: record_oom_event("thread_unblocked")
+            _obs.record_oom_event("thread_unblocked",
+                                  thread_id=self.thread_id,
+                                  task_id=self.task_id,
+                                  blocked_ns=blocked_ns)
 
     def record_failed_retry_time(self):
         now = time.monotonic()
@@ -300,9 +307,32 @@ class SparkResourceAdaptor:
         return ret
 
     def task_done(self, task_id: int):
-        # ROADMAP A14: the JAX package sums the task's held bytes here
-        # and reports a leak (record_task_leak) after the unwind
+        leaked = 0
+        holders: List[dict] = []
         with self._lock:
+            # leak detection BEFORE the associations unwind: device
+            # bytes still attributed to the finishing task.  The sum
+            # includes NEGATIVE footprints — a checkpointed +X whose
+            # frees landed on the live thread after the checkpoint
+            # shows up as thread -X, and only the net is a leak.
+            cp = self._checkpointed.get(task_id)
+            if cp is not None and cp.gpu_memory_active_footprint != 0:
+                leaked += cp.gpu_memory_active_footprint
+                if cp.gpu_memory_active_footprint > 0:
+                    holders.append({
+                        "thread": -1, "state": "CHECKPOINTED",
+                        "bytes":
+                        int(cp.gpu_memory_active_footprint)})
+            for t in self._threads.values():
+                if (t.task_id == task_id
+                        or task_id in t.pool_task_ids) \
+                        and t.metrics.gpu_memory_active_footprint != 0:
+                    leaked += t.metrics.gpu_memory_active_footprint
+                    if t.metrics.gpu_memory_active_footprint > 0:
+                        holders.append({
+                            "thread": t.thread_id, "state": t.state,
+                            "bytes":
+                            int(t.metrics.gpu_memory_active_footprint)})
             woke_any = False
             for thread_id in list(self._threads.keys()):
                 t = self._threads.get(thread_id)
@@ -314,12 +344,16 @@ class SparkResourceAdaptor:
                     if self._remove_thread_association(thread_id, task_id):
                         woke_any = True
             self._wake_up_threads_after_task_finishes()
+        if leaked > 0:
+            # outside the lock: the leak hook must never run under this
+            # adaptor's (non-reentrant) lock
+            _obs.record_task_leak(task_id, int(leaked), holders)
         return woke_any
 
     def force_release_task(self, task_id: int) -> dict:
-        """Watchdog entry (the query lifeguard, ROADMAP A14): forcibly
-        unwind a HUNG task's thread associations so its held accounting
-        and blocked neighbors unblock without waiting for the wedged
+        """Watchdog entry (the query lifeguard, ROADMAP A14 step 5(c)):
+        forcibly unwind a HUNG task's thread associations so its held
+        accounting and blocked neighbors unblock without waiting for the wedged
         thread to cooperate.  Semantically ``task_done`` — blocked
         associated threads get ``THREAD_REMOVE_THROW`` (they raise
         ``ThreadRemovedException`` if they ever wake), running ones
@@ -594,7 +628,8 @@ class SparkResourceAdaptor:
 
     def _throw_retry_oom(self, t: _ThreadState):
         t.metrics.num_times_retry_throw += 1
-        # ROADMAP A14: record_oom_event("oom_retry")
+        _obs.record_oom_event("oom_retry", thread_id=t.thread_id,
+                              task_id=t.task_id, is_cpu=t.is_cpu_alloc)
         self._check_before_oom(t)
         t.record_failed_retry_time()
         if t.is_cpu_alloc:
@@ -603,7 +638,8 @@ class SparkResourceAdaptor:
 
     def _throw_split_and_retry_oom(self, t: _ThreadState):
         t.metrics.num_times_split_retry_throw += 1
-        # ROADMAP A14: record_oom_event("oom_split_retry")
+        _obs.record_oom_event("oom_split_retry", thread_id=t.thread_id,
+                              task_id=t.task_id, is_cpu=t.is_cpu_alloc)
         self._check_before_oom(t)
         t.record_failed_retry_time()
         if t.is_cpu_alloc:
@@ -871,7 +907,9 @@ class SparkResourceAdaptor:
                 self._log_status(
                     "INJECTED_RETRY_OOM_" + ("CPU" if is_for_cpu else "GPU"),
                     thread_id, t.task_id, t.state)
-                # ROADMAP A14: record_oom_event("oom_retry", injected)
+                _obs.record_oom_event("oom_retry", thread_id=thread_id,
+                                      task_id=t.task_id, is_cpu=is_for_cpu,
+                                      injected=True)
                 t.record_failed_retry_time()
                 raise (exc.CpuRetryOOM("injected RetryOOM") if is_for_cpu
                        else exc.GpuRetryOOM("injected RetryOOM"))
@@ -893,8 +931,10 @@ class SparkResourceAdaptor:
                     "INJECTED_SPLIT_AND_RETRY_OOM_"
                     + ("CPU" if is_for_cpu else "GPU"),
                     thread_id, t.task_id, t.state)
-                # ROADMAP A14: record_oom_event("oom_split_retry",
-                # injected)
+                _obs.record_oom_event("oom_split_retry",
+                                      thread_id=thread_id,
+                                      task_id=t.task_id, is_cpu=is_for_cpu,
+                                      injected=True)
                 t.record_failed_retry_time()
                 raise (exc.CpuSplitAndRetryOOM("injected SplitAndRetryOOM")
                        if is_for_cpu
@@ -926,7 +966,7 @@ class SparkResourceAdaptor:
                 t.metrics.gpu_max_memory_allocated = max(
                     t.metrics.gpu_max_memory_allocated,
                     self.gpu_memory_allocated_bytes)
-                # ROADMAP A14: record_device_memory
+                _obs.record_device_memory(self.gpu_memory_allocated_bytes)
         self._wake_next_highest_priority_blocked(is_for_cpu)
 
     def _post_alloc_failed_core(self, thread_id: int, is_for_cpu: bool,
@@ -968,7 +1008,7 @@ class SparkResourceAdaptor:
                 if not t.is_in_spilling:
                     t.metrics.gpu_memory_active_footprint -= num_bytes
                 self.gpu_memory_allocated_bytes -= num_bytes
-                # ROADMAP A14: record_device_memory
+                _obs.record_device_memory(self.gpu_memory_allocated_bytes)
         for other in self._threads.values():
             if other.thread_id != tid and other.state == THREAD_ALLOC \
                     and other.is_cpu_alloc == is_for_cpu:
@@ -989,7 +1029,7 @@ class SparkResourceAdaptor:
                 with self._lock:
                     self._post_alloc_success_core(tid, False, likely_spill,
                                                   num_bytes)
-                # ROADMAP A14: utils.profiler.record_alloc("alloc")
+                # ROADMAP step 6: utils.profiler.record_alloc("alloc")
                 return num_bytes
             except AllocationFailed:
                 # synchronous spill BEFORE escalation: free registered
@@ -1024,7 +1064,7 @@ class SparkResourceAdaptor:
         self.resource.deallocate(num_bytes)
         with self._lock:
             self._dealloc_core(False, num_bytes)
-        # ROADMAP A14: utils.profiler.record_alloc("free")
+        # ROADMAP step 6: utils.profiler.record_alloc("free")
 
     # ------------------------------------------------------ cpu alloc hooks
 

@@ -47,8 +47,9 @@ A corrupt spill file (CRC mismatch on read-back) surfaces *file path
 handle registered a ``recompute`` callback — triggers recompute-from-
 source instead of query failure.
 
-ROADMAP A14: the JAX package records spill, restore, wait and
-corruption metrics at the places marked below.
+Spills, restores, waits and corrupt read-backs are recorded through
+the observability spine (``record_spill*``), one switch read while it
+is off.
 """
 
 from __future__ import annotations
@@ -57,10 +58,13 @@ import io
 import os
 import tempfile
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from spark_rapids_tpu_torch import observability as _obs
 
 TIER_DEVICE = "device"
 TIER_HOST = "host"
@@ -385,12 +389,15 @@ class SpillStore:
         returns the bytes actually freed.  Called by the adaptor's
         alloc-failure path BEFORE a blocked thread escalates to
         BUFN/retry-split."""
+        t0 = time.monotonic_ns()
         freed = 0
         for h in self._victims():
             if freed >= nbytes:
                 break
             freed += self._spill_handle(h)
-        # ROADMAP A14: record_spill_wait(stage="ensure_headroom")
+        if freed > 0:
+            _obs.record_spill_wait(time.monotonic_ns() - t0,
+                                   stage="ensure_headroom")
         return freed
 
     def _serialize(self, h: SpillHandle, cols: Sequence):
@@ -423,6 +430,7 @@ class SpillStore:
     def _spill_handle(self, h: SpillHandle) -> int:
         """device->host (and maybe host->disk under the host budget).
         Returns device bytes freed."""
+        t0 = time.monotonic_ns()
         with self._lock:
             if (h.closed or h.busy or h.pins > 0
                     or h.tier != TIER_DEVICE):
@@ -464,7 +472,10 @@ class SpillStore:
             self.spill_bytes[TIER_HOST] += len(payload)
         # release OUTSIDE the lock: deallocation wakes blocked threads
         self._release_device(h.device_bytes)
-        # ROADMAP A14: record_spill(tier=TIER_HOST)
+        _obs.record_spill(stage=h.stage, tier=TIER_HOST,
+                          nbytes=h.device_bytes,
+                          ns=time.monotonic_ns() - t0, task=h.task_id,
+                          name=h.name, generation=h.generation)
         self._enforce_host_limit()
         return h.device_bytes
 
@@ -484,6 +495,7 @@ class SpillStore:
             self._demote_to_disk(h)
 
     def _demote_to_disk(self, h: SpillHandle) -> None:
+        t0 = time.monotonic_ns()
         with self._lock:
             if h.closed or h.busy or h.tier != TIER_HOST:
                 return
@@ -534,7 +546,11 @@ class SpillStore:
                 self.spill_bytes[TIER_DISK] += len(payload)
         if closed:
             _unlink(path)
-        # ROADMAP A14: record_spill(tier=TIER_DISK)
+            return
+        _obs.record_spill(stage=h.stage, tier=TIER_DISK,
+                          nbytes=len(payload),
+                          ns=time.monotonic_ns() - t0, task=h.task_id,
+                          name=h.name, generation=h.generation)
 
     # ------------------------------------------------------------- restore
 
@@ -571,6 +587,7 @@ class SpillStore:
             path = h.path
             gen = h.generation
             fields = h.fields
+        t0 = time.monotonic_ns()
         acquired = False
         try:
             # blocking device re-acquisition OUTSIDE the lock (it may
@@ -579,6 +596,7 @@ class SpillStore:
             acquired = True
             cols = self._deserialize(h, src_tier, payload, path, gen,
                                      fields)
+            ns = time.monotonic_ns() - t0
             del payload
             release_owed = 0
             with self._cv:
@@ -608,7 +626,11 @@ class SpillStore:
             _unlink(unlink_path)
             if release_owed:
                 self._release_device(release_owed)
-            # ROADMAP A14: record_spill_restore and record_spill_wait
+                return cols
+            _obs.record_spill_restore(stage=h.stage, tier=src_tier,
+                                      nbytes=h.device_bytes, ns=ns,
+                                      task=h.task_id, name=h.name)
+            _obs.record_spill_wait(ns, stage=h.stage or "restore")
             return cols
         except BaseException:
             unlink_path = None
@@ -664,12 +686,18 @@ class SpillStore:
         """A spill payload failed verification on read-back.  With a
         ``recompute`` callback the batch is rebuilt from source instead
         of failing the query; without one the annotated error (file
-        path + spill generation) escalates.  ROADMAP A14: the JAX
-        package counts both outcomes (srt_spill_corrupt_total)."""
+        path + spill generation) escalates; both outcomes are counted
+        (srt_spill_corrupt_total)."""
         self.corrupt_count += 1
         if h.recompute is not None:
+            _obs.record_spill_corrupt(
+                "recomputed", path=path or "", generation=generation,
+                name=h.name, stage=h.stage, task=h.task_id)
             self.recompute_count += 1
             return list(h.recompute())
+        _obs.record_spill_corrupt(
+            "failed", path=path or "", generation=generation,
+            name=h.name, stage=h.stage, task=h.task_id)
         raise err
 
     # --------------------------------------------------------------- stats

@@ -63,7 +63,8 @@ class QueryContext:
         return (self.deadline_ns - time.monotonic_ns()) / 1e9
 
     def check_cancel(self) -> None:
-        # ROADMAP A14: each poll also beats the lifeguard's heartbeat
+        # ROADMAP A14 step 5(c): each poll also beats the lifeguard's
+        # heartbeat
         # an explicit cancel wins over the deadline
         if self.cancelled():
             raise QueryCancelled(self.query_id or "query")

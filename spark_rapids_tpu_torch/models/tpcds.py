@@ -39,9 +39,9 @@ size compare with the stage outputs directly.
 The generators make the JAX package's draws (`models/tpcds.py` there)
 from the same `np.random.default_rng(seed)` in the same order, so both
 packages see the same data, and hand it over on ``device``.  Each
-pipeline runs under the task-level retry driver (``_retried_query``);
-the query spans around them and the generators' ingest notes to the
-result cache come with ROADMAP A14.
+pipeline runs under the task-level retry driver inside a query-root
+span (``_retried_query``); the generators' ingest notes to the result
+cache come with ROADMAP A14 step 5(b).
 """
 
 import functools
@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.ops.device_join import inner_join_device
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
 from spark_rapids_tpu_torch.plan.compiler import sort_lex
@@ -62,15 +63,18 @@ def _retried_query(name: str, fn):
     injected — the driver polls the forced-OOM hooks at every attempt)
     recomputes the pipeline instead of killing it.  The pipelines are
     pure functions of their argument tensors, so the recompute needs no
-    checkpoint and a "split" degrades soundly to a full re-run.
-    ROADMAP A14: the JAX package also opens a query-root span here."""
+    checkpoint and a "split" degrades soundly to a full re-run.  A
+    query-root span wraps the driver: shuffle spans and OOM episodes
+    recorded while the query executes parent under it."""
 
     @functools.wraps(fn)
     def run(*args, **kwargs):
         # close over the call instead of forwarding kwargs: a pipeline
         # kwarg named like a driver control parameter (policy, ...)
         # must reach fn, not the driver
-        return _retry.with_retry(lambda: fn(*args, **kwargs), name=name)
+        with _obs.TRACER.span(name, kind="query"):
+            return _retry.with_retry(lambda: fn(*args, **kwargs),
+                                     name=name)
 
     return run
 

@@ -111,7 +111,7 @@ from spark_rapids_tpu_torch.ops.cast_more import (  # noqa: F401
     parse_timestamp_strings,
     parse_timestamp_strings_with_format,
 )
-# ROADMAP step 4: `protobuf` joins these with ops/protobuf.py
+from spark_rapids_tpu_torch.ops import protobuf  # noqa: F401
 
-# ROADMAP A14: the JAX package wraps every public op here with
+# ROADMAP step 6: the JAX package wraps every public op here with
 # utils.tracing.instrument (its _TRACED table: maybe_inject + op_range)

@@ -112,7 +112,8 @@ def key_hashes(words) -> torch.Tensor:
     avalanche.  Internal group ids only, not the Spark row hash
     (ops/hash.xxhash64 keeps that); u64 values ride in int64 lanes.
 
-    ROADMAP A14: the JAX package compiles this once per power-of-two
+    ROADMAP A14 step 5(b): the JAX package compiles this once per
+    power-of-two
     row bucket through its process compile cache; here it runs
     eagerly."""
     rows = int(words[0].shape[0])
@@ -272,7 +273,8 @@ def _device_step_factory(capacity: int):
     ids, each verified word by word, the true pair count, and the
     overflow flag with_capacity_retry reads.
 
-    ROADMAP A14: the JAX package memoizes this factory per (word count,
+    ROADMAP A14 step 5(b): the JAX package memoizes this factory per
+    (word count,
     row buckets, digest) so one process compile-cache entry owns each
     capacity's executable; eager PyTorch has nothing to compile."""
     def run(lh, rh, lv, rv, lwords, rwords):

@@ -72,6 +72,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import Kind
@@ -631,8 +632,7 @@ def sort_merge_inner_join(left_keys: Table, right_keys: Table,
                 device=left_keys.device)
             if path not in engines:
                 path = "host_rank"
-    # ROADMAP A14: the JAX package counts the path taken here
-    # (observability.record_kernel_path)
+    _obs.record_kernel_path("join.inner", path, rows)
     return engines[path](left_keys, right_keys, compare_nulls)
 
 

@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.ops.cast_string import _java_double_repr
 
@@ -508,8 +509,7 @@ def get_json_object(col: Column, path: str) -> Column:
         engine = route_json_engine(
             "json.get_object", col, engines, "device_scan",
             extra=f"steps{len(instructions or ())}t{int(tok_ok)}")
-    # ROADMAP A14: the JAX package counts the engine taken here
-    # (observability.record_kernel_path)
+    _obs.record_kernel_path("get_json_object", engine, col.length)
     return engines[engine](col)
 
 
@@ -553,7 +553,7 @@ def get_json_object_multiple_paths(col: Column, paths: Sequence[str],
             if mode != "device" else "device_scan"
         if engine not in engines:
             engine = "device_scan"
-        # ROADMAP A14: the JAX package counts the engine taken here
+        _obs.record_kernel_path("get_json_object", engine, col.length)
         return engines[engine](col)
     parsed_paths = [parse_path(p) for p in paths]
     vals = col.to_pylist()

@@ -13,6 +13,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import DType, Kind
@@ -91,14 +92,19 @@ def from_json_to_raw_map(col: Column,
         engine = json_path.route_json_engine(
             "json.raw_map", col, engines,
             "device_scan" if _on_card(col) else "host")
-    # ROADMAP A14: the JAX package counts the engine taken here, after a
-    # device scan's decline
+    # record the path AFTER fallback resolution: a device scan that
+    # declines the shape (returns None) really ran on the host
     if engine == "tokenizer":
+        _obs.record_kernel_path("from_json_raw_map", "tokenizer",
+                                col.length)
         return JT.from_json_to_raw_map_tokenized(col, allow_leading_zeros)
     if engine == "device_scan":
         out = RM.from_json_to_raw_map_device(col, allow_leading_zeros)
         if out is not None:
+            _obs.record_kernel_path("from_json_raw_map", "device_scan",
+                                    col.length)
             return out
+    _obs.record_kernel_path("from_json_raw_map", "host", col.length)
     return _raw_map_host(col, allow_leading_zeros)
 
 
@@ -312,16 +318,21 @@ def from_json_to_structs_nested(col: Column, schema,
             "json.from_json", col, engines,
             "device_scan" if _on_card(col) else "host",
             extra=f"f{len(fields)}|flat{int(flat)}")
-    # ROADMAP A14: the JAX package counts the engine taken here, after an
-    # engine's decline
+    # record the path AFTER fallback resolution: an engine that
+    # declines the shape (returns None) really ran on the host
     if engine == "tokenizer" and flat:
         out = JT.from_json_to_structs_tokenized(col, fields,
                                                 allow_leading_zeros)
         if out is not None:
+            _obs.record_kernel_path("from_json_structs", "tokenizer",
+                                    col.length)
             return out
     if engine == "device_scan":
         out = FJ.from_json_to_structs_device(
             col, fields, allow_leading_zeros)
         if out is not None:
+            _obs.record_kernel_path("from_json_structs", "device_scan",
+                                    col.length)
             return out
+    _obs.record_kernel_path("from_json_structs", "host", col.length)
     return _host(col)

@@ -15,16 +15,20 @@ distributed runtime installs its ShuffleService
 worker processes.  Callers write against ``exchange_tables`` and never
 know which side of a process boundary their peers live on.
 
-The fixed-capacity exchange over `torch.distributed` comes with ROADMAP
-A10(b); the retry journal and spans, and the process compile cache's
-step memo with A14.
+Each capacity-retry run opens an ``exchange_capacity_retry`` span and
+records every doubling (``srt_exchange_capacity_doublings_total``) and
+an episode that saw an overflow in the retry journal.  The fixed-
+capacity exchange over `torch.distributed` comes with ROADMAP A10(b),
+the process compile cache's step memo with A14 step 5(b).
 """
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.robustness.retry import RetryPolicy
 
 
@@ -97,46 +101,76 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
                                 base_backoff_s=0.0)
 
     def _step_for(cap: int):
-        # ROADMAP A14: steps live in the process compile cache there
+        # ROADMAP A14 step 5(b): steps live in the process compile cache
+        # (JitCache) there
         if cap not in steps:
             steps[cap] = make_step(cap)
         return steps[cap]
 
     def run(*args):
-        # ROADMAP A14: the exchange_capacity_retry span and the retry
-        # journal's episodes wrap this loop in the JAX package
-        cap = int(initial_capacity)
-        t0 = pol.clock()
-        attempt = 0
-        prev_backoff = 0.0
-        while True:
-            if check is not None:
-                check()
-            out = _step_for(cap)(*args)
-            indicator = _host(out[overflow_index])
-            if counts_indicator:
-                overflowed = bool(np.any(indicator > cap))
-            else:
-                overflowed = bool(np.any(indicator))
-            if not overflowed:
-                return out, cap
-            attempt += 1
-            deadline_hit = (pol.deadline_s is not None
-                            and pol.clock() - t0 >= pol.deadline_s)
-            if attempt >= pol.max_attempts or deadline_hit:
-                raise CapacityExceeded(
-                    cap, attempt - 1,
-                    send_counts=(_observed_counts(indicator)
-                                 if counts_indicator else None),
-                    reason="over deadline" if deadline_hit
-                    else "overflowed")
-            # thread the previous pause through so jittered policies
-            # get true decorrelated backoff (robustness/retry.py)
-            backoff = pol.backoff_for(attempt, prev_backoff)
-            prev_backoff = backoff
-            if backoff > 0:
-                pol.sleep(backoff)
-            cap *= 2
+        # stage-level span: one per driver invocation, covering every
+        # capacity attempt (per-attempt sub-spans would double-count
+        # the final successful run's time)
+        with _obs.TRACER.span("exchange_capacity_retry",
+                              kind="stage") as sp:
+            cap = int(initial_capacity)
+            t0 = pol.clock()
+            attempt = 0
+            lost_ns = 0
+            prev_backoff = 0.0
+            while True:
+                if check is not None:
+                    check()
+                attempt_t0 = time.monotonic_ns()
+                out = _step_for(cap)(*args)
+                indicator = _host(out[overflow_index])
+                if counts_indicator:
+                    overflowed = bool(np.any(indicator > cap))
+                else:
+                    overflowed = bool(np.any(indicator))
+                if not overflowed:
+                    sp.set_attr("capacity", cap)
+                    sp.set_attr("attempts", attempt + 1)
+                    if attempt:
+                        _obs.record_retry_episode(
+                            "exchange_capacity", attempts=attempt + 1,
+                            retries=attempt, splits=0,
+                            max_split_depth=0, lost_ns=lost_ns,
+                            outcome="success",
+                            errors=["CapacityOverflow"] * attempt)
+                    return out, cap
+                attempt += 1
+                lost_ns += time.monotonic_ns() - attempt_t0
+                deadline_hit = (pol.deadline_s is not None
+                                and pol.clock() - t0 >= pol.deadline_s)
+                if attempt >= pol.max_attempts or deadline_hit:
+                    counts = (_observed_counts(indicator)
+                              if counts_indicator else None)
+                    sp.set_attr("capacity", cap)
+                    sp.set_attr("overflowed", True)
+                    _obs.JOURNAL.emit("exchange_capacity_exceeded",
+                                      capacity=cap,
+                                      doublings=attempt - 1,
+                                      send_counts=counts)
+                    _obs.record_retry_episode(
+                        "exchange_capacity", attempts=attempt,
+                        retries=attempt, splits=0, max_split_depth=0,
+                        lost_ns=lost_ns, outcome="exhausted:deadline"
+                        if deadline_hit else "exhausted:attempts",
+                        errors=["CapacityOverflow"] * attempt)
+                    raise CapacityExceeded(
+                        cap, attempt - 1, send_counts=counts,
+                        reason="over deadline" if deadline_hit
+                        else "overflowed")
+                _obs.record_exchange_doubling(cap, cap * 2, attempt - 1)
+                # thread the previous pause through so jittered
+                # policies get true decorrelated backoff
+                # (robustness/retry.py)
+                backoff = pol.backoff_for(attempt, prev_backoff)
+                prev_backoff = backoff
+                if backoff > 0:
+                    pol.sleep(backoff)
+                cap *= 2
 
     return run
 

@@ -35,16 +35,15 @@ import json
 import os
 import re
 import tempfile
-import threading
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.analysis.lockdep import make_rlock
 from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows
 
-# ROADMAP A14: the JAX package's lock carries a lockdep rank
-_LOCK = threading.RLock()
+_LOCK = make_rlock("perf.calibrate")
 _PROC_CACHE: Dict[Tuple[str, str, str], str] = {}
 
 DEFAULT_TTL_S = 86400.0
@@ -252,8 +251,16 @@ def pick_path(op: str, digest: str,
     with _LOCK:
         _PROC_CACHE[pkey] = verdict
     store_verdict(fkey, verdict)
-    # ROADMAP A14: the JAX package journals a kernel_calibrated record
-    # (timings, errors) here
+    try:
+        from spark_rapids_tpu_torch import observability as _obs
+        _obs.JOURNAL.emit(
+            "kernel_calibrated", op=op, digest=digest, backend=backend,
+            verdict=verdict,
+            timings_us={k: round(v * 1e6, 1)
+                        for k, v in sorted(timings.items())},
+            errors=errors or None)
+    except Exception:  # pragma: no cover - observability must not gate
+        pass
     return verdict
 
 

@@ -6,7 +6,7 @@ batches of nearby sizes share one compiled program
 `schema_digest` names a schema layout (kinds, scales, nullability); the
 join router keys its calibrated verdicts on it.  The process compile
 cache that keys on both in the JAX package (an LRU of executables,
-operand donation) comes with ROADMAP A14.
+operand donation) comes with ROADMAP A14 step 5(b).
 """
 
 import hashlib

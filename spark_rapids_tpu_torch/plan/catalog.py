@@ -25,7 +25,7 @@ aggregates), which is what makes the results byte-identical.  Fact
 inputs pad their join-key columns with side-specific sentinels (-1
 left, -2 right) so bucket-pad rows can never match each other.
 
-The generator-size row estimates come with ROADMAP A14 and the
+The generator-size row estimates come with ROADMAP A14 step 5(b) and the
 multi-process fused stage factories with A10.
 """
 
@@ -380,7 +380,8 @@ def run_q3(d, base: int, years: int, brands: int, manufact: int,
     """q3 on the device of ``d``'s tensors — same tuple as
     models.tpcds.make_q3(...)(d).  The second ScanBind is unbucketed:
     the date and item dims' exact lengths enter the compile key."""
-    # ROADMAP A14: the generator-size row estimates are noted here
+    # ROADMAP A14 step 5(b): the generator-size row estimates are noted
+    # here
     st = compile_stage(q3_plan(base, years, brands, manufact, month,
                                limit))
     return st.run({"s": (d.s_date, d.s_item, d.s_price),

@@ -32,11 +32,15 @@ PyTorch's defaults, wherever the two differ:
 A stage also runs once per hash partition of spilled inputs
 (:meth:`CompiledStage.run_spilled`, each partition through :meth:`run`).
 
-Left out until their queue items land: the stats taps and the stage
-profile records (ROADMAP A14), fused-vs-op-by-op calibration (A14:
-``auto`` takes the fused engine meanwhile), plan verification (A8), the
-result cache (A14) and the whole-pipeline function for multi-process
-runs (A10).
+Every run records ``srt_stage_fusion_total{stage,outcome}`` and a
+``stage_fusion`` journal event while observability is on, and a fused
+key's first call (tracing and compiling) opens a ``stage_compile``
+span.  Left out until their queue items land: the stats taps and the
+stage profile records (ROADMAP A14 step 5(b)), fused-vs-op-by-op
+calibration (ROADMAP A14 step 5(b): ``auto`` takes the fused engine
+meanwhile), plan verification (A8), the result cache
+(ROADMAP A14 step 5(b)) and the whole-pipeline function for
+multi-process runs (A10).
 """
 
 import os
@@ -46,6 +50,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.ops.device_join import inner_join_device
 from spark_rapids_tpu_torch.ops.joins import _lex_order
 from spark_rapids_tpu_torch.perf.calibrate import operands_digest
@@ -485,6 +490,10 @@ class CompiledStage:
         self.compiles = 0
         self.compile_seconds: Dict[tuple, float] = {}
 
+    @property
+    def dispatch_count(self) -> int:
+        return len(self.plan.nodes)
+
     # ------------------------------------------------------------ binding
 
     def _shape_parts(self, inputs: Mapping[str, Sequence]):
@@ -598,7 +607,12 @@ class CompiledStage:
         fn = self._compile(key)
         before = self.compiles
         t0 = time.perf_counter()
-        out = fn(*args)
+        with _obs.TRACER.span(
+                "stage_compile", kind="compile",
+                attrs={"stage": self.plan.name, "digest": key[0],
+                       "bucket": bucket,
+                       "nodes": self.dispatch_count}):
+            out = fn(*args)
         self.compile_seconds[key] = time.perf_counter() - t0
         if self.compiles == before:
             raise RuntimeError(
@@ -632,10 +646,28 @@ class CompiledStage:
     def run(self, inputs: Mapping[str, Sequence]) -> tuple:
         """Execute the stage under the current fusion mode.  'auto'
         takes the fused engine until the measured calibration of
-        ROADMAP A14 lands."""
+        ROADMAP A14 step 5(b) lands.  With observability on, the run is
+        recorded (``srt_stage_fusion_total{stage,outcome}`` and a
+        ``stage_fusion`` journal event) with its wall measured past a
+        device sync; off, nothing is synced."""
+        t0 = time.monotonic_ns()
         if fusion_mode() == "off":
-            return self.run_unfused(inputs)
-        return self._run_fused(inputs)
+            out = self.run_unfused(inputs)
+            outcome, compiled = "unfused", False
+        else:
+            before = self.compiles
+            out = self._run_fused(inputs)
+            outcome, compiled = "fused", self.compiles != before
+        if _obs.is_enabled():
+            dev = getattr(out[0], "device", None) if out else None
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            _obs.record_stage_fusion(
+                self.plan.name, outcome,
+                digest=self._run_digest(self._shape_parts(inputs)[0]),
+                wall_ns=time.monotonic_ns() - t0,
+                nodes=self.dispatch_count, compiled=compiled)
+        return out
 
     def run_spilled(self, partitions: Sequence[Mapping[str, object]]
                     ) -> list:
@@ -703,8 +735,8 @@ class CompiledPipeline:
         self.stages = [compile_stage(s) for s in pipeline.stages]
 
     def run(self, inputs: Mapping[str, Sequence]) -> tuple:
-        # ROADMAP A14: the JAX package's semantic result cache can
-        # short-circuit an unchanged stage here
+        # ROADMAP A14 step 5(b): the JAX package's semantic result
+        # cache can short-circuit an unchanged stage here
         feed: Dict[str, object] = {}
         out: Tuple = ()
         for cs in self.stages:

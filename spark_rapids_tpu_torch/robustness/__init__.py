@@ -9,8 +9,9 @@ drivers with checkpoint/restore, bounded attempts + exponential backoff
 + deadline, halving split-and-retry down to a one-element floor, and
 forced-OOM polling for compute-only sections.  ``links`` judges the
 distributed shuffle's link failures over the same RetryPolicy, and
-``fleet`` the elastic fleet's membership, speculation and skew; the
-lifeguard is ROADMAP A14.
+``fleet`` the elastic fleet's membership, speculation and skew.  The
+lifeguard (``QuarantineBreaker``, ``Watchdog``) is
+ROADMAP A14 step 5(c).
 """
 
 from spark_rapids_tpu_torch.robustness.retry import (  # noqa: F401

@@ -24,12 +24,14 @@ into *policy*:
     over the arrival window, with a wall-clock floor so a cold window
     still speculates) and keeps every membership change in ``events``.
 
-ROADMAP A14: the JAX package also feeds stage walls and arrival gaps to
-the flight recorder's ``observability.anomaly.StragglerDetector``
-(journal ``fleet_straggler``), records every decision as ``srt_fleet_*``
-metrics and ``fleet_*`` journal events, and triggers a
-``fleet_incident`` bundle on a death.  The robust-z arithmetic that
-``should_speculate`` needs is kept here (:func:`robust_z`).
+Membership changes and the epoch go to the observability spine
+(``srt_fleet_epoch``, ``srt_fleet_*`` counters, ``fleet_membership``
+journal events).  ROADMAP A14 step 5(b): the JAX package also feeds
+stage walls and arrival gaps to the flight recorder's
+``observability.anomaly.StragglerDetector`` (journal
+``fleet_straggler``) and triggers a ``fleet_incident`` bundle on a
+death.  The robust-z arithmetic that ``should_speculate`` needs is
+kept here (:func:`robust_z`).
 
 Epoch fencing: every elastic frame carries the sender's epoch; a
 receiver ahead of the sender answers the ``E`` verdict (stale-epoch
@@ -45,6 +47,8 @@ import os
 import threading
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from spark_rapids_tpu_torch import observability as _obs
 
 
 def _env_float(name: str, default: float) -> float:
@@ -175,8 +179,8 @@ class ElasticFleet:
         self.rank = int(rank)
         self.world0 = int(world)
         self.policy = policy or ElasticPolicy()
-        # ROADMAP A14: the JAX package builds a flight-recorder
-        # StragglerDetector here (threshold 4.0, min_samples
+        # ROADMAP A14 step 5(b): the JAX package builds a flight-
+        # recorder StragglerDetector here (threshold 4.0, min_samples
         # min_arrivals, cooldown 5 s) and exports it as `detector`
         self.threshold = float(threshold)
         self.spec_delay_s = (spec_delay_s if spec_delay_s is not None
@@ -199,8 +203,9 @@ class ElasticFleet:
         self._link_base: Dict[Tuple[str, str], float] = {}
         # membership changes, in order ({"change", "dead", "epoch",
         # "live", "moved"[, "joined"]}): the journal's
-        # fleet_membership records of the JAX package
+        # fleet_membership records of the journal
         self.events: List[dict] = []
+        _obs.set_fleet_epoch(0)
 
     # ---------------------------------------------------- membership
 
@@ -241,6 +246,7 @@ class ElasticFleet:
                 if epoch_hint > self._epoch:
                     self._epoch = int(epoch_hint)
                     self._view = None
+                    _obs.set_fleet_epoch(self._epoch)
                 return False
             before = self.policy.assign(self.world0, self._departed)
             self._departed |= new
@@ -252,8 +258,11 @@ class ElasticFleet:
             live = sorted(self._live)
         moved = {s: after[s] for s in range(self.world0)
                  if after[s] != before[s]}
-        # ROADMAP A14: record_fleet_membership and the flight
-        # recorder's fleet_incident trigger
+        _obs.record_fleet_membership(
+            "death", dead=sorted(new), epoch=epoch,
+            live=live, moved=moved)
+        # ROADMAP A14 step 5(b): the flight recorder's fleet_incident
+        # trigger
         self._record("death", dead=sorted(new), epoch=epoch, live=live,
                      moved=moved)
         return True
@@ -288,6 +297,9 @@ class ElasticFleet:
             live = sorted(self._live)
         moved = {s: after[s] for s in range(self.world0)
                  if after[s] != before[s]}
+        _obs.record_fleet_membership("leave", dead=[rank],
+                                     epoch=epoch, live=live,
+                                     moved=moved)
         self._record("leave", dead=[rank], epoch=epoch, live=live,
                      moved=moved)
         return True
@@ -307,6 +319,8 @@ class ElasticFleet:
             self._view = None
             epoch = self._epoch
             live = sorted(self._live)
+        _obs.record_fleet_membership("join", dead=[], epoch=epoch,
+                                     live=live, joined=rank)
         self._record("join", dead=[], epoch=epoch, live=live,
                      joined=rank)
         return True
@@ -325,6 +339,7 @@ class ElasticFleet:
             if int(epoch) > self._epoch:
                 self._epoch = int(epoch)
                 self._view = None
+                _obs.set_fleet_epoch(self._epoch)
 
     def is_stale(self, frame_epoch: int) -> bool:
         with self._lock:
@@ -334,8 +349,9 @@ class ElasticFleet:
 
     def note_stage_wall(self, stage: str, wall_ns: int) -> None:
         """Distributed runners feed their per-stage wall times here.
-        ROADMAP A14: the JAX package runs them through the straggler
-        detector, whose outliers reach the journal as fleet_straggler."""
+        ROADMAP A14 step 5(b): the JAX package runs them through the
+        straggler detector, whose outliers reach the journal as
+        fleet_straggler."""
 
     def note_arrival(self, op_id: int, part: int, src: int,
                      dt_ns: int) -> None:
@@ -399,8 +415,9 @@ class ElasticFleet:
         skew ratio (max/median of per-peer recv bytes), the live-counter
         signal the re-split decision reads.  ``link_bytes`` maps
         (direction, peer) to cumulative bytes; by default the
-        transport's own counters (the JAX package reads
-        ``srt_shuffle_link_bytes_total``: ROADMAP A14)."""
+        transport's own counters, which equal
+        ``srt_shuffle_link_bytes_total`` (the JAX package reads that
+        family, so its deltas need the metrics switch on)."""
         if link_bytes is None:
             from spark_rapids_tpu_torch.distributed import transport
             link_bytes = transport.link_bytes()

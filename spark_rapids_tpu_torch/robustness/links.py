@@ -17,8 +17,9 @@ retries and OOM retries share one tuning vocabulary:
     attempt count, and the last transport error.
   * :func:`with_link_retry`: the driver.  Run one send attempt,
     classify, back off, resend.  ``LINK_STATS`` counts the failed
-    attempts by reason (the per-link retry counter and the retry
-    episode journal are ROADMAP A14).
+    attempts by reason; each failed attempt also bumps
+    ``srt_shuffle_link_retries_total`` and an episode that saw a
+    failure lands in the retry journal (observability).
 
 Corrupt-stream handling on the RECEIVE side stays in the kudo reader
 (KCRC verify + resync, shuffle/kudo.py); the receiving transport turns
@@ -30,8 +31,10 @@ same garbage forever, but the sender's buffer is intact.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Optional, TypeVar
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.robustness.retry import RetryPolicy
 
 T = TypeVar("T")
@@ -98,23 +101,39 @@ def with_link_retry(attempt: Callable[[], T], *, peer,
     Transient failures (:data:`TRANSIENT`) back off with decorrelated
     jitter and resend; budget exhaustion (attempts or deadline) raises
     :class:`PeerDiedException`.  Anything else escalates untouched.
-    ROADMAP A14: the JAX package records each failed attempt as
-    ``srt_shuffle_link_retries_total`` and the episode (named ``name``)
-    in the retry journal."""
+    Each failed attempt is counted (``srt_shuffle_link_retries_total``)
+    and an episode that saw a failure is journalled under ``name``."""
     pol = policy or DEFAULT_LINK_POLICY
     t0 = pol.clock()
     failures = 0
+    lost_ns = 0
     prev_backoff = 0.0
+    errors = []
     while True:
+        attempt_t0 = time.monotonic_ns()
         try:
-            return attempt()
+            out = attempt()
+            if failures:
+                _obs.record_retry_episode(
+                    name, attempts=failures + 1, retries=failures,
+                    splits=0, max_split_depth=0, lost_ns=lost_ns,
+                    outcome="success", errors=errors)
+            return out
         except TRANSIENT as e:
             failures += 1
+            lost_ns += time.monotonic_ns() - attempt_t0
+            errors.append(type(e).__name__)
             _count(_reason_of(e))
+            _obs.record_shuffle_link_retry(peer, _reason_of(e))
             deadline_hit = (pol.deadline_s is not None
                             and pol.clock() - t0 >= pol.deadline_s)
             if failures >= pol.max_attempts or deadline_hit:
                 _count("exhausted")
+                _obs.record_retry_episode(
+                    name, attempts=failures, retries=failures,
+                    splits=0, max_split_depth=0, lost_ns=lost_ns,
+                    outcome="exhausted:deadline" if deadline_hit
+                    else "exhausted:attempts", errors=errors)
                 raise PeerDiedException(
                     peer, failures, last=e,
                     detail="deadline" if deadline_hit

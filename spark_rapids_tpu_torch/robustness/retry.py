@@ -26,10 +26,15 @@ back off exponentially under a bounded-attempts + wall-clock-deadline
 policy.  The drivers make no torch call: what an attempt runs on the
 device is the caller's.
 
+Episodes that saw at least one failure fold into the observability
+spine: ``srt_retry_*`` counters, a ``retry_episode`` journal event,
+and a ``retry``-kind span (attach=False — it never re-parents the
+traced work under it).  A zero-failure episode records nothing.
+
 Not ported, each marked below: the fault injector's rules
-(``utils/fault_injection.maybe_inject``, ROADMAP A16), the lifeguard
-heartbeat at each attempt start, and the episode's ``srt_retry_*``
-counters, journal event, span and incident trigger (ROADMAP A14).
+(``utils/fault_injection.maybe_inject``, ROADMAP A16), the
+lifeguard heartbeat at each attempt start (ROADMAP A14 step 5(c)) and
+the retry_exhausted incident trigger (ROADMAP A14 step 5(b)).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.memory import exceptions as exc
 
 # what the drivers recover from (reference catch set: RetryOOM,
@@ -206,7 +212,8 @@ class _Episode:
     """Shared per-invocation bookkeeping for all three drivers."""
 
     __slots__ = ("name", "policy", "t0", "attempt_t0", "attempts",
-                 "history", "last_exc", "last_backoff")
+                 "history", "max_split_depth", "span", "last_exc",
+                 "last_backoff")
 
     def __init__(self, name: str, policy: Optional[RetryPolicy]):
         self.name = name
@@ -215,18 +222,22 @@ class _Episode:
         self.attempt_t0 = time.monotonic_ns()
         self.attempts = 0              # total attempts started
         self.history: List[Attempt] = []
+        self.max_split_depth = 0
         self.last_exc: Optional[BaseException] = None
         self.last_backoff = 0.0
-        # ROADMAP A14: the JAX package opens the retry_episode span here
-        # and folds an episode that saw a failure into its counters and
-        # journal at every exit (its Episode.finish)
+        # attach=False: the episode span must never become the traced
+        # work's parent; it is simply DISCARDED (never ended) when no
+        # failure happened
+        self.span = _obs.TRACER.start_span(
+            f"retry_episode:{name}", kind="retry", attach=False)
 
     def before_attempt(self) -> None:
         """Runs INSIDE the driver's try: anything raised here counts
         as this attempt's failure."""
         self.attempts += 1
         self.attempt_t0 = time.monotonic_ns()
-        # ROADMAP A14: the lifeguard heartbeat (lifeguard.beat) here
+        # ROADMAP A14 step 5(c): the lifeguard heartbeat (lifeguard.beat)
+        # here
         adaptor = _installed_adaptor()
         if adaptor is not None:
             block = getattr(adaptor, "block_thread_until_ready", None)
@@ -242,6 +253,7 @@ class _Episode:
                     elapsed_ns=time.monotonic_ns() - self.attempt_t0,
                     split_depth=split_depth, batch_size=batch_size)
         self.history.append(a)
+        self.max_split_depth = max(self.max_split_depth, split_depth)
         self.last_exc = e
         return a
 
@@ -274,8 +286,32 @@ class _Episode:
             ex = RetryExhausted(self.name, reason, self.history, last)
         if last is not None and ex.__cause__ is None:
             ex.__cause__ = last
-        # ROADMAP A14: the retry_exhausted incident trigger here
+        self.finish("exhausted:" + reason)
+        # ROADMAP A14 step 5(b): the retry_exhausted incident trigger
+        # here
         return ex
+
+    def finish(self, outcome: str) -> None:
+        """Fold the episode into metrics/journal/tracer — only when a
+        failure actually happened (zero-failure episodes leave no
+        trace, so the hot path is unchanged)."""
+        if not self.history:
+            return
+        lost_ns = sum(a.elapsed_ns for a in self.history)
+        splits = sum(1 for a in self.history if a.kind == "split")
+        _obs.record_retry_episode(
+            self.name, attempts=self.attempts,
+            retries=len(self.history) - splits, splits=splits,
+            max_split_depth=self.max_split_depth, lost_ns=lost_ns,
+            outcome=outcome,
+            errors=[a.error for a in self.history])
+        span = self.span
+        span.set_attr("attempts", self.attempts)
+        span.set_attr("splits", splits)
+        span.set_attr("max_split_depth", self.max_split_depth)
+        span.set_attr("lost_ns", lost_ns)
+        span.set_attr("outcome", outcome)
+        span.end()
 
 
 def with_retry(fn: Callable, *args, name: Optional[str] = None,
@@ -301,19 +337,34 @@ def with_retry(fn: Callable, *args, name: Optional[str] = None,
     while True:
         try:
             ep.before_attempt()
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            ep.finish("success")
+            return out
         except RETRYABLE as e:
             if _is_non_retryable(e):
+                if ep.history:
+                    ep.note_failure(e, "escalate")
+                    ep.finish("error")
                 raise
             ep.note_failure(e, "retry")
             last = e
         except SPLITTABLE as e:
             if split_escalates:
+                ep.note_failure(e, "escalate")
+                ep.finish("escalated")
                 raise
             # no splitter here and fn is recomputable: a full re-run
             # IS a (degenerate) split of the input
             ep.note_failure(e, "retry")
             last = e
+        except BaseException as e:
+            # non-retryable escape: an episode that already retried
+            # must still fold into the spine before propagating (a
+            # clean first-attempt crash records nothing, as ever)
+            if ep.history:
+                ep.note_failure(e, "escalate")
+                ep.finish("error")
+            raise
         if restore is not None:
             restore(state)
         if len(ep.history) >= ep.policy.max_attempts:
@@ -371,6 +422,9 @@ def split_and_retry(fn: Callable[[Sequence], Any], batch: Sequence, *,
             continue
         except RETRYABLE as e:
             if _is_non_retryable(e):
+                if ep.history:
+                    ep.note_failure(e, "escalate")
+                    ep.finish("error")
                 raise
             part_failures += 1
             ep.note_failure(e, "retry", split_depth=depth,
@@ -382,8 +436,19 @@ def split_and_retry(fn: Callable[[Sequence], Any], batch: Sequence, *,
                             batch_size=len(part))
             if len(part) <= min_size:
                 raise ep.exhausted("split_floor", e) from e
-            left, right = batch_splitter(part)
+            try:
+                left, right = batch_splitter(part)
+            except BaseException:
+                ep.finish("error")   # splitter bug: fold, then raise
+                raise
             pending[0:1] = [(left, depth + 1), (right, depth + 1)]
             part_failures = 0
+        except BaseException as e:
+            # non-retryable escape mid-batch (see with_retry)
+            if ep.history:
+                ep.note_failure(e, "escalate")
+                ep.finish("error")
+            raise
         ep.pause()
+    ep.finish("success")
     return combine(results) if combine is not None else results

@@ -17,8 +17,9 @@ outcome is that error on the loser."""
 from __future__ import annotations
 
 import itertools
-import threading
 from typing import Any, Dict
+
+from spark_rapids_tpu_torch.analysis.lockdep import make_lock
 
 _MISSING = object()   # registered objects may legitimately be falsy
 
@@ -27,7 +28,7 @@ class HandleRegistry:
     def __init__(self):
         self._objects: Dict[int, Any] = {}
         self._next = itertools.count(1)
-        self._lock = threading.Lock()
+        self._lock = make_lock("shim.handles")
 
     def register(self, obj: Any) -> int:
         with self._lock:

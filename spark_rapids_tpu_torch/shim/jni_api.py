@@ -43,7 +43,7 @@ def column_to_host(handle: int):
 
 
 # --------------------------------------------------------------- ops
-# ROADMAP A16 and A14: the JAX package opens each export with a
+# ROADMAP step 6: the JAX package opens each export with a
 # fault-injection check (maybe_inject) and an NVTX-like op_range
 
 
@@ -104,8 +104,8 @@ def sort_merge_inner_join(left_handles: Sequence[int],
 # --------------------------------------------------------------- ingest
 # (the storage-side doors: zero-copy Arrow C-interface hand-off and the
 # columnar parquet reader — reference NativeParquetJni surface)
-# ROADMAP A16 and A14: each opens with maybe_inject and an op_range in
-# the JAX package
+# ROADMAP step 6: each opens with maybe_inject and an op_range in the
+# JAX package
 
 
 def arrow_ingest(batch, device="cuda") -> List[int]:
@@ -116,8 +116,8 @@ def arrow_ingest(batch, device="cuda") -> List[int]:
     caller may free its batch immediately."""
     from spark_rapids_tpu_torch.io.arrow_cabi import ingest
     cols, _names = ingest(batch, device)
-    # ROADMAP A14: the JAX package bumps the "arrow" source's ingest
-    # epoch here (result_cache.bump_ingest_epoch)
+    # ROADMAP A14 step 5(b): the JAX package bumps the "arrow" source's
+    # ingest epoch here (result_cache.bump_ingest_epoch)
     return [REGISTRY.register(c) for c in cols]
 
 
@@ -192,3 +192,105 @@ def spill_store_stats_json() -> str:
     out = {"installed": True}
     out.update(store.stats())
     return json.dumps(out, sort_keys=True)
+
+
+# --------------------------------------------------------- observability
+# (reference: RmmSpark getAndReset* + Profiler control surface; here the
+# unified registry/journal is exported to the JVM as text/JSON blobs so
+# the binding needs no schema compiler).  ROADMAP A14 step 5(b):
+# health_json.
+
+
+def metrics_set_enabled(enabled: bool) -> bool:
+    """Flip the process-wide observability switch; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_enabled()
+    (obs.enable if enabled else obs.disable)()
+    return prior
+
+
+def metrics_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_enabled()
+
+
+def metrics_expose_text() -> str:
+    """Prometheus text-format exposition of the process registry."""
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.expose_text()
+
+
+def metrics_snapshot_json() -> str:
+    """JSON snapshot (registry + per-task rollup + journal stats) for
+    the JVM shim."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.snapshot(), sort_keys=True)
+
+
+def metrics_journal_dump(path: str) -> int:
+    """Dump the event journal (+ task rollups + registry snapshot) as
+    JSONL; returns records written."""
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.dump_journal_jsonl(path)
+
+
+def metrics_reset() -> None:
+    from spark_rapids_tpu_torch import observability as obs
+    obs.reset()
+
+
+# -------------------------------------------------------------- tracing
+# (span tracing control surface: the JVM enables tracing around a query
+# and flushes finished spans to a JSONL file it owns)
+
+
+def tracing_set_enabled(enabled: bool) -> bool:
+    """Flip structured span tracing; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_tracing_enabled()
+    (obs.enable_tracing if enabled else obs.disable_tracing)()
+    return prior
+
+
+def tracing_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_tracing_enabled()
+
+
+def tracing_dump(path: str) -> int:
+    """Write the finished-span ring as JSONL; returns spans written."""
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.dump_spans_jsonl(path)
+
+
+def tracing_flush(path: str) -> int:
+    """Like tracing_dump but DRAINS the ring (repeated flushes between
+    export intervals never re-export a span).  The write is atomic
+    (tmp + rename): a failure mid-write leaves any previous flush file
+    intact AND requeues the drained spans."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.observability.dumpio import atomic_write
+    recs = obs.TRACER.drain()
+
+    def _write(f):
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+
+    try:
+        atomic_write(path, _write)
+    except BaseException:
+        # an unwritable path OR a mid-write failure (disk full, quota)
+        # must not lose the drained spans: put them back so a corrected
+        # retry re-exports everything
+        obs.TRACER.requeue(recs)
+        raise
+    return len(recs)
+
+
+def tracing_reset() -> None:
+    from spark_rapids_tpu_torch import observability as obs
+    obs.TRACER.reset()

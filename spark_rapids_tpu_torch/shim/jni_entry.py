@@ -13,12 +13,14 @@ are the JAX package's; columns made from host values go to `device`,
 "cuda" unless the caller asks for the CPU, and every op runs on the
 device of the columns its handles name.
 
-ROADMAP step 6 (A16's rest) brings the remainder of the JAX module to
-this one: initialize/shutdown (which configured JAX there), the bulk
-string ingest and readback, the kudo write memo that `free` purges and
-the host tables (both guarded there by locks from analysis.lockdep:
-plain threading.Locks here until A14 brings lockdep), the
-observability, query-server and profiler entries, and the entries of
+The observability entries (``metrics_*``, ``tracing_*``) and device
+telemetry (``telemetry_*``) are here.  ROADMAP step 6 (A16's rest)
+brings the remainder of the JAX module to this one: initialize/shutdown
+(which configured JAX there), the bulk string ingest and readback, the
+kudo write memo that `free` purges and the host tables (guarded there by
+the lockdep locks ``shim.kudo_cache`` and ``shim.host_tables``, which
+come with them), the query-server and profiler entries (``health_json``
+is ROADMAP A14 step 5(b)), and the entries of
 the ops that earlier slices ported into jni_api (hashes, row
 conversion, the string casts, parse_url, JSON, joins, datetime,
 ingest).  The comments below mark where each group goes.
@@ -125,8 +127,8 @@ def from_decimals(unscaled: Sequence[int], scale: int, type_id: str,
 # sort_merge_inner_join, extract_chunk32_from_64bit,
 # assemble64_from_sum, literal_range_pattern, timezone_convert,
 # get_json_object_multiple_paths, map_sort) go beside these.  ROADMAP
-# A16 and A14: the JAX package's op layer opens each with maybe_inject
-# and an op_range.
+# step 6: the JAX package's op layer opens each with maybe_inject and an
+# op_range.
 
 
 def random_uuids(rows: int, seed: int, device="cuda") -> int:
@@ -278,6 +280,109 @@ def decimal128_binop(op: str, a: int, b: int, out_scale: int) -> List[int]:
     return [REGISTRY.register(ovf), REGISTRY.register(res)]
 
 
+# ------------------------------------------------------- observability
+# (primitive-only twins of jni_api's metrics entries: the JVM pulls the
+# registry as a Prometheus text blob or a JSON string and dumps the
+# journal to a path it owns)
+
+
+def metrics_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.metrics_set_enabled(bool(enabled))
+
+
+def metrics_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.metrics_enabled()
+
+
+def metrics_expose_text() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.metrics_expose_text()
+
+
+def metrics_snapshot_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.metrics_snapshot_json()
+
+
+def metrics_journal_dump(path: str) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.metrics_journal_dump(path)
+
+
+def metrics_reset() -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.metrics_reset()
+
+
+def tracing_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.tracing_set_enabled(bool(enabled))
+
+
+def tracing_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.tracing_enabled()
+
+
+def tracing_dump(path: str) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.tracing_dump(path)
+
+
+def tracing_flush(path: str) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.tracing_flush(path)
+
+
+def tracing_reset() -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.tracing_reset()
+
+
+# ----------------------------------------- device telemetry over JNI
+# (``device``: None = the card, "cpu" = the host's one device)
+
+
+def telemetry_device_count(device=None) -> int:
+    from spark_rapids_tpu_torch.utils import telemetry
+    return telemetry.get_device_count(device)
+
+
+def telemetry_snapshot_packed(index: int, device=None) -> List[int]:
+    """NVML.getSnapshotPacked: [memTotal, memUsed, memFree, util%,
+    powerW, clockMhz, tempC]; -1 = metric not supported here."""
+    from spark_rapids_tpu_torch.utils import telemetry
+    out = [-1] * 7
+    try:
+        mem = telemetry.get_memory_info(index, device)
+        out[0] = int(mem.get("total", -1))
+        out[1] = int(mem.get("used", -1))
+        out[2] = int(mem.get("free", -1))
+    except Exception:
+        pass
+    try:
+        # utilization is a [0,1] fraction; the packed slot is percent
+        out[3] = int(telemetry.get_device_utilization(index, device)
+                     * 100)
+    except Exception:
+        pass
+    for slot, fn in ((4, telemetry.get_power_usage_watts),
+                     (5, telemetry.get_clock_mhz)):
+        try:
+            out[slot] = int(fn(index, device))
+        except Exception:
+            pass
+    return out
+
+
+def telemetry_device_name(index: int, device=None) -> str:
+    from spark_rapids_tpu_torch.utils import telemetry
+    info = telemetry.get_device_info(index, device)
+    return f"{info.platform}:{info.kind}"
+
+
 # ROADMAP step 6: device_attr_is_integrated, then the profiler, kudo
-# write/merge (with its memo), host-table spill, observability and
-# query-server entries go here.
+# write/merge (with its memo), host-table spill and query-server
+# entries go here.

@@ -24,11 +24,12 @@ from the device once (prepare_host_columns); the merger builds the
 table's columns on the device the caller names, "cuda" by default.
 
 The merger parses its tables under split-and-retry
-(robustness/retry.py), as the reference does.  ROADMAP A14 (tracing and
-metrics) is not ported: this writer never emits the KTRX trace
-extension (the reference writes it only while span tracing is on), and
-the kudo_write / kudo_merge spans and the shuffle and corruption
-counters are not recorded.  Readers still parse KTRX.
+(robustness/retry.py), as the reference does.  While span tracing is
+on, the writer prefixes each table with the KTRX trace extension and
+the merge opens a ``kudo_merge`` span linked to every writer context
+it consumed; the write and merge counters and the corruption and
+resync records go to the observability spine.  ROADMAP A14 step 5(b):
+the ``kudo_corrupt`` incident triggers, marked below.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import numpy as np
 
 import torch
 
+from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.columns.column import Column
 from spark_rapids_tpu_torch.columns.dtypes import Kind
 from spark_rapids_tpu_torch.columns.table import Table
@@ -51,7 +53,7 @@ from spark_rapids_tpu_torch.shuffle.schema import Field
 
 MAGIC = b"KUD0"
 # Optional trace-context header extension: when span tracing is on, the
-# reference's writer prefixes a table with "KTRX" + big-endian u64
+# writer prefixes a table with "KTRX" + big-endian u64
 # trace_id + u64 span_id (20 bytes) so the read side can re-parent its
 # merge spans under the writing task's span.  The extension precedes
 # the standard "KUD0" header, so the byte-compatible format is
@@ -221,6 +223,11 @@ class KudoTableHeader:
                 stream._kudo_pending_crc = None
                 want = struct.unpack(">I", raw)[0]
                 if want != pending:
+                    _obs.record_kudo_corruption(
+                        "crc", detail=f"deferred: want {want:08x} "
+                                      f"got {pending:08x}")
+                    # ROADMAP A14 step 5(b): the kudo_corrupt incident
+                    # trigger here
                     raise KudoCorruptException(
                         f"kudo crc mismatch (want {want:08x} got "
                         f"{pending:08x})", deferred=True)
@@ -245,6 +252,8 @@ class KudoTableHeader:
         off, rows, vlen, olen, tlen, ncols = fields
         if (min(off, rows, vlen, olen, tlen, ncols) < 0
                 or vlen + olen > tlen):
+            # ROADMAP A14 step 5(b): the kudo_corrupt incident trigger
+            # here
             raise KudoCorruptException(
                 f"impossible kudo header (offset={off} rows={rows} "
                 f"validity_len={vlen} offset_len={olen} "
@@ -341,8 +350,7 @@ def write_to_stream(columns: Sequence[Column], out, row_offset: int,
     racing the global flag against concurrent shuffle writers)."""
     if num_rows < 0 or row_offset < 0:
         raise ValueError("row_offset/num_rows must be non-negative")
-    # ROADMAP A14: the reference prefixes the KTRX trace extension here
-    # while span tracing is on
+    ntrace = _write_trace_extension(out)
     views = list(columns)
     if views and isinstance(views[0], Column):
         views = prepare_host_columns(views)
@@ -403,7 +411,7 @@ def write_to_stream(columns: Sequence[Column], out, row_offset: int,
     out.write(hb)
     for part in body:
         out.write(part)
-    n = header.serialized_size + header.total_len
+    n = ntrace + header.serialized_size + header.total_len
     return n + _write_crc_trailer(out, hb, body, crc=crc)
 
 
@@ -443,12 +451,29 @@ def checked_table_length(blob) -> int:
     return n
 
 
+def _write_trace_extension(out) -> int:
+    """Prefix the next table with the active trace context when span
+    tracing is on (see TRACE_MAGIC).  Returns bytes written (0 when
+    tracing is off or no span is open — the stream stays reference
+    byte-compatible)."""
+    tracer = _obs.TRACER
+    if not tracer.enabled:
+        return 0
+    ctx = tracer.current_context()
+    if ctx is None:
+        return 0
+    out.write(TRACE_MAGIC)
+    out.write(struct.pack(">QQ", ctx.trace_id, ctx.span_id))
+    return 20
+
+
 def write_row_count_only(out, num_rows: int) -> int:
     """Degenerate zero-column table (KudoSerializer rows-only path)."""
+    ntrace = _write_trace_extension(out)
     header = KudoTableHeader(0, num_rows, 0, 0, 0, 0, b"")
     hb = header.to_bytes()
     out.write(hb)
-    return header.serialized_size + _write_crc_trailer(
+    return ntrace + header.serialized_size + _write_crc_trailer(
         out, hb, ())
 
 
@@ -485,6 +510,11 @@ def read_one_table(stream) -> Optional[KudoTable]:
         got = zlib.crc32(body, zlib.crc32(header.to_bytes())) \
             & 0xFFFFFFFF
         if got != want:
+            _obs.record_kudo_corruption(
+                "crc", detail=f"want {want:08x} got {got:08x} "
+                              f"rows={header.num_rows}")
+            # ROADMAP A14 step 5(b): the kudo_corrupt incident trigger
+            # here
             raise KudoCorruptException(
                 f"kudo crc mismatch (want {want:08x} got {got:08x})")
     else:
@@ -582,33 +612,58 @@ def read_tables(stream, *, resync: bool = False) -> List[KudoTable]:
         except (ValueError, EOFError) as e:
             if not resync:
                 raise
+            if isinstance(e, KudoCorruptException):
+                reason = e.reason
+            elif isinstance(e, EOFError):
+                reason = "truncated"
+            else:
+                reason = "magic"
             if getattr(e, "deferred", False):
                 # non-seekable late-trailer verification: the corrupt
                 # table is the LAST one handed back (its trailer
                 # immediately follows it on the wire); drop it — the
                 # stream needs no repositioning
+                skipped = 0
                 if tables:
-                    tables.pop()
+                    bad = tables.pop()
+                    skipped = (bad.header.serialized_size
+                               + bad.header.total_len + CRC_TRAILER_LEN
+                               + (20 if bad.header.trace_ctx is not None
+                                  else 0))
+                _obs.record_kudo_corruption(
+                    "resync", skipped_bytes=skipped,
+                    detail=f"{reason}(deferred): {e}")
                 continue
             if not can_seek:
                 if isinstance(e, EOFError):
                     # mid-record EOF on a live stream: nothing past it
                     # to salvage — return what survived
+                    _obs.record_kudo_corruption(
+                        "resync", skipped_bytes=0,
+                        detail=f"{reason}: {e}")
                     return tables
-                resync_to_magic(stream)
+                skipped = resync_to_magic(stream)
+                _obs.record_kudo_corruption(
+                    "resync", skipped_bytes=skipped,
+                    detail=f"{reason}: {e}")
                 continue
-            crc = (isinstance(e, KudoCorruptException)
-                   and e.reason == "crc")
-            if not (crc and stream.tell() > start):
-                # rewind to one past the failed record's start and
-                # scan; progress is monotonic, so a corrupt tail
-                # terminates at EOF instead of looping.  (After a CRC
-                # mismatch the record's full extent was consumed:
+            if reason == "crc" and stream.tell() > start:
+                # the record's full extent is known (header, body, and
+                # trailer were all consumed before the mismatch):
                 # resume AFTER it — rescanning the corrupt body could
                 # resurrect a phantom table from payload bytes that
-                # merely look like a kudo record.)
+                # merely look like a kudo record
+                skipped = stream.tell() - start
+            else:
+                # rewind to one past the failed record's start and
+                # scan; progress is monotonic, so a corrupt tail
+                # terminates at EOF instead of looping
                 stream.seek(start + 1)
-                resync_to_magic(stream)
+                skipped = 1 + resync_to_magic(stream)
+            # one "resync" record per skip (the crc mismatch itself
+            # was already counted at the verify site)
+            _obs.record_kudo_corruption("resync", skipped_bytes=skipped,
+                                        detail=f"{reason}: {e}")
             continue
         if kt is None:
             return tables
@@ -773,13 +828,19 @@ class MergeMetrics:
 
 def write_to_stream_with_metrics(columns, out, row_offset: int,
                                  num_rows: int) -> "WriteMetrics":
-    """writeToStreamWithMetrics (KudoSerializer.java:249): the bytes
-    written and the time the write took (the kudo_write span and the
-    shuffle counters are ROADMAP A14)."""
-    t0 = time.monotonic_ns()
-    n = write_to_stream(columns, out, row_offset, num_rows)
-    return WriteMetrics(written_bytes=n,
-                        copy_time_ns=time.monotonic_ns() - t0)
+    """writeToStreamWithMetrics (KudoSerializer.java:249).  Opens a
+    shuffle_write span; its context is what the trace extension embeds
+    in the wire bytes, so the read side links back to THIS write."""
+    with _obs.TRACER.span("kudo_write", kind="shuffle_write",
+                          attrs={"rows": num_rows}) as sp:
+        t0 = time.monotonic_ns()
+        n = write_to_stream(columns, out, row_offset, num_rows)
+        dur = time.monotonic_ns() - t0
+        sp.set_attr("bytes", n)
+    # fold into the process metrics spine (shuffle byte counters +
+    # per-task attribution + journal event); no-op when disabled
+    _obs.record_shuffle_write(n, dur, num_rows)
+    return WriteMetrics(written_bytes=n, copy_time_ns=dur)
 
 
 def merge_to_table_with_metrics(kudo_tables, fields, device="cuda"):
@@ -787,25 +848,60 @@ def merge_to_table_with_metrics(kudo_tables, fields, device="cuda"):
     ends when the last host-to-device copy is queued, not when it
     lands."""
     from spark_rapids_tpu_torch.robustness import retry as _retry
-    t0 = time.monotonic_ns()
-    # ROADMAP A14: the reference opens the kudo_merge span here.
-    # split-and-retry over the TABLE LIST: a GpuSplitAndRetryOOM
-    # mid-parse halves the batch and parses the halves (down to a
-    # one-table floor); per-half results flatten back in order, so the
-    # split merge is byte-identical to the unsplit one
-    parsed = _retry.split_and_retry(
-        lambda kts: [_parse_table(kt, fields) for kt in kts],
-        list(kudo_tables),
-        combine=lambda chunks: [p for chunk in chunks for p in chunk],
-        name="kudo_merge")
-    t1 = time.monotonic_ns()
-    cols = [_concat_host_cols([p[i] for p in parsed], f, device)
-            for i, f in enumerate(fields)]
-    t2 = time.monotonic_ns()
-    table = Table(cols)
+    span = _open_merge_span(kudo_tables)
+    try:
+        t0 = time.monotonic_ns()
+        # split-and-retry over the TABLE LIST: a GpuSplitAndRetryOOM
+        # mid-parse halves the batch and parses the halves (down to a
+        # one-table floor); per-half results flatten back in order, so
+        # the split merge is byte-identical to the unsplit one
+        parsed = _retry.split_and_retry(
+            lambda kts: [_parse_table(kt, fields) for kt in kts],
+            list(kudo_tables),
+            combine=lambda chunks: [p for chunk in chunks
+                                    for p in chunk],
+            name="kudo_merge")
+        t1 = time.monotonic_ns()
+        cols = [_concat_host_cols([p[i] for p in parsed], f, device)
+                for i, f in enumerate(fields)]
+        t2 = time.monotonic_ns()
+        table = Table(cols)
+        span.set_attr("rows", table.num_rows)
+    finally:
+        span.end()
+    _obs.record_shuffle_merge(table.num_rows, t1 - t0, t2 - t1,
+                              len(kudo_tables))
     return table, MergeMetrics(parse_time_ns=t1 - t0,
                                concat_time_ns=t2 - t1,
                                total_rows=table.num_rows)
+
+
+def _open_merge_span(kudo_tables):
+    """Open the shuffle_merge span with writer-side causality: every
+    distinct trace context carried by the incoming tables' "KTRX"
+    extensions becomes a span link, and when the merging thread has no
+    open span of its own (a remote reader), the span is RE-PARENTED
+    under the first writer's context so the read side joins the writing
+    task's trace instead of starting an orphan one."""
+    tracer = _obs.TRACER
+    if not tracer.enabled:
+        return _obs.NOOP_SPAN
+    ctxs = []
+    seen = set()
+    for kt in kudo_tables:
+        ctx = kt.header.trace_ctx
+        if ctx is not None and ctx not in seen:
+            seen.add(ctx)
+            ctxs.append(_obs.SpanContext(*ctx))
+    parent = None
+    if ctxs and tracer.current_context() is None:
+        parent = ctxs[0]
+    span = tracer.start_span("kudo_merge", kind="shuffle_merge",
+                             attrs={"tables": len(kudo_tables)},
+                             parent=parent)
+    for c in ctxs:
+        span.add_link(c)
+    return span
 
 
 def dump_tables(kudo_tables, path_prefix: str) -> List[str]:

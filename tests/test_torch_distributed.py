@@ -15,6 +15,7 @@ tests/test_torch_distributed_fused.py runs q5 fused).
 
 import ast
 import io
+import json
 import os
 import socket
 import subprocess
@@ -552,6 +553,58 @@ def test_launch_two_cpu_workers(tmp_path):
     assert res["deaths"] == [] and res["wall_s"] > 0
 
 
+def test_launch_dumps_per_rank_observability_under_one_trace(tmp_path):
+    """Workers run with metrics and tracing on, as the JAX worker does:
+    each rank dumps its spans, metrics and journal beside its summary;
+    every span of every rank carries the launcher's trace id and
+    descends from the launcher's root; the link byte counters equal the
+    bytes the summaries count."""
+    from spark_rapids_tpu_torch.distributed import launcher as DL
+    out = str(tmp_path)
+    res = DL.launch(2, out, ops=("q5",), device="cpu",
+                    worker_env={"SPARK_RAPIDS_TPU_STAGE_FUSION": "0"},
+                    timeout_s=120.0)
+    trace = res["trace_id"]
+    files = DL.span_files(out, 2)
+    assert [os.path.basename(f) for f in files] == [
+        "spans_launcher.jsonl", "spans_rank0.jsonl", "spans_rank1.jsonl"]
+    spans = {}
+    for f in files:
+        with open(f) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                assert rec["trace_id"] == trace, f
+                spans[rec["span_id"]] = rec
+    (root,) = [r for r in spans.values() if r["parent_id"] is None]
+    assert root["name"] == "dist_query" and root["span_kind"] == "query"
+    for rec in spans.values():       # one connected tree
+        hops = 0
+        while rec["parent_id"] is not None:
+            rec = spans[rec["parent_id"]]
+            hops += 1
+            assert hops < 64
+        assert rec is root
+    names = {r["name"] for r in spans.values()}
+    assert {"dist_worker", "dist_q5", "shuffle_exchange", "shuffle_send",
+            "kudo_write", "kudo_merge"} <= names
+    for r in range(2):
+        s = res["summaries"][r]
+        with open(os.path.join(out, f"metrics_rank{r}.json")) as fh:
+            reg = json.load(fh)
+        link = {(x["labels"][0], x["labels"][1]): x["value"]
+                for x in reg["srt_shuffle_link_bytes_total"]["series"]}
+        assert link[("send", str(1 - r))] == s["link"]["bytes_sent"]
+        assert link[("recv", str(1 - r))] == s["link"]["bytes_recv"]
+        msgs = {tuple(x["labels"]): x["value"]
+                for x in reg["srt_shuffle_link_msgs_total"]["series"]}
+        assert msgs[("send", str(1 - r))] == s["link"]["frames_sent"]
+        with open(os.path.join(out, f"journal_rank{r}.jsonl")) as fh:
+            kinds = [json.loads(line)["kind"] for line in fh]
+        assert kinds[-1] == "registry_snapshot"
+        assert {"shuffle_link", "shuffle_write", "shuffle_merge",
+                "span"} <= set(kinds)
+
+
 def test_launch_fast_fails_on_boot_death(tmp_path):
     """A worker dying at boot fails the fleet at once with its code."""
     from spark_rapids_tpu_torch.distributed import launcher as DL
@@ -579,7 +632,12 @@ NEW_MODULES = ("ops/protobuf.py", "ops/protobuf_device.py",
                "robustness/fleet.py", "distributed/__init__.py",
                "distributed/transport.py", "distributed/service.py",
                "distributed/mesh.py", "distributed/runner.py",
-               "distributed/launcher.py")
+               "distributed/launcher.py", "analysis/__init__.py",
+               "analysis/lockdep.py", "observability/__init__.py",
+               "observability/dumpio.py", "observability/journal.py",
+               "observability/registry.py",
+               "observability/task_metrics.py",
+               "observability/tracing.py", "utils/telemetry.py")
 
 
 @pytest.mark.parametrize("path", NEW_MODULES)

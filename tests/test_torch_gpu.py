@@ -33,7 +33,11 @@ chip_smoke.py's ops phase at a small size; and protobuf and the process
 harness: the decoder's engine on card columns (flat, and nested with
 repeated fields) against the host oracle and the CPU engine, q5 with
 two ranks in one process on the card, and two worker processes sharing
-the card.
+the card; and the observability core: device telemetry and the Monitor's
+HBM samples against torch.cuda's counters, the kudo hooks on card
+columns (KTRX bytes, counters) against the same calls on CPU columns,
+a fused stage's compile span and fusion record, and chip_smoke.py's
+observability phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1060,3 +1064,141 @@ def test_launch_two_workers_on_card(cuda, tmp_path):
                                             f"result_{op}_rank{r}.npz")))
             for k, v in want[op].items():
                 assert got[k].tobytes() == v.tobytes(), (r, op, k)
+
+
+# ------------------------------------------------------- observability
+
+
+@pytest.fixture
+def obs_on():
+    from spark_rapids_tpu_torch import observability as obs
+    prior = (obs.is_enabled(), obs.is_tracing_enabled())
+    obs.enable()
+    obs.enable_tracing()
+    obs.reset()
+    yield obs
+    obs.reset()
+    (obs.enable if prior[0] else obs.disable)()
+    (obs.enable_tracing if prior[1] else obs.disable_tracing)()
+
+
+@pytest.mark.gpu
+def test_telemetry_reads_the_card(cuda):
+    from spark_rapids_tpu_torch.shim import jni_entry as JE
+    from spark_rapids_tpu_torch.utils import telemetry as T
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    assert T.get_device_count() == torch.cuda.device_count()
+    info = T.get_device_info(0)
+    now = torch.cuda.memory_allocated(0)
+    assert info.platform == "gpu"
+    assert info.kind == torch.cuda.get_device_name(0)
+    assert info.memory_stats["bytes_in_use"] == now
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert info.memory_stats["bytes_limit"] == total
+    mem = T.get_memory_info(0)
+    assert mem["free"] == mem["total"] - mem["used"]
+    assert 0.0 < T.get_device_utilization(0) < 1.0
+    for fn in (T.get_power_usage_watts, T.get_clock_mhz):
+        with pytest.raises(T.TelemetryNotSupported):
+            fn(0)
+    assert JE.telemetry_device_name(0) == f"gpu:{info.kind}"
+    packed = JE.telemetry_snapshot_packed(0)
+    assert packed[0] == total and packed[1] >= held.numel()
+    assert packed[4:] == [-1, -1, -1]
+    del held
+
+
+@pytest.mark.gpu
+def test_monitor_hbm_samples_match_memory_allocated(cuda, obs_on):
+    import time as _time
+    from spark_rapids_tpu_torch.utils import telemetry as T
+    held = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    samples = []
+    m = T.Monitor(50, lambda infos: samples.append(
+        (infos[0].memory_stats["bytes_in_use"],
+         torch.cuda.memory_allocated(0))))
+    m.start()
+    _time.sleep(0.4)
+    m.stop()
+    assert len(samples) >= 3
+    for got, want in samples:
+        assert abs(got - want) <= 0.01 * want
+    text = obs_on.expose_text()
+    assert 'srt_hbm_bytes_in_use{device="0"}' in text
+    del held
+
+
+@pytest.mark.gpu
+def test_kudo_hooks_on_card_columns_match_cpu(cuda, obs_on):
+    import io
+
+    from spark_rapids_tpu_torch.shuffle import kudo as K
+    from spark_rapids_tpu_torch.shuffle.schema import schema_of_table
+    card = store_sales_batch(1 << 16, seed=21)
+    cpu = Table([on_cpu(c) for c in card.columns])
+    ctx = obs_on.SpanContext(0x0102030405060708, 0x1112131415161718)
+    streams, counts = [], []
+    for t in (card, cpu):
+        obs_on.reset()
+        # under one activated context the KTRX prefix names it; the
+        # metered writer's prefix names its own kudo_write span (a
+        # random id), so its stream is compared by length
+        buf, metered = io.BytesIO(), io.BytesIO()
+        with obs_on.TRACER.activate(ctx):
+            for lo in range(0, t.num_rows, 1 << 14):
+                K.write_to_stream(t.columns, buf, lo, 1 << 14)
+                K.write_to_stream_with_metrics(t.columns, metered, lo,
+                                               1 << 14)
+        streams.append(buf.getvalue())
+        assert len(metered.getvalue()) == len(streams[-1])
+        merged, _m = K.merge_to_table_with_metrics(
+            K.read_tables(io.BytesIO(metered.getvalue())),
+            schema_of_table(t), t.columns[0].data.device)
+        assert merged.columns[0].data.device == t.columns[0].data.device
+        for a, b in zip(merged.columns, t.columns):
+            same_nested(a, b, "merged")
+        snap = obs_on.METRICS.snapshot()
+        counts.append([snap[f]["series"][0]["value"] for f in (
+            "srt_shuffle_write_bytes_total",
+            "srt_shuffle_merge_rows_total")])
+    assert streams[0] == streams[1]
+    assert streams[0].startswith(K.TRACE_MAGIC)
+    assert counts[0] == counts[1] == [len(streams[0]), 1 << 16]
+
+
+@pytest.mark.gpu
+def test_fused_stage_compile_span_and_record(cuda, obs_on, monkeypatch):
+    from spark_rapids_tpu_torch.plan import compiler as C
+    from spark_rapids_tpu_torch.plan import ir as IR
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "1")
+    plan = IR.StagePlan(
+        "gpu_obs_double", inputs=(IR.ScanBind("t", (IR.ColSpec("x"),)),),
+        nodes=(IR.Project("y", IR.Bin("mul", IR.Col("x"), IR.Lit(3))),),
+        outputs=("y",))
+    st = C.compile_stage(plan)
+    for _ in range(2):
+        out = st.run({"t": (torch.arange(1000, device=cuda),)})
+    # a fused stage's outputs keep the input's row bucket (1024 rows)
+    assert out[0].shape[0] == 1024
+    assert torch.equal(out[0][:1000].cpu(), torch.arange(1000) * 3)
+    text = obs_on.expose_text()
+    assert 'srt_stage_fusion_total{stage="gpu_obs_double",' \
+        'outcome="fused"} 2' in text
+    assert 'srt_stage_fusion_total{stage="gpu_obs_double",' \
+        'outcome="compile"} 1' in text
+    spans = [r for r in obs_on.TRACER.records()
+             if r["name"] == "stage_compile"]
+    assert len(spans) == 1 and spans[0]["attrs"]["stage"] == \
+        "gpu_obs_double"
+
+
+@pytest.mark.gpu
+def test_observability_phase_on_card_small(cuda, tmp_path, monkeypatch):
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    res = C.observability_phase("cuda", flagship_rows=1 << 16,
+                                shuffle_rows=1 << 16, task_rows=1 << 14,
+                                iters=1)
+    assert res["on"]["merged_rows"] == 1 << 16
+    assert res["hbm_worst_rel_diff"] <= 0.01 and res["quiet_samples"] > 0
+

@@ -33,6 +33,25 @@ JAX = types.SimpleNamespace(exc=jexc, sra=jsra, res=jres, rmm=jrmm)
 PORT = types.SimpleNamespace(exc=pexc, sra=psra, res=pres, rmm=prmm)
 
 
+@pytest.fixture(autouse=True)
+def _observability_off():
+    """Both packages' observability switches off for the replay, and
+    restored afterwards.  With a package's switch on, its facade's
+    ``task_done`` folds the finished task's counters into the
+    observability rollup and drops them from the adaptor, so a switch
+    left on by an earlier test in the same worker process made the two
+    packages read different ``get_and_reset_*`` counters."""
+    from spark_rapids_tpu import observability as jobs
+    from spark_rapids_tpu_torch import observability as pobs
+    prior = [(m, m.is_enabled()) for m in (jobs, pobs)]
+    for m, _ in prior:
+        m.disable()
+    yield
+    for m, on in prior:
+        if on:
+            m.enable()
+
+
 class TaskThread:
     """A worker executing queued ops (RmmSparkTest TaskThread analog)."""
 

@@ -1,0 +1,583 @@
+"""PyTorch port: the observability hooks in the port's layers, held
+against the JAX package's on one seeded scenario per layer.
+
+Each case runs the same calls through both packages with metrics and
+tracing on, then compares:
+
+  * ``expose_text()``: every line equal, except the time-valued
+    families (``TIME_FAMILIES``), whose series must exist in both and
+    whose counters are positive;
+  * the journal's record counts by kind;
+  * the span trees: (name, kind, parent's name, attributes without the
+    time-valued ones, link count), never ids or times.
+
+What only the JAX package records is left out of the comparison and
+named here: the op brackets its ops layer opens around every public op
+(``span_kind="op"`` spans and ``srt_op_latency_ns``; ROADMAP step 6 in
+the port) and its process compile cache's events (off here through
+``SPARK_RAPIDS_TPU_JIT_CACHE=0``; ROADMAP A14 step 5(b) in the port).
+"""
+
+import io
+import json
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu import observability as jobs
+from spark_rapids_tpu_torch import observability as obs
+from test_torch_memory import JAX, PORT, TaskThread, outcome, wait_parked
+from torch_port_data import host_column, jax_table, port_table
+
+# families whose values are wall or CPU times measured at run time
+TIME_FAMILIES = {
+    "srt_shuffle_write_time_ns_total", "srt_shuffle_merge_time_ns_total",
+    "srt_span_duration_ns", "srt_retry_time_lost_ns_total",
+    "srt_spill_ns_total", "srt_thread_blocked_time_ns_total",
+    "srt_io_read_ns", "srt_io_decode_ns_total",
+    "srt_shuffle_wire_ns_total", "srt_shuffle_wait_ns_total",
+    "srt_monitor_last_sample_age_s",
+}
+# span attributes holding times
+TIME_ATTRS = {"lost_ns", "wall_ns"}
+# what only the JAX package records (see the module docstring)
+JAX_ONLY_SPAN_KINDS = {"op"}
+JAX_ONLY_FAMILIES = {"srt_op_latency_ns"}
+
+
+@pytest.fixture(autouse=True)
+def both_on(monkeypatch, tmp_path):
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_JIT_CACHE", "0")
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
+                       str(tmp_path / "calib.json"))
+    from spark_rapids_tpu.perf import calibrate as JCAL
+    from spark_rapids_tpu_torch.perf import calibrate as CAL
+    CAL.forget()
+    JCAL.forget()
+    priors = [(m, m.is_enabled(), m.is_tracing_enabled())
+              for m in (obs, jobs)]
+    for m, _, _ in priors:
+        m.enable()
+        m.enable_tracing()
+        m.reset()
+    yield
+    for m, on, tr in priors:
+        m.reset()
+        (m.enable if on else m.disable)()
+        (m.enable_tracing if tr else m.disable_tracing)()
+
+
+def _family(name):
+    base = name.split("{")[0]
+    for suffix in ("_bucket", "_sum", "_count"):
+        if base.endswith(suffix) and base[:-len(suffix)] in TIME_FAMILIES:
+            return base[:-len(suffix)], suffix
+    return base, ""
+
+
+def exposition(o):
+    """(exact lines, time-valued series -> value) of one package."""
+    exact, timed = [], {}
+    for ln in o.expose_text().splitlines():
+        if 'span_kind="op"' in ln:
+            continue
+        if ln.startswith("#"):
+            fam = ln.split()[2]
+            if fam not in JAX_ONLY_FAMILIES:
+                exact.append(ln)
+            continue
+        key, value = ln.rsplit(" ", 1)
+        fam, suffix = _family(key)
+        if fam in JAX_ONLY_FAMILIES or \
+                fam[:-len("_bucket")] in JAX_ONLY_FAMILIES or \
+                fam.rsplit("_", 1)[0] in JAX_ONLY_FAMILIES:
+            continue
+        if fam in TIME_FAMILIES and suffix != "_count":
+            timed[key] = float(value)
+        else:
+            exact.append(ln)
+    return exact, timed
+
+
+def kept(rec):
+    return not (rec.get("kind") == "span"
+                and rec.get("span_kind") in JAX_ONLY_SPAN_KINDS)
+
+
+def journal_kinds(o):
+    out = {}
+    for r in o.JOURNAL.records():
+        if kept(r):
+            out[r["kind"]] = out.get(r["kind"], 0) + 1
+    return out
+
+
+def span_tree(o):
+    recs = o.TRACER.records()
+    by_id = {r["span_id"]: r for r in recs}
+
+    def parent_name(r):
+        p = by_id.get(r["parent_id"])
+        while p is not None and p["span_kind"] in JAX_ONLY_SPAN_KINDS:
+            p = by_id.get(p["parent_id"])
+        if p is not None:
+            return p["name"]
+        return "<outside>" if r["parent_id"] else None
+
+    tree = []
+    for r in recs:
+        if r["span_kind"] in JAX_ONLY_SPAN_KINDS:
+            continue
+        attrs = {k: v for k, v in (r.get("attrs") or {}).items()
+                 if k not in TIME_ATTRS}
+        tree.append((r["name"], r["span_kind"], parent_name(r),
+                     json.dumps(attrs, sort_keys=True),
+                     len(r.get("links", ()))))
+    return sorted(tree)
+
+
+def assert_same_observations(expect_kinds=()):
+    port, ref = exposition(obs), exposition(jobs)
+    assert port[0] == ref[0]
+    assert sorted(port[1]) == sorted(ref[1])
+    for key, v in port[1].items():
+        fam, suffix = _family(key)
+        if fam.endswith("_total"):
+            assert v > 0, key
+    kinds = journal_kinds(obs)
+    assert kinds == journal_kinds(jobs)
+    for k in expect_kinds:
+        assert kinds.get(k, 0) > 0, k
+    assert obs.JOURNAL.dropped == 0
+    tree = span_tree(obs)
+    assert tree == span_tree(jobs)
+    return kinds, tree
+
+
+# --------------------------------------------------------------- memory
+
+
+def oom_scenario(M):
+    """Forced retry and split on task 1, then task 2 blocks until task
+    1 frees: every adaptor hook (OOM events, block episode, device
+    memory gauge) fires once or more."""
+    a = M.sra.SparkResourceAdaptor(M.res.LimitingMemoryResource(1000))
+    t1 = TaskThread(a, task_id=1)
+    t2 = TaskThread(a, task_id=2)
+    obs_ = []
+    a.force_retry_oom(t1.ident, 1)
+    obs_.append(outcome(t1.do(lambda: a.allocate(100))))
+    a.force_split_and_retry_oom(t1.ident, 1)
+    obs_.append(outcome(t1.do(lambda: a.allocate(100))))
+    t1.do(lambda: a.allocate(800)).result(10)
+    fut = t2.do(lambda: a.allocate(800))
+    wait_parked(a, t2.ident)
+    t1.do(lambda: a.deallocate(800)).result(10)
+    obs_.append(outcome(fut))
+    t2.do(lambda: a.deallocate(800)).result(10)
+    a.task_done(1)
+    a.task_done(2)
+    t1.done()
+    t2.done()
+    a.shutdown()
+    return obs_
+
+
+def test_adaptor_oom_retry_split_and_block():
+    assert oom_scenario(PORT) == oom_scenario(JAX) == \
+        ["GpuRetryOOM", "GpuSplitAndRetryOOM", "ok"]
+    kinds, tree = assert_same_observations(
+        ("oom_retry", "oom_split_retry", "thread_blocked",
+         "thread_unblocked"))
+    assert ("oom_blocked", "oom", None, json.dumps(
+        {"device": "device", "injected": False, "task_id": 2},
+        sort_keys=True), 0) in tree
+    assert "srt_device_memory_allocated_bytes 0" in exposition(obs)[0]
+
+
+def test_task_leak_is_recorded_at_task_done():
+    def leak(M):
+        a = M.sra.SparkResourceAdaptor(M.res.LimitingMemoryResource(1000))
+        t = TaskThread(a, task_id=5)
+        t.do(lambda: a.allocate(300)).result(10)
+        a.task_done(5)
+        t.done()
+        a.shutdown()
+
+    leak(PORT)
+    leak(JAX)
+    assert_same_observations(("memory_leak",))
+    assert "srt_memory_leaked_bytes_total 300" in exposition(obs)[0]
+
+
+def test_facade_binds_and_folds_the_task_table():
+    def facade(M):
+        M.rmm.set_event_handler(1000)
+        try:
+            M.rmm.current_thread_is_dedicated_to_task(42)
+            g = M.rmm.get_adaptor()
+            g.allocate(100)
+            g.deallocate(100)
+            M.rmm.task_done(42)
+        finally:
+            M.rmm.clear_event_handler()
+
+    facade(PORT)
+    facade(JAX)
+    assert_same_observations(("task_done",))
+    want = {k: v for k, v in jobs.TASKS.rollup()[42].items()
+            if not k.endswith("time_ns")}
+    got = {k: v for k, v in obs.TASKS.rollup()[42].items()
+           if not k.endswith("time_ns")}
+    assert got == want and got["max_device_memory"] == 100
+    assert obs.TASKS.bound_threads() == {}
+
+
+def _spill(store_cls, cols, tmp, tier_of):
+    store = store_cls(spill_dir=str(tmp))
+    h = store.register(cols, name="batch", task_id=3, stage="q5")
+    h.spill()
+    assert tier_of(h) == "host"
+    store._host_limit = 0
+    store._enforce_host_limit()
+    assert tier_of(h) == "disk"
+    back = h.get()
+    h.close()
+    store.close()
+    return back
+
+
+def test_spill_to_host_and_disk_and_back(tmp_path):
+    from spark_rapids_tpu.memory import spill as JS
+    from spark_rapids_tpu_torch.memory import spill as PS
+    rng = np.random.default_rng(16)
+    specs = [host_column(rng, k, 300, nullable=True)
+             for k in ("int64", "float64", "string")]
+    _spill(PS.SpillStore, port_table(specs).columns, tmp_path / "p",
+           lambda h: h.tier)
+    _spill(JS.SpillStore, jax_table(specs).columns, tmp_path / "j",
+           lambda h: h.tier)
+    kinds, _ = assert_same_observations(("spill", "spill_restore",
+                                         "spill_wait"))
+    assert kinds["spill"] == 2
+    port = exposition(obs)[0]
+    assert 'srt_spill_restores_total{stage="q5",tier="disk"} 1' in port
+
+
+# ---------------------------------------------------------------- retry
+
+
+def test_retry_episodes_and_spans():
+    from spark_rapids_tpu.memory import exceptions as jexc
+    from spark_rapids_tpu.robustness import retry as JR
+    from spark_rapids_tpu_torch.memory import exceptions as pexc
+    from spark_rapids_tpu_torch.robustness import retry as PR
+
+    def episodes(R, ex, o):
+        calls = {"n": 0}
+
+        def flaky():
+            calls["n"] += 1
+            if calls["n"] == 1:
+                raise ex.GpuRetryOOM("injected")
+            return 7
+
+        def split_once(part):
+            if len(part) > 2:
+                raise ex.GpuSplitAndRetryOOM("injected")
+            return sum(part)
+
+        with o.TRACER.span("query", kind="query"):
+            a = R.with_retry(flaky, name="flaky")
+            b = R.split_and_retry(split_once, [1, 2, 3, 4],
+                                  combine=sum, name="halves")
+            c = R.with_retry(lambda: 1, name="clean")
+        return a, b, c
+
+    assert episodes(PR, pexc, obs) == episodes(JR, jexc, jobs) == (7, 10, 1)
+    kinds, tree = assert_same_observations(("retry_episode",))
+    assert kinds["retry_episode"] == 2
+    names = [t[0] for t in tree]
+    assert "retry_episode:flaky" in names and \
+        "retry_episode:clean" not in names
+
+
+def test_link_retry_and_fleet_membership():
+    from spark_rapids_tpu.robustness import fleet as JF
+    from spark_rapids_tpu.robustness import links as JL
+    from spark_rapids_tpu.robustness.retry import RetryPolicy as JPol
+    from spark_rapids_tpu_torch.robustness import fleet as PF
+    from spark_rapids_tpu_torch.robustness import links as PL
+    from spark_rapids_tpu_torch.robustness.retry import RetryPolicy
+
+    def drive(L, F, Pol):
+        tries = {"n": 0}
+
+        def attempt():
+            tries["n"] += 1
+            if tries["n"] < 3:
+                raise L.ShuffleLinkError("nak", reason="nak")
+            return 5
+
+        pol = Pol(max_attempts=5, base_backoff_s=0.0)
+        assert L.with_link_retry(attempt, peer=1, policy=pol) == 5
+        fleet = F.ElasticFleet(0, 3)
+        assert fleet.note_death([2])
+        assert fleet.note_join(2)
+        assert fleet.note_leave(1)
+        fleet.learn_epoch(9)
+        return fleet.epoch
+
+    assert drive(PL, PF, RetryPolicy) == drive(JL, JF, JPol) == 9
+    kinds, _ = assert_same_observations(("shuffle_link_retry",
+                                         "retry_episode",
+                                         "fleet_membership"))
+    text = exposition(obs)[0]
+    assert "srt_fleet_epoch 9" in text
+    assert 'srt_shuffle_link_retries_total{peer="1",reason="nak"} 2' \
+        in text
+
+
+# -------------------------------------------------------- kudo and KTRX
+
+
+def _kudo_specs(seed=11, rows=257):
+    rng = np.random.default_rng(seed)
+    return [host_column(rng, k, rows, nullable=True)
+            for k in ("int64", "int32", "float64", "string", "bool8")]
+
+
+def test_kudo_ktrx_bytes_equal_the_reference():
+    """Under the same activated SpanContext the port's kudo stream is
+    byte-equal to the JAX stream, and equal to the untraced stream with
+    the 20-byte KTRX prefix in front."""
+    from spark_rapids_tpu.shuffle import kudo as JK
+    from spark_rapids_tpu_torch.shuffle import kudo as PK
+    specs = _kudo_specs()
+    pcols, jcols = port_table(specs).columns, jax_table(specs).columns
+    ctx = (0x1122334455667788, 0x99AABBCCDDEEFF01)
+    streams = []
+    for o, K, cols in ((obs, PK, pcols), (jobs, JK, jcols)):
+        plain = io.BytesIO()
+        o.disable_tracing()
+        K.write_to_stream(cols, plain, 5, 200)
+        o.enable_tracing()
+        traced = io.BytesIO()
+        with o.TRACER.activate(o.SpanContext(*ctx)):
+            n = K.write_to_stream(cols, traced, 5, 200)
+        assert n == len(traced.getvalue())
+        streams.append((plain.getvalue(), traced.getvalue()))
+    (p_plain, p_traced), (j_plain, j_traced) = streams
+    assert p_traced == j_traced
+    assert p_plain == j_plain
+    assert p_traced == b"KTRX" + ctx[0].to_bytes(8, "big") + \
+        ctx[1].to_bytes(8, "big") + p_plain
+
+
+def test_kudo_write_merge_and_resync():
+    from spark_rapids_tpu.shuffle import kudo as JK
+    from spark_rapids_tpu.shuffle.schema import schema_of_table as jschema
+    from spark_rapids_tpu_torch.shuffle import kudo as PK
+    from spark_rapids_tpu_torch.shuffle.schema import schema_of_table
+    specs = _kudo_specs(12)
+
+    def drive(o, K, table, schema, merge_kw):
+        buf = io.BytesIO()
+        with o.TRACER.span("map_task", kind="stage"):
+            for off in (0, 100, 200):
+                K.write_to_stream_with_metrics(table.columns, buf, off,
+                                               min(100, 257 - off))
+        blob = bytearray(buf.getvalue())
+        tables = K.read_tables(io.BytesIO(bytes(blob)))
+        merged = {}
+
+        def reader():    # a remote reader with no span of its own
+            t, _m = K.merge_to_table_with_metrics(
+                tables, schema(table), **merge_kw)
+            merged["rows"] = t.num_rows
+
+        th = threading.Thread(target=reader)
+        th.start()
+        th.join(30)
+        # resync: the second table's magic smashed, the salvage mode
+        # skips to the next table
+        second = len(blob) // 3 + 25
+        at = bytes(blob).index(b"KUD0", second - 40)
+        blob[at] ^= 0xFF
+        salvaged = K.read_tables(io.BytesIO(bytes(blob)), resync=True)
+        return merged["rows"], len(salvaged)
+
+    got = drive(obs, PK, port_table(specs), schema_of_table,
+                {"device": "cpu"})
+    want = drive(jobs, JK, jax_table(specs), jschema, {})
+    assert got == want == (257, 2)
+    kinds, tree = assert_same_observations(
+        ("shuffle_write", "shuffle_merge", "kudo_corrupt"))
+    assert kinds["shuffle_write"] == 3
+    merge = [t for t in tree if t[0] == "kudo_merge"]
+    assert merge == [("kudo_merge", "shuffle_merge", "kudo_write",
+                      json.dumps({"rows": 257, "tables": 3},
+                                 sort_keys=True), 3)]
+
+
+# ------------------------------------------------------------- exchange
+
+
+def test_exchange_doubling():
+    from spark_rapids_tpu.parallel import exchange as JX
+    from spark_rapids_tpu_torch.parallel import exchange as PX
+
+    def drive(X):
+        def make_step(cap):
+            return lambda need: (cap, np.asarray([need > cap]))
+
+        run = X.with_capacity_retry(make_step, 2)
+        with pytest.raises(X.CapacityExceeded):
+            X.with_capacity_retry(make_step, 2, max_doublings=1)(100)
+        return run(9)
+
+    got, want = drive(PX), drive(JX)
+    assert got[1] == want[1] == 16
+    kinds, tree = assert_same_observations(
+        ("exchange_capacity_doubling", "exchange_capacity_exceeded",
+         "retry_episode"))
+    assert "srt_exchange_capacity_doublings_total 4" in exposition(obs)[0]
+    assert sum(t[0] == "exchange_capacity_retry" for t in tree) == 2
+
+
+# ------------------------------------------------------------------- io
+
+
+def test_parquet_read(tmp_path):
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from spark_rapids_tpu.io import parquet_reader as JPR
+    from spark_rapids_tpu_torch.io import parquet_reader as PPR
+    rng = np.random.default_rng(13)
+    path = str(tmp_path / "f.parquet")
+    pq.write_table(pa.table({
+        "a": pa.array(rng.integers(-1000, 1000, 3000), pa.int64()),
+        "b": pa.array(rng.random(3000)),
+        "s": pa.array([f"s{i % 17}" for i in range(3000)])}),
+        path, row_group_size=1000, compression="NONE")
+    got = PPR.read_table(path, device="cpu")
+    want = JPR.read_table(path)
+    assert got.num_rows == want.num_rows == 3000
+    kinds, tree = assert_same_observations(("io_read", "io_file"))
+    assert [t[0] for t in tree] == ["io_read"]
+    text = exposition(obs)[0]
+    assert "srt_io_files_total 1" in text and "srt_io_rows_total 3000" \
+        in text
+
+
+# ---------------------------------------------------- kernel paths
+
+
+def test_join_and_json_engine_paths():
+    from spark_rapids_tpu.ops import joins as JJ
+    from spark_rapids_tpu.ops import json_path as JP
+    from spark_rapids_tpu_torch.ops import joins as PJ
+    from spark_rapids_tpu_torch.ops import json_path as PP
+    from torch_port_data import strings_spec, values_spec
+    keys_l = values_spec("int64", [1, 2, 3, 2, None, 7])
+    keys_r = values_spec("int64", [2, 3, 9, None])
+    docs = strings_spec(['{"a": 1}', '{"a": {"b": 2}}', None, "bad"])
+    got = PJ.sort_merge_inner_join(port_table([keys_l]),
+                                   port_table([keys_r]))
+    want = JJ.sort_merge_inner_join(jax_table([keys_l]),
+                                    jax_table([keys_r]))
+    assert [np.asarray(g).tolist() for g in got] == \
+        [np.asarray(w).tolist() for w in want]
+    pj = PP.get_json_object(port_table([docs]).columns[0], "$.a")
+    jj = JP.get_json_object(jax_table([docs]).columns[0], "$.a")
+    assert pj.to_pylist() == jj.to_pylist()
+    assert_same_observations(("kernel_path",))
+    text = exposition(obs)[0]
+    assert 'srt_kernel_path_total{op="join.inner",path="host_rank"} 1' \
+        in text
+    assert 'srt_kernel_path_total{op="get_json_object",path="host"} 1' \
+        in text
+
+
+def test_star_join_query_span():
+    from spark_rapids_tpu.models import query as JQ
+    from spark_rapids_tpu_torch.models import query as PQ
+    fact = [values_spec_("int32", [1, 2, 2, 3, 4]),
+            values_spec_("int64", [10, 20, 30, 40, 50])]
+    dim = [values_spec_("int32", [1, 2, 3]),
+           values_spec_("int32", [7, 8, 7])]
+    got = PQ.simple_star_join_agg(port_table(fact), port_table(dim))
+    want = JQ.simple_star_join_agg(jax_table(fact), jax_table(dim))
+    assert got.num_rows == want.num_rows == 2
+    _, tree = assert_same_observations(("kernel_path",))
+    assert ("simple_star_join_agg", "query", None, "{}", 0) in tree
+
+
+def values_spec_(kind, values):
+    from torch_port_data import values_spec
+    return values_spec(kind, values)
+
+
+def test_calibration_journal():
+    from spark_rapids_tpu.perf import calibrate as JCAL
+    from spark_rapids_tpu_torch.perf import calibrate as CAL
+    cands = {"a": lambda: 1, "b": lambda: 2}
+    CAL.pick_path("t.op", "d0", cands, "a", device="cpu")
+    JCAL.pick_path("t.op", "d0", cands, "a")
+    recs = [obs.JOURNAL.records("kernel_calibrated"),
+            jobs.JOURNAL.records("kernel_calibrated")]
+    assert [len(r) for r in recs] == [1, 1]
+    for r in recs:
+        assert r[0]["op"] == "t.op" and r[0]["verdict"] in cands
+        assert set(r[0]["timings_us"]) == {"a", "b"}
+    assert recs[0][0]["backend"] == "torch-cpu"
+
+
+def test_stage_fusion_record_op_by_op(monkeypatch):
+    """An op-by-op stage run records its outcome by stage name in both
+    packages; the fused engine's compile span is held on the card."""
+    import jax.numpy as jnp
+
+    from spark_rapids_tpu.plan import compiler as JC
+    from spark_rapids_tpu.plan import ir as JIR
+    from spark_rapids_tpu_torch.plan import compiler as C
+    from spark_rapids_tpu_torch.plan import ir as IR
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+    outs = []
+    for M, comp, arr in ((IR, C, torch.arange(6)),
+                         (JIR, JC, jnp.arange(6))):
+        plan = M.StagePlan(
+            "tiny_double", inputs=(M.ScanBind("t", (M.ColSpec("x"),)),),
+            nodes=(M.Project("y", M.Bin("mul", M.Col("x"), M.Lit(2))),),
+            outputs=("y",))
+        outs.append(np.asarray(comp.compile_stage(plan).run(
+            {"t": (arr,)})[0]).tolist())
+    assert outs[0] == outs[1] == [0, 2, 4, 6, 8, 10]
+    assert_same_observations(("stage_fusion",))
+    assert 'srt_stage_fusion_total{stage="tiny_double",' \
+        'outcome="unfused"} 1' in exposition(obs)[0]
+    (rec,) = obs.JOURNAL.records("stage_fusion")
+    assert rec["nodes"] == 1 and rec["compiled"] is False
+
+
+def test_observability_phase_rehearsal_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's observability phase end to end on CPU tensors at
+    small sizes: outputs equal with observability off and on, each
+    traced kudo table the untraced bytes behind its KTRX prefix, the
+    counters equal to the known counts, one span tree, both dumps
+    parsed, the Monitor sampling."""
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    res = C.observability_phase("cpu", flagship_rows=1 << 10,
+                                shuffle_rows=1 << 12, task_rows=3000,
+                                iters=1)
+    assert res["on"]["merged_rows"] == res["off"]["merged_rows"] == 1 << 12
+    assert res["on"]["tasks"]["forced_split"]["split_retries"] == 1
+    assert res["journal_by_kind"]["shuffle_write"] == 2 * 200
+    assert res["samples"] >= 2 and res["hbm_worst_rel_diff"] == 0
+    assert obs.is_enabled() and obs.is_tracing_enabled()   # restored
+    assert not os.path.exists(os.path.join(str(tmp_path),
+                                           "observability"))

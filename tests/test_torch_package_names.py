@@ -1,0 +1,143 @@
+"""PyTorch port: every package of the port binds the public names its
+JAX counterpart's ``__init__`` binds, less the ones a later ROADMAP step
+brings (``LATER``, each with its step).
+
+The names a package binds are read from its ``__init__.py`` source
+(imports, assignments, definitions, including inside ``try`` blocks), so
+a submodule that another import happened to load never counts; then
+every name the port must bind is resolved on the imported port package.
+"""
+
+import ast
+import importlib
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# names of the JAX package's __init__ files that a later step brings
+LATER = {
+    "perf": {"JitCache": "A14 step 5(b)", "CACHE": "A14 step 5(b)",
+             "pad_axis0": "A14 step 5(b)"},
+    "robustness": {"QuarantineBreaker": "A14 step 5(c)",
+                   "Watchdog": "A14 step 5(c)"},
+    "plan": {"fused_pipeline_fn": "A10(b), step 3(b)"},
+    "observability": {name: "A14 step 5(b)" for name in (
+        "ATTRIBUTION", "FLIGHT", "PROFILER", "SLO", "STATS",
+        "TIMESERIES", "QueryProfiler", "attribution_last",
+        "cache_hit_profile", "diff_profiles", "merge_profiles", "health",
+        "evaluate_slo", "timeseries_snapshot", "trigger_incident",
+        "record_tenant_rows", "record_timeseries_merge",
+        "enable_attribution", "disable_attribution",
+        "is_attribution_enabled", "enable_flight_recorder",
+        "disable_flight_recorder", "is_flight_recorder_enabled",
+        "enable_profiling", "disable_profiling", "is_profiling_enabled",
+        "enable_slo", "disable_slo", "is_slo_enabled", "enable_stats",
+        "disable_stats", "is_stats_enabled", "enable_timeseries",
+        "disable_timeseries", "is_timeseries_enabled")},
+}
+LATER["observability"].update({name: "A14 step 5(c)" for name in (
+    "record_server_admit", "record_server_complete",
+    "record_server_dequeue", "record_server_drain",
+    "record_server_quarantine", "record_server_reject",
+    "record_server_requeue", "record_server_watchdog",
+    "set_server_tenant_gauges")})
+# JAX packages the port does not have yet
+LATER_PACKAGES = {"server": "A14 step 5(c)", "tools": "A14 step 5(d)"}
+
+
+def bound_names(path):
+    """Public names a module's top level binds."""
+    names = set()
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                for a in node.names:
+                    names.add((a.asname or a.name).split(".")[0])
+            elif isinstance(node, ast.Assign):
+                for target in node.targets:
+                    if isinstance(target, ast.Name):
+                        names.add(target.id)
+            elif isinstance(node, ast.AnnAssign) and \
+                    isinstance(node.target, ast.Name):
+                names.add(node.target.id)
+            elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Try):
+                visit(node.body)
+                for h in node.handlers:
+                    visit(h.body)
+            elif isinstance(node, ast.If):
+                visit(node.body)
+                visit(node.orelse)
+
+    with open(path) as f:
+        visit(ast.parse(f.read()).body)
+    return {n for n in names if not n.startswith("_")} - {"annotations"}
+
+
+def packages():
+    out = [""]
+    for d in sorted(os.listdir(os.path.join(REPO, "spark_rapids_tpu"))):
+        if os.path.exists(os.path.join(REPO, "spark_rapids_tpu", d,
+                                       "__init__.py")):
+            out.append(d)
+    return out
+
+
+def init_of(root, pkg):
+    return os.path.join(REPO, root, pkg, "__init__.py")
+
+
+@pytest.mark.parametrize("pkg", packages(), ids=lambda p: p or "<root>")
+def test_port_package_binds_the_reference_names(pkg):
+    if pkg in LATER_PACKAGES:
+        assert not os.path.exists(init_of("spark_rapids_tpu_torch", pkg))
+        return
+    want = bound_names(init_of("spark_rapids_tpu", pkg))
+    later = LATER.get(pkg, {})
+    missing = sorted(want - bound_names(init_of("spark_rapids_tpu_torch",
+                                                pkg)) - set(later))
+    assert missing == [], f"{pkg or '<root>'} lacks {missing}"
+    mod = importlib.import_module(
+        "spark_rapids_tpu_torch" + (f".{pkg}" if pkg else ""))
+    unresolved = sorted(n for n in want - set(later)
+                        if not hasattr(mod, n))
+    assert unresolved == []
+
+
+@pytest.mark.parametrize("pkg", sorted(LATER))
+def test_later_names_are_still_missing_from_the_port(pkg):
+    """A name listed as coming later is really missing: when its step
+    lands, the list shrinks with it."""
+    want = bound_names(init_of("spark_rapids_tpu", pkg))
+    have = bound_names(init_of("spark_rapids_tpu_torch", pkg))
+    assert set(LATER[pkg]) <= want
+    assert not set(LATER[pkg]) & have
+
+
+def test_the_bindings_named_in_queue_c_resolve():
+    import spark_rapids_tpu_torch.ops as ops
+    from spark_rapids_tpu_torch.columns import Column, DType, Table
+    from spark_rapids_tpu_torch.ops import protobuf
+    assert ops.protobuf is protobuf
+    assert Column.__module__.endswith("columns.column")
+    assert Table.__module__.endswith("columns.table")
+    assert DType.__module__.endswith("columns.dtypes")
+
+
+def test_port_imports_without_jax():
+    import subprocess
+    import sys
+    code = ("import sys, spark_rapids_tpu_torch, "
+            "spark_rapids_tpu_torch.observability, "
+            "spark_rapids_tpu_torch.analysis, spark_rapids_tpu_torch.ops, "
+            "spark_rapids_tpu_torch.utils.telemetry, "
+            "spark_rapids_tpu_torch.distributed.runner; "
+            "assert 'jax' not in sys.modules; "
+            "assert not [m for m in sys.modules "
+            "if m.split('.')[0] == 'spark_rapids_tpu']")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   env=dict(os.environ, PYTHONPATH=REPO))
