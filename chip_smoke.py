@@ -84,13 +84,14 @@
    QueryCancelled and allocate no device memory.  A check of function
    only, untimed: the defaults' few thousand rows are not a query size.
 8. GROUP BY and ORDER BY over one GPU batch of store_sales columns:
-   2^25 rows of ss_store_sk INT32 (402 values), ss_item_sk INT32
+   2^24 rows of ss_store_sk INT32 (402 values), ss_item_sk INT32
    (204,000), ss_quantity INT32 (1-100), ss_sales_price INT64 cents and
    ss_net_paid FLOAT64 (never negative), the last three about 4% null:
-   0.94 GB, near spark-rapids' default target batch size
-   (spark.rapids.sql.batchSizeBytes, 1 GiB).  groupby_aggregate on
-   (store, item), about 27M groups: sum(quantity), count(net_paid),
-   min and max(price), sum and mean(net_paid); its device group ids
+   0.47 GB (2^25 rows, 0.94 GB, near spark-rapids' default target batch
+   size of 1 GiB, until step 19 needed the time; the later steps' batches
+   of this shape keep 2^25 rows).  groupby_aggregate on (store, item):
+   sum(quantity), count(net_paid), min and max(price), sum and
+   mean(net_paid); its device group ids
    against the host branch's on the same card data; sort_table by
    (store ASC, price DESC nulls last).  A STRING-keyed group-by and
    order_by at 2^22 rows (1,000 distinct keys of 8-50 bytes; the
@@ -133,7 +134,7 @@
    over spark.sql.shuffle.partitions' default of 200 partitions, rows
    placed as Spark's HashPartitioning places them, pmod(murmur3_32(keys,
    42), 200), then ordered by partition with the port's stable order_by
-   and a gather.  Two batches: step 8's 2^25-row store_sales batch,
+   and a gather.  Two batches: a 2^25-row store_sales batch like step 8's,
    keyed by ss_item_sk; and 2^22 rows of ss_item_sk INT32, a brand-like
    STRING of 8-50 bytes, LIST<INT32> of 0-16 elements, STRUCT<INT64,
    STRING of 0-32 bytes, LIST<FLOAT64> of 0-4> and LIST<STRING> of 0-4
@@ -161,7 +162,7 @@
    side's bytes / 8, so 8 partitions, once on the host tier and once
    with every partition demoted to disk under build/spill: the pairs
    must equal the in-memory join on the card and the numpy oracle byte
-   for byte.  Step 8's group-by over its 2^25-row batch out of core at a
+   for byte.  Step 8's group-by over a 2^25-row batch out of core at a
    256 MiB budget (the keys and the six value columns it is given make
    1.95 GB, so 8 partitions) against the in-memory call (float sums
    within close_float_sums' bound).  A registered 2^25-row batch that
@@ -218,8 +219,8 @@
    casts (string_to_decimal, both base conversions, conv, the literal
    range pattern, list_slice and the GBK decode) once at 2^16 rows, each
    returning a card column equal to its CPU run, and the JNI door's
-   string_to_integer on a card handle, released.  parse_url over 2^22
-   URLs of at most 199 bytes drawn from a seeded vocabulary (schemes, userinfo,
+   string_to_integer on a card handle, released.  parse_url over 2^21
+   URLs (2^22 until step 19 needed the time) of at most 199 bytes drawn from a seeded vocabulary (schemes, userinfo,
    hosts and IPv4 addresses, ports, paths, queries, fragments; about 1%
    IPv6 hosts and 1% non-ASCII paths, the host parser's rows, about 2%
    invalid paths and 4% nulls): PROTOCOL, HOST, QUERY and PATH over all
@@ -239,15 +240,16 @@
    ops/json_device.py's per-row scan and ops/json_tokenizer.py's
    structural index; ops/json_utils.py's from_json over
    ops/raw_map_device.py and ops/from_json_device.py; ops/map_utils.py),
-   every column drawn on the card from a seed.  2^20 clickstream events
-   (BASELINE.json's get_json_object column; `event_docs`): event, ts,
+   every column drawn on the card from a seed.  2^19 clickstream events
+   (half of BASELINE.json's get_json_object column, cut for step 19's
+   time; `event_docs`): event, ts,
    user {id, name, tags}, page, items (0-8 objects of sku, qty and a
    fractional price), ctx 1-5 deep; 100-1,000 bytes (about 400), 4%
    null, a seeded 1/32 replaced by JSON_EDGES (single quotes, escapes,
    control chars, 17-deep nesting, leading zeros, whitespace, duplicate
    keys, non-ASCII, invalid JSON).  get_json_object through the router
    (its verdict file fresh under build/) for `$.event`, `$.user.id`,
-   `$.user.name` and `$.ctx.a.b.c` over all 2^20 rows, and for
+   `$.user.name` and `$.ctx.a.b.c` over all 2^19 rows, and for
    `$.items[0]` and `$.items[*].sku` over the first 2^14 (most of their
    rows go to the host parser: a fractional price in every item, several
    items); the multi-path entry over the six paths on those 2^14; each
@@ -292,7 +294,8 @@
    q7 at 204,000 items, q3 at 1,000 brands), each writing and reading
    its files, equal to run_catalog_query of tpcds_q3, q7 and q9 with
    the same params on the card.  A DATE and a TIMESTAMP[us] column
-   of 2^24 rows (years 1500-2100: Julian dates and pre-1970 instants;
+   of 2^23 rows (2^24 until step 19 needed the time; years 1500-2100:
+   Julian dates and pre-1970 instants;
    4% null each) read from parquet onto the card: both rebases on both,
    to and from UTC for America/Los_Angeles and Asia/Shanghai, ORC
    rectification Asia/Tokyo -> UTC, truncate at each component and with
@@ -307,8 +310,9 @@
    ops/sha.py, ops/bloom_filter.py, ops/hllpp.py, ops/histogram.py,
    ops/zorder.py, ops/iceberg.py, ops/substring_index.py,
    ops/case_when.py, ops/uuid_gen.py, shim/jni_entry.py), every column
-   drawn on the card from a seed.  Two DECIMAL128 columns of 2^25 rows
-   (1 GiB, spark.rapids.sql.batchSizeBytes), a of sums at scale -2 below
+   drawn on the card from a seed.  Two DECIMAL128 columns of 2^24 rows
+   (512 MiB; 2^25, spark.rapids.sql.batchSizeBytes, until step 19 needed
+   the time), a of sums at scale -2 below
    5 * 2^64, b of ss_net_paid's prices in cents, 4% null each, 1/64 edge
    rows (zero divisors, +-(10^38 - 1), products that overflow): multiply
    to scale -4, add and sub at -2, divide at -20 with both cast to -4
@@ -319,7 +323,7 @@
    value, against the host big-int loop; decimal128_binop through the
    JNI door's handles equal to the direct calls, every handle released.
    INT64 multiply (regular, TRY, ANSI raising at the CPU's row) and
-   round of FLOAT64 and DECIMAL64 over step 8's 2^25-row batch,
+   round of FLOAT64 and DECIMAL64 over a 2^25-row batch like step 8's,
    long_to_binary_string over 2^24 rows, and the host-loop casts (string
    to date and timestamp, format_number, hex, decimal to string) over
    2^16.  SHA-256 and SHA-512 of the 2^22 STRING keys and the 2^25 INT64
@@ -339,7 +343,7 @@
    18-bit hilbert_index of (ss_item_sk, ss_customer_sk); Iceberg bucket(16)
    of the INT64 prices and the STRING keys, truncate(10), and year,
    month, day and hour of a 2^24-row TIMESTAMP of 1500-2100;
-   substring_index over step 12's 2^22 URLs; 2^22 random UUIDs (format,
+   substring_index over step 12's 2^21 URLs; 2^22 random UUIDs (format,
    seed determinism, no repeat in 2^16); select_first_true_index over
    four BOOL8 columns of 2^25 rows.  Every other call equals the same
    call on a CPU copy over its first 2^16-2^20 rows byte for byte.
@@ -418,6 +422,38 @@
    call.  Prints an `observability` line: the flagship step and the
    shuffle write ms off and on, spans finished, journal events,
    samples and the phase's seconds.
+19. The rest of observability and the caches (the query profiler with
+   time attribution and the critical path, data statistics, the
+   timeseries sampler and SLOs, the result cache, the flight
+   recorder).  (a) The flagship step (2^22 rows, launching the
+   fixed-width to-rows kernel) and tpcds_q5_fused at the stage path's
+   size (2^25 x 2^22, 402 stores; its stages under 'auto', so the
+   first run measures fused against op by op on a 2^18-row sample),
+   first with everything off, then each as a profiled query with
+   metrics, tracing, stats, attribution, the timeseries sampler (driven
+   by the telemetry Monitor at 50 ms) and the SLO monitor on.  Outputs
+   must be byte-equal between the runs, the q5 profile must hold a
+   record of each stage, each ledger must conserve the query's wall
+   within its tolerance, the critical path over the query's spans must
+   cover its wall, and the windowed counter deltas must sum to the
+   registry's cumulative values.  (b) The result cache armed: the q5
+   pipeline twice, the second run hitting once per stage with the
+   first's bytes (the miss, the hit and the inputs' digest timed), and
+   tpcds_q5_incremental at 2^25 rows a batch: run, its stream's epoch
+   bumped twice, run warm; its rows must equal a cold recompute with
+   the cache off, and exactly the two new batches must fold.  (c) The
+   flight recorder armed to a directory under build/: memory's forced-
+   OOM task with its attempts cut to 2 (retry_exhausted) and a
+   CRC-flipped kudo table read for a merge (kudo_corrupt) must leave two
+   bundles, each parsed and inside the byte budget, named by the JNI
+   door's health_json and incident_list, and srt_incidents_total must
+   read 2.  (d) Step 17's launch A writes each rank's query profiles;
+   merge_profiles must fold them into one fleet profile per query whose
+   stages hold every rank.  Prints an `observability_plane` line: the
+   profiled and unprofiled step and q5 ms, the stage cache's miss, hit
+   and digest ms, the incremental q5's cold and warm ms, the incidents
+   and their bundle bytes, the timeseries windows and the phase's
+   seconds.
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -597,6 +633,9 @@ CATALOG_NAMES = ("tpcds_q3", "tpcds_q5", "tpcds_q7", "tpcds_q9",
 # 1 GiB, spark.rapids.sql.batchSizeBytes), about 4% nulls in each value
 # column
 OPS_ROWS = 1 << 25
+# the operators' own batch: half of OPS_ROWS since step 19 needed the
+# time (its CPU reference group-by and sort over the batch dominate)
+OPERATORS_ROWS = 1 << 24
 OPS_NULL_SHARE = 0.04
 STR_OPS_ROWS = 1 << 22      # brand-like STRING keys, 8-50 bytes
 STR_DISTINCT = 1_000
@@ -640,9 +679,9 @@ SHUFFLE_SEED = 42
 NESTED_ROWS = 1 << 22
 NESTED_NULL_SHARE = 0.05
 # the memory runtime (step 11): J2 out of core at its build side's bytes
-# / 8; step 8's batch grouped at a 256 MiB budget; four task threads,
-# each with its own 2^23-row store_sales batch (B bytes), under a limit
-# of 3 B; q5 over 4 spilled partitions
+# / 8; step 8's group-by over a 2^25-row batch at a 256 MiB budget; four
+# task threads, each with its own 2^23-row store_sales batch (B bytes),
+# under a limit of 3 B; q5 over 4 spilled partitions
 MEM_JOIN_PARTS = 8
 MEM_GROUPBY_BUDGET = 256 << 20
 MEM_CORRUPT_ROWS = 1 << 22
@@ -656,8 +695,8 @@ MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
 # the string casts and parse_url (step 12), drawn on the card: the casts
 # over 2^24 rows of the operators' store_sales values (one executor
 # batch; about 300 MB of rendered chars), a seeded 1/16 of the rows
-# replaced by an edge vocabulary; parse_url over 2^22 URLs of at most
-# 199 bytes (about 390 MB), and QUERY with a key over BASELINE.json's
+# replaced by an edge vocabulary; parse_url over 2^21 URLs of at most
+# 199 bytes (about 195 MB; 2^22 before step 19 needed the time), and QUERY with a key over BASELINE.json's
 # 1e6-row column (2^20 rows), since the key is matched per row on the
 # host; each checked against a CPU run of a slice and against the host
 # engine on a sample
@@ -668,7 +707,7 @@ STR_HOST_ROWS = 1 << 16
 # the strings and json phases' timed calls a cast or extractor: 2 (3
 # until the ops phase took the script past 950 s)
 STR_ITERS = 2
-URL_ROWS = 1 << 22
+URL_ROWS = 1 << 21
 URL_KEY_ROWS = 1 << 20
 URL_CPU_ROWS = 1 << 17      # one device chunk
 URL_HOST_ROWS = 1 << 14
@@ -703,7 +742,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "ops": (),
                 "protobuf": (),
                 "distributed": (),
-                "observability": ("to_rows",)}
+                "observability": ("to_rows",),
+                "observability_plane": ("to_rows",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1527,7 +1567,7 @@ def run_operators():
     against the same call on a CPU copy (see the module docstring)."""
     RA.reset_launches()
     res = {}
-    batch = store_sales_batch(OPS_ROWS, seed=29)
+    batch = store_sales_batch(OPERATORS_ROWS, seed=29)
     cols = batch.columns
     keys = Table(cols[:2])
     # sum(quantity), count(net_paid), min and max(price), sum and
@@ -1557,7 +1597,7 @@ def run_operators():
                                  True, "groupby mean(net_paid)"))
     ms, peak = timed(lambda: G.groupby_aggregate(keys, values, aggs),
                      STEP_ITERS)
-    res["groupby"] = {"rows": OPS_ROWS, "groups": out.num_rows,
+    res["groupby"] = {"rows": OPERATORS_ROWS, "groups": out.num_rows,
                       "branch": taken, "ms": ms, "peak_mb": peak,
                       "float_diff_of_bound": bound}
     del out, want
@@ -1568,7 +1608,8 @@ def run_operators():
                     f"sort_table column {i}")
     del order, want, cpu_cols
     ms, peak = timed(lambda: S.sort_table(batch, [0, 3], [True, False]), 3)
-    res["sort_table"] = {"rows": OPS_ROWS, "ms": ms, "peak_mb": peak}
+    res["sort_table"] = {"rows": OPERATORS_ROWS, "ms": ms,
+                         "peak_mb": peak}
     del batch, cols, keys, values
     torch.cuda.empty_cache()
 
@@ -3150,7 +3191,9 @@ def run_strings(device="cuda", cast_kw=None, url_kw=None):
 
 # --------------------------------------------------------------- json (13)
 
-JSON_ROWS = 1 << 20          # BASELINE.json's get_json_object column
+# half of BASELINE.json's get_json_object column (all 2^20 rows before
+# step 19 needed the time)
+JSON_ROWS = 1 << 19
 JSON_CHUNK_ROWS = 1 << 17    # one device-scan chunk (DEVICE_ROW_CHUNK)
 JSON_CPU_ROWS = 1 << 14      # the CPU run's rows, and the host engine's
 JSON_SMALL_ROWS = 1 << 14    # the host-bound calls: one calibration sample
@@ -3597,7 +3640,7 @@ FILE_QUERIES = {
 }
 # a DATE and a TIMESTAMP[us] column of years 1500-2100 (Julian dates and
 # pre-1970 instants), 4% null; the CPU run covers the first DT_CPU_ROWS
-DT_ROWS = 1 << 24
+DT_ROWS = 1 << 23          # 2^24 before step 19 needed the time
 DT_CPU_ROWS = 1 << 22
 DT_NULL_SHARE = 0.04
 DT_US_RANGE = (-14831769600 * 10**6, 4102444800 * 10**6)   # 1500, 2100
@@ -3916,13 +3959,14 @@ def run_ingest(device="cuda", **kw):
 # ------------------------------------------------------------------ ops (15)
 
 # the rest of the op breadth at one executor's share of 8 of TPC-DS
-# SF100, drawn on the card from a seed: two DECIMAL128 columns of 2^25
-# rows (1 GiB: spark.rapids.sql.batchSizeBytes), a of sums at scale -2
+# SF100, drawn on the card from a seed: two DECIMAL128 columns of 2^24
+# rows (512 MiB; 2^25, spark.rapids.sql.batchSizeBytes, until step 19
+# needed the time), a of sums at scale -2
 # of magnitude up to about 10^20, b of prices at scale -2 from
 # ss_net_paid, each 4% null, a seeded 1/64 of the rows edge rows; the
-# operator batch (2^25 rows), the 2^22 STRING keys, the 2^22 URLs and a
+# operator batch (2^25 rows), the 2^22 STRING keys, the 2^21 URLs and a
 # 2^24-row TIMESTAMP like the ingest phase's for the rest
-OPS_ROWS_DEC = 1 << 25
+OPS_ROWS_DEC = 1 << 24
 OPS_EDGE_EVERY = 64
 OPS_CPU_ROWS = 1 << 16         # decimals, casts and SHA held to the CPU
 OPS_WIDE_CPU_ROWS = 1 << 20    # sketches, z-order, Iceberg, CASE WHEN
@@ -4893,6 +4937,8 @@ DIST_RESPAWN_DELAY_S = 2.0
 # op (the runner's escape hatch), sparing each process inductor's start
 # and compiles (about 16 s a worker, measured on one H100)
 DIST_OP_BY_OP = {"SPARK_RAPIDS_TPU_STAGE_FUSION": "0"}
+# launch A's workers assemble a query profile per query (step 19 (d))
+DIST_PROFILED = {"SPARK_RAPIDS_TPU_PROFILE": "1"}
 
 
 def dist_dir():
@@ -5000,6 +5046,38 @@ def dist_observability(res, lockdep=False):
     return out
 
 
+def dist_profiles(res, ops):
+    """Each query's per-rank profile dumps merged into one fleet
+    profile: every rank's profile holds its stages, and every merged
+    stage holds every rank.  Returns per query the ranks, the stages
+    and the slowest rank's wall ms per stage."""
+    from spark_rapids_tpu_torch.observability import merge_profiles
+    world = len(res["summaries"])
+    out = {}
+    for op in ops:
+        profiles = []
+        for r in range(world):
+            with open(os.path.join(res["outdir"],
+                                   f"profile_{op}_rank{r}.json")) as f:
+                profiles.append(json.load(f))
+        merged = merge_profiles(profiles)
+        stages = [s["stage"] for s in merged["stages"]]
+        check(merged["ranks"] == list(range(world))
+              and merged["trace_consistent"]
+              and merged["trace_id"] == res["trace_id"],
+              f"{op}: the rank profiles merge under the launch's trace")
+        check(stages and sum(len(p["stages"]) for p in profiles)
+              == world * len(stages)
+              and all(len(s["per_rank_wall_ns"]) == world
+                      for s in merged["stages"]),
+              f"{op}: {world} ranks x {len(stages)} stages "
+              f"({[len(p['stages']) for p in profiles]})")
+        out[op] = {"ranks": world, "stages": stages,
+                   "stage_ms": {s["stage"]: s["wall_ns"] / 1e6
+                                for s in merged["stages"]}}
+    return out
+
+
 def dist_launch(name, world, ops, params, device="cuda", **kw):
     from spark_rapids_tpu_torch.distributed import launcher as DL
     outdir = os.path.join(dist_dir(), name)
@@ -5030,14 +5108,16 @@ def distributed_phase(device="cuda", q5=None, q72=None):
         torch.cuda.empty_cache()
     shutil.rmtree(dist_dir(), ignore_errors=True)
     try:
-        # A: q5 and q72 over two ranks
+        # A: q5 and q72 over two ranks, each rank profiling its queries
         a, got = dist_launch("a", 2, ("q5", "q72"),
-                             {"q5": q5, "q72": q72}, device)
+                             {"q5": q5, "q72": q72}, device,
+                             worker_env=DIST_PROFILED)
         for r in range(2):
             same_results(got[r]["q5"], want[2], f"launch A rank {r} q5")
             same_results(got[r]["q72"], want72, f"launch A rank {r} q72")
         res["a"] = launch_numbers(a)
         res["a"]["observability"] = dist_observability(a)
+        res["a"]["profiles"] = dist_profiles(a, ("q5", "q72"))
         # B: q72 with rank 1's first reduce-scatter send corrupted, the
         # workers' locks under lockdep
         b, got = dist_launch("b", 2, ("q72",), {"q72": q72}, device,
@@ -5384,6 +5464,400 @@ def run_observability(device="cuda", **kw):
     return read_launches("observability"), res
 
 
+# ---------------------------------------------- observability plane (19)
+
+# the stage path's q5 data and join capacity
+PLANE_Q5 = dict(Q5_DATA, join_capacity=Q5_CAPACITY)
+PLANE_TENANT = "chip_smoke"
+PLANE_WINDOW_S = 0.25                 # timeseries windows
+PLANE_WINDOWS_CAP = 4096              # no window leaves the ring
+PLANE_CP_COVER = 0.9                  # the critical path's share of wall
+PLANE_INCIDENT_BYTES = 64 << 20
+PLANE_TASK_ATTEMPTS = 2
+PLANE_STREAM = "q5_stream_chip_smoke"
+
+
+def plane_dir():
+    return os.path.join(_BUILD, "observability_plane")
+
+
+def plane_query(o, name, fn, device, slo=True):
+    """fn() as one profiled query under its own root span, fed to the
+    SLO monitor unless `slo` is false: (outputs, profile, the root's
+    span records, ms)."""
+    t0 = time.perf_counter()
+    with o.TRACER.span(name, kind="query") as root:
+        sess = o.PROFILER.begin(f"{name}-{root.span_id:016x}",
+                                tenant=PLANE_TENANT, query=name)
+        try:
+            out = fn()
+            sync(device)
+        finally:
+            prof = o.PROFILER.end(sess)
+    ms = (time.perf_counter() - t0) * 1e3
+    if slo:
+        o.SLO.observe(PLANE_TENANT, "success", int(ms * 1e6))
+    trace = f"{root.trace_id:016x}"
+    recs = [r for r in o.TRACER.records() if r["trace_id"] == trace]
+    return out, prof, recs, ms
+
+
+def plane_ledger(prof, what):
+    """The profile's attribution ledger conserves its wall."""
+    led = prof.get("attribution")
+    check(led is not None and led["conserved"],
+          f"observability_plane: {what}'s ledger conserves its wall "
+          f"({led and led.get('residual_ns')}, "
+          f"{led and led.get('overcount_ns')})")
+    return led
+
+
+def plane_profiled(device, flag_inputs, d5, p5, fusion=None):
+    """(a): the flagship step and q5 off, then as profiled queries with
+    the whole plane on, q5's stages under `fusion` (None: 'auto');
+    returns the numbers."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.observability.critical_path import (
+        critical_path)
+    from spark_rapids_tpu_torch.observability.timeseries import (
+        sum_counter_windows)
+    from spark_rapids_tpu_torch.utils import telemetry
+    res = {}
+
+    def flag():
+        return F.flagship_step(*flag_inputs)
+
+    def q5():
+        return TC.run_q5(d5, p5["stores"], p5["join_capacity"])
+
+    # off: q5's first run under 'auto' measures its engines
+    with env(SPARK_RAPIDS_TPU_STAGE_FUSION=fusion):
+        t0 = time.perf_counter()
+        off = (flag(), q5())
+        sync(device)
+        res["off_first_s"] = time.perf_counter() - t0
+        res["flagship_ms"] = {"off": wall_ms(flag, STEP_ITERS, device)}
+        res["q5_ms"] = {"off": wall_ms(q5, STEP_ITERS, device)}
+        check(len(obs.JOURNAL) == 0 and len(obs.TRACER) == 0,
+              "observability_plane: everything off records nothing")
+        res["q5_engines"] = {
+            k[0]: v for k, v in CAL._PROC_CACHE.items()
+            if k[0] in ("stage:q5_partials", "stage:q5_finish")}
+        obs.enable()
+        obs.enable_tracing()
+        obs.enable_profiling()
+        obs.enable_attribution()
+        obs.enable_stats()
+        obs.enable_timeseries(window_s=PLANE_WINDOW_S,
+                              capacity=PLANE_WINDOWS_CAP)
+        obs.enable_slo()
+        mon = telemetry.Monitor(OBS_MONITOR_MS, lambda infos: None,
+                                device=device)
+        mon.start()
+        try:
+            # the first profiled q5 compiles its tapped program
+            t0 = time.perf_counter()
+            plane_query(obs, "q5_first", q5, device, slo=False)
+            res["on_first_s"] = time.perf_counter() - t0
+            flag_on, fprof, _frecs, _ = plane_query(obs, "flagship", flag,
+                                                    device)
+            q5_on, qprof, qrecs, _ = plane_query(obs, "q5", q5, device)
+            res["flagship_ms"]["on"] = wall_ms(
+                lambda: plane_query(obs, "flagship", flag, device),
+                STEP_ITERS, device)
+            res["q5_ms"]["on"] = wall_ms(
+                lambda: plane_query(obs, "q5", q5, device), STEP_ITERS,
+                device)
+            res["slo_alerts"] = obs.evaluate_slo()
+        finally:
+            mon.stop()
+        obs.TIMESERIES.tick()              # close the last window
+    for name, a, b in zip(("murmur3_32", "xxhash64", "rows",
+                           "bucket sums"), flag_on, off[0]):
+        check(torch.equal(a, b), f"observability_plane: flagship {name} "
+              "equal with the plane on")
+    same_bytes(q5_on, off[1], "observability_plane: q5 with the plane on")
+    stages = [s["stage"] for s in qprof["stages"]]
+    check(sorted(stages) == ["q5_finish", "q5_partials"]
+          and all(s["calls"] == 1 for s in qprof["stages"]),
+          f"observability_plane: q5's profile holds each stage ({stages})")
+    check(fprof["stages"] == [] and fprof["wall_ns"] > 0,
+          "observability_plane: the flagship's profile")
+    res["ledger"] = {"flagship": plane_ledger(fprof, "flagship"),
+                     "q5": plane_ledger(qprof, "q5")}
+    # the critical path over the query's spans covers its wall
+    (root,) = [r for r in qrecs if r["parent_id"] is None]
+    cp = critical_path({0: qrecs})
+    cover = cp["total_ns"] / max(root["dur_ns"], 1)
+    check(cp["path"] and PLANE_CP_COVER <= cover <= 1.0
+          and cp["clamped_edges"] == 0,
+          f"observability_plane: q5's critical path covers its wall "
+          f"({cover:.3f}: {[p['name'] for p in cp['path']]})")
+    res["critical_path"] = {"cover": cover,
+                            "path": [p["name"] for p in cp["path"]]}
+    # stats: the q5 taps observed the join and the filters
+    sec = obs.STATS.last("q5_partials")
+    check(sec is not None and any(n["kind"] == "JoinProbe"
+                                  for n in sec["nodes"]),
+          "observability_plane: q5's stats section")
+    # conservation: every counter's windowed deltas sum to the registry
+    windows = obs.TIMESERIES.windows()
+    check(len(windows) < PLANE_WINDOWS_CAP,
+          "observability_plane: no window left the ring")
+    snap = obs.METRICS.snapshot()
+    counters = 0
+    # the sampler counts each window after taking its snapshot, so its
+    # own counter is one window ahead of the ring by construction
+    check(obs_metric(snap, "srt_timeseries_windows_total") == len(windows),
+          "observability_plane: every window counted")
+    for fam, body in snap.items():
+        if body.get("kind") != "counter" or \
+                fam == "srt_timeseries_windows_total":
+            continue
+        want = {"|".join(str(v) for v in x["labels"]): float(x["value"])
+                for x in body["series"] if x["value"]}
+        got = {k: v for k, v in sum_counter_windows(windows, fam).items()
+               if v}
+        check(got == want, f"observability_plane: {fam}'s windows sum "
+              f"to its registry value ({got} vs {want})")
+        counters += 1
+    # every query is one SLI event (an alert is a query past the
+    # default 250 ms target: reported, a matter of speed)
+    status = obs.SLO.status()[PLANE_TENANT]
+    check(status["events"] == 2 + 2 * STEP_ITERS,
+          f"observability_plane: the SLO monitor saw every query "
+          f"({status})")
+    res.update(windows=len(windows), counters_conserved=counters,
+               slo=status, spans=len(obs.TRACER),
+               journal=len(obs.JOURNAL), dropped=obs.JOURNAL.dropped)
+    return res
+
+
+def plane_cache(device, d5, p5):
+    """(b): the stage cache over the q5 pipeline and the incremental
+    q5."""
+    from spark_rapids_tpu_torch.perf import result_cache as RC
+    res = {}
+    flat = [d5.s_date, d5.s_store, d5.s_price, d5.s_profit,
+            d5.r_date, d5.r_store, d5.r_amt, d5.r_loss, d5.d_date]
+    t0 = time.perf_counter()
+    RC.data_digest(flat)
+    res["digest_ms"] = (time.perf_counter() - t0) * 1e3
+    res["digest_bytes"] = sum(t.numel() * t.element_size() for t in flat)
+    with env(SPARK_RAPIDS_TPU_RESULT_CACHE="1"):
+        RC.CACHE.clear(reset_stats=True)
+        RC.reset_ingest_epochs()
+        try:
+            outs = []
+            for tag in ("miss", "hit"):
+                before = RC.CACHE.stats()
+                t0 = time.perf_counter()
+                outs.append(TC.run_q5(d5, p5["stores"],
+                                      p5["join_capacity"]))
+                sync(device)
+                res[f"{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+                after = RC.CACHE.stats()
+                res[f"{tag}_counts"] = {
+                    k: after[k] - before[k]
+                    for k in ("hits", "misses", "puts")}
+            check(res["miss_counts"] == {"hits": 0, "misses": 2, "puts": 2}
+                  and res["hit_counts"] == {"hits": 2, "misses": 0,
+                                            "puts": 0},
+                  f"observability_plane: the second q5 hit once per "
+                  f"stage ({res['miss_counts']}, {res['hit_counts']})")
+            same_bytes(outs[1], outs[0],
+                       "observability_plane: q5 from the stage cache")
+            check(all(o.device.type == torch.device(device).type
+                      for o in outs[1]),
+                  "observability_plane: cached outputs on the card")
+            params = dict(p5, device=device, source=PLANE_STREAM)
+            TM.run_catalog_query("tpcds_q5_incremental", dict(params))
+            RC.bump_ingest_epoch(PLANE_STREAM)
+            RC.bump_ingest_epoch(PLANE_STREAM)
+            folds = RC.CACHE.stats()["folds"]
+            t0 = time.perf_counter()
+            warm = TM.run_catalog_query("tpcds_q5_incremental",
+                                        dict(params))
+            res["incremental_warm_ms"] = (time.perf_counter() - t0) * 1e3
+            res["incremental_folds"] = RC.CACHE.stats()["folds"] - folds
+            with env(SPARK_RAPIDS_TPU_RESULT_CACHE="0"):
+                t0 = time.perf_counter()
+                cold = TM.run_catalog_query("tpcds_q5_incremental",
+                                            dict(params))
+                res["incremental_cold_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+            check(warm == cold and len(warm) > 0,
+                  "observability_plane: incremental q5 warm == a cold "
+                  "recompute")
+            check(res["incremental_folds"] == 2,
+                  f"observability_plane: the two new batches folded "
+                  f"({res['incremental_folds']})")
+            res["cache"] = RC.CACHE.stats()
+        finally:
+            RC.CACHE.clear(reset_stats=True)
+            RC.reset_ingest_epochs()
+    return res
+
+
+def plane_forced_oom_task(device):
+    """memory's forced-OOM task with its attempts cut to 2: every attempt
+    of its batch reservation meets an injected GpuRetryOOM."""
+    adaptor = rmm_spark.set_event_handler(1 << 60)
+    try:
+        def task():
+            rmm_spark.current_thread_is_dedicated_to_task(9)
+            rmm_spark.force_retry_oom(rmm_spark.current_thread_id(),
+                                      PLANE_TASK_ATTEMPTS + 1)
+            try:
+                RT.with_retry(adaptor.allocate, 1 << 20,
+                              name="task9_batch",
+                              policy=RT.RetryPolicy(
+                                  max_attempts=PLANE_TASK_ATTEMPTS,
+                                  base_backoff_s=0.0))
+            except RT.RetryExhausted as e:
+                return e.reason, len(e.attempts)
+            finally:
+                rmm_spark.task_done(9)
+            return None, 0
+
+        (out,) = run_task_threads([(task, ())])
+        check(out == ("attempts", PLANE_TASK_ATTEMPTS),
+              f"observability_plane: the forced-OOM task exhausted its "
+              f"{PLANE_TASK_ATTEMPTS} attempts ({out})")
+        check(adaptor.resource.used == 0,
+              "observability_plane: the task left nothing reserved")
+    finally:
+        rmm_spark.clear_event_handler()
+
+
+def plane_incidents(device):
+    """(c): the flight recorder armed; a retry_exhausted and a
+    kudo_corrupt incident."""
+    from spark_rapids_tpu_torch import observability as obs
+    out_dir = os.path.join(plane_dir(), "incidents")
+    obs.enable_flight_recorder(out_dir=out_dir,
+                               max_bytes=PLANE_INCIDENT_BYTES,
+                               min_interval_s=0.0)
+    try:
+        plane_forced_oom_task(device)
+        prior = K.set_crc_enabled(True)
+        try:
+            col = Column(dtypes.INT64, 1 << 16, data=torch.arange(
+                1 << 16, dtype=torch.int64, device=device))
+            buf = io.BytesIO()
+            K.write_to_stream(K.prepare_host_columns([col]), buf, 0,
+                              1 << 16)
+            raw = bytearray(buf.getvalue())
+            raw[-10] ^= 0xFF           # a body bit the KCRC trailer covers
+            try:
+                K.merge_to_table_with_metrics(
+                    K.read_tables(io.BytesIO(bytes(raw))),
+                    schema_of_table(Table([col])), device)
+                check(False, "observability_plane: a flipped table merged")
+            except K.KudoCorruptException:
+                pass
+        finally:
+            K.set_crc_enabled(prior)
+    finally:
+        obs.disable_flight_recorder()
+    listing = json.loads(JE.incident_list())
+    kinds = [i["kind"] for i in listing]
+    check(sorted(kinds) == ["kudo_corrupt", "retry_exhausted"],
+          f"observability_plane: two bundles ({kinds})")
+    sizes = {}
+    for inc in listing:
+        total = 0
+        for name in os.listdir(inc["path"]):
+            p = os.path.join(inc["path"], name)
+            total += os.path.getsize(p)
+            with open(p) as f:
+                if name.endswith(".jsonl"):
+                    [json.loads(line) for line in f if line.strip()]
+                else:
+                    json.load(f)
+        check(inc["total_bytes"] <= total <= PLANE_INCIDENT_BYTES,
+              f"observability_plane: {inc['kind']} bundle parses and "
+              f"fits its budget ({total} bytes)")
+        sizes[inc["kind"]] = total
+    health = json.loads(JE.health_json())
+    fr = health["flight_recorder"]
+    check(fr["bundles_written"] == 2
+          and fr["last_trigger"]["kind"] == "kudo_corrupt",
+          f"observability_plane: health_json names the bundles ({fr})")
+    snap = obs.METRICS.snapshot()
+    n = sum(x["value"] for x in snap["srt_incidents_total"]["series"])
+    check(n == 2, f"observability_plane: srt_incidents_total {n}")
+    return {"kinds": sorted(kinds), "bundle_bytes": sizes}
+
+
+def observability_plane_phase(device="cuda", q5=None, flagship_rows=None,
+                              fusion=None, dist_profiles_res=None):
+    """Step 19 (see the module docstring); `fusion` pins q5's engine in
+    (a) (None: 'auto')."""
+    from spark_rapids_tpu_torch import observability as obs
+    clock = time.perf_counter()
+    shutil.rmtree(plane_dir(), ignore_errors=True)
+    os.makedirs(plane_dir())
+    p5 = dict(PLANE_Q5, **(q5 or {}))
+    rows = flagship_rows or FLAGSHIP_ROWS
+    calib = os.path.join(plane_dir(), "calib.json")
+    res = {"q5": p5, "flagship_rows": rows}
+    saved = (obs.is_enabled(), obs.is_tracing_enabled())
+    obs.disable()
+    obs.disable_tracing()
+    obs.reset()
+    try:
+        with env(SPARK_RAPIDS_TPU_CALIB_CACHE=calib,
+                 SPARK_RAPIDS_TPU_STATS_STORE=os.path.join(
+                     plane_dir(), "stats.json")):
+            flag_inputs = F.example_inputs(rows, device=device)
+            d5 = TT.gen_q5(rows=p5["rows"], stores=p5["stores"],
+                           days=p5["days"], seed=p5["seed"], device=device)
+            res["profiled"] = plane_profiled(device, flag_inputs, d5, p5,
+                                             fusion)
+            for o_off in (obs.disable_profiling, obs.disable_attribution,
+                          obs.disable_stats, obs.disable_timeseries,
+                          obs.disable_slo, obs.disable_tracing):
+                o_off()
+            res["stage_cache"] = plane_cache(device, d5, p5)
+            res["incidents"] = plane_incidents(device)
+        if dist_profiles_res is not None:
+            res["dist_profiles"] = dist_profiles_res
+    finally:
+        for o_off in (obs.disable_profiling, obs.disable_attribution,
+                      obs.disable_stats, obs.disable_timeseries,
+                      obs.disable_slo, obs.disable_flight_recorder):
+            o_off()
+        obs.reset()
+        (obs.enable if saved[0] else obs.disable)()
+        (obs.enable_tracing if saved[1] else obs.disable_tracing)()
+        shutil.rmtree(plane_dir(), ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - clock
+    return res
+
+
+def run_observability_plane(device="cuda", **kw):
+    """Step 19 on the card (see the module docstring)."""
+    RA.reset_launches()
+    res = observability_plane_phase(device, **kw)
+    pr, sc, inc = res["profiled"], res["stage_cache"], res["incidents"]
+    line = {
+        "flagship_step_ms": pr["flagship_ms"], "q5_ms": pr["q5_ms"],
+        "q5_engines": pr["q5_engines"],
+        "stage_cache_ms": {k: sc[k] for k in ("miss_ms", "hit_ms",
+                                              "digest_ms")},
+        "digest_bytes": sc["digest_bytes"],
+        "q5_incremental_ms": {"cold": sc["incremental_cold_ms"],
+                              "warm": sc["incremental_warm_ms"]},
+        "incidents": inc["kinds"], "bundle_bytes": inc["bundle_bytes"],
+        "timeseries_windows": pr["windows"],
+        "critical_path_cover": pr["critical_path"]["cover"],
+        "phase_s": res["phase_s"], "detail": res}
+    print(json.dumps({"observability_plane": line}, default=str),
+          flush=True)
+    return read_launches("observability_plane"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -5399,6 +5873,10 @@ def main() -> int:
     print(f"device: {kind}  torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    # the phases before step 19 run their stages fused unless they pin
+    # op by op, as before 'auto' measured the engines (workers inherit
+    # this); step 19 runs q5 under 'auto' itself
+    os.environ.setdefault("SPARK_RAPIDS_TPU_STAGE_FUSION", "1")
     phase_s = {}
     clock = [time.perf_counter()]
 
@@ -5496,10 +5974,13 @@ def main() -> int:
     phase("ops")
     by_path["protobuf"], _ = run_protobuf()
     phase("protobuf")
-    by_path["distributed"], _ = run_distributed()
+    by_path["distributed"], dist = run_distributed()
     phase("distributed")
     by_path["observability"], _ = run_observability()
     phase("observability")
+    by_path["observability_plane"], _ = run_observability_plane(
+        dist_profiles_res=dist["a"]["profiles"])
+    phase("observability_plane")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -28,9 +28,9 @@ var is read at creation time, it must be set before the instrumented
 modules import (the analysis smoke does exactly that).
 
 Evidence: every detected cycle / held-across-blocking event bumps
-``srt_lockdep_*`` and emits a ``lockdep`` journal event (the
-``lockdep_cycle`` incident bundle comes with the flight recorder,
-ROADMAP A14 step 5(b)).
+``srt_lockdep_*`` and emits a ``lockdep`` journal event; a cycle also
+freezes a ``lockdep_cycle`` incident bundle when the flight recorder
+is armed.
 The observability import is lazy and failure-isolated: lockdep is
 adopted *by* the metrics registry, so it must never import it at
 module scope.

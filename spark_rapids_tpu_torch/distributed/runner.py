@@ -35,14 +35,18 @@ query span; a worker runs with metrics and tracing on, parents its
 process span under the trace context its launcher seeds
 (``SPARK_RAPIDS_TPU_DIST_TRACE_CTX``), and dumps its spans, metrics and
 journal next to its summary (``spans_rank{r}.jsonl``,
-``metrics_rank{r}.json``, ``journal_rank{r}.jsonl``).
-ROADMAP A14 step 5(b): the per-rank query profiles and the timeseries
-dumps.
+``metrics_rank{r}.json``, ``journal_rank{r}.jsonl``).  With profiling
+on each query also leaves ``profile_{op}_rank{r}.json`` (and a
+same-moment ``metrics_{op}_rank{r}.json``); with the timeseries plane
+on, ``timeseries_rank{r}.json`` with its same-moment
+``metrics_ts_rank{r}.json``, published to rank 0, which writes
+``fleet_timeseries.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -164,6 +168,23 @@ def _reduce_scatter_allgather(transport, op_rs: int, op_ag: int,
     return out, bool((full[-1] > 0).any())
 
 
+@contextlib.contextmanager
+def _profiled(op: str, rank: int, world: int):
+    """Per-rank query-profile session: when SPARK_RAPIDS_TPU_PROFILE
+    is on, each rank assembles its own EXPLAIN ANALYZE artifact — this
+    process's registry scopes the shuffle-link byte deltas, so a rank's
+    profile carries exactly its own per-peer traffic.
+    ``merge_profiles`` stitches the rank artifacts into ONE fleet
+    profile via the launcher-seeded trace context.  One attribute read
+    when profiling is off."""
+    sess = _obs.PROFILER.begin(f"{op}-rank{rank}", query=f"dist_{op}",
+                               rank=rank, world=world)
+    try:
+        yield sess
+    finally:
+        _obs.PROFILER.end(sess)
+
+
 def _shard(a, rank: int, world: int):
     n = (a.shape[0] // world) * world
     per = n // world
@@ -244,10 +265,9 @@ def run_dist_q5(params: Optional[dict] = None, *, transport=None,
     if transport is None:
         transport = X.table_transport()
     rank, world = transport.rank, transport.world
-    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
-    # worker's _profiled session) opens beside this span
     with _obs.TRACER.span("dist_q5", kind="query",
-                          attrs={"rank": rank, "world": world}):
+                          attrs={"rank": rank, "world": world}), \
+            _profiled("q5", rank, world):
         rows = max(int(p["rows"]) // (8 * world), 1) * 8 * world
         d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
                      device=device)
@@ -316,10 +336,9 @@ def run_elastic_q5(params: Optional[dict] = None, *, transport=None,
         return run_dist_q5(params, transport=transport, device=device)
     fleet = transport.fleet
     rank, world0 = transport.rank, fleet.world0
-    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
-    # worker's _profiled session) opens beside this span
     with _obs.TRACER.span("elastic_q5", kind="query",
-                          attrs={"rank": rank, "world": world0}):
+                          attrs={"rank": rank, "world": world0}), \
+            _profiled("q5", rank, world0):
         rows = max(int(p["rows"]) // (8 * world0), 1) * 8 * world0
         d = T.gen_q5(rows=rows, stores=p["stores"], days=p["days"],
                      device=device)
@@ -386,10 +405,9 @@ def run_dist_q72(params: Optional[dict] = None, *, transport=None,
     if transport is None:
         transport = X.table_transport()
     rank, world = transport.rank, transport.world
-    # ROADMAP A14 step 5(b): the per-rank query profile (the JAX
-    # worker's _profiled session) opens beside this span
     with _obs.TRACER.span("dist_q72", kind="query",
-                          attrs={"rank": rank, "world": world}):
+                          attrs={"rank": rank, "world": world}), \
+            _profiled("q72", rank, world):
         cs_rows = max(int(p["cs_rows"]) // world, 1) * world
         d = T.gen_q72(cs_rows=cs_rows, inv_rows=p["inv_rows"],
                       items=p["items"], days=p["days"], device=device)
@@ -558,9 +576,47 @@ def main(argv=None) -> int:
             op_s[op] = time.perf_counter() - t0
             np.savez(os.path.join(
                 outdir, f"result_{op}_rank{rank}.npz"), **result)
-        # ROADMAP A14 step 5(b): the JAX worker dumps each query's
-        # profile and metrics here, and publishes its timeseries window
-        # to rank 0
+            if _obs.PROFILER.enabled:
+                prof = _obs.PROFILER.last()
+                if prof is not None:
+                    dump_via(
+                        os.path.join(
+                            outdir,
+                            f"profile_{op}_rank{rank}.json"),
+                        lambda f, p=prof: f.write(
+                            json.dumps(p, sort_keys=True,
+                                       default=str)))
+                    # same-moment registry snapshot: the profile's
+                    # link-byte deltas reconcile exactly against
+                    # THIS dump (the final metrics_rank dump also
+                    # counts post-query barrier traffic)
+                    dump_via(
+                        os.path.join(
+                            outdir,
+                            f"metrics_{op}_rank{rank}.json"),
+                        lambda f: f.write(
+                            _obs.METRICS.snapshot_json()))
+        if _obs.TIMESERIES.enabled:
+            # close the final window NOW and dump the same-moment pair
+            # (ring + registry): the ring's summed counter deltas equal
+            # the registry's cumulative values at this instant exactly
+            # (the post-barrier metrics_rank dump also counts barrier
+            # traffic, so it cannot be the comparison point)
+            _obs.TIMESERIES.tick()
+            ts_snap = _obs.timeseries_snapshot(
+                rank=rank, epoch=(service.fleet.epoch
+                                  if service.fleet is not None else 0))
+            dump_via(os.path.join(outdir,
+                                  f"timeseries_rank{rank}.json"),
+                     lambda f: f.write(json.dumps(ts_snap,
+                                                  sort_keys=True)))
+            dump_via(os.path.join(outdir,
+                                  f"metrics_ts_rank{rank}.json"),
+                     lambda f: f.write(_obs.METRICS.snapshot_json()))
+            # publish to rank 0 while the links are still up: the send
+            # blocks for the ACK, so after the barrier below rank 0
+            # holds every rank's windows
+            service.publish_timeseries(ts_snap)
         if args.elastic:
             # membership-tolerant: survives peers leaving AND waits
             # for a respawned peer when the launcher may send one
@@ -588,6 +644,13 @@ def main(argv=None) -> int:
         # shuffle_dup_dropped)
         _obs.dump_journal_jsonl(
             os.path.join(outdir, f"journal_rank{rank}.jsonl"))
+        if rank == 0 and _obs.TIMESERIES.enabled:
+            # rank 0's merged fleet timeseries (self + every publish
+            # folded pre-barrier)
+            dump_via(os.path.join(outdir, "fleet_timeseries.json"),
+                     lambda f: f.write(json.dumps(
+                         service.fleet_timeseries.merged(),
+                         sort_keys=True)))
         fleet = service.fleet
         summary = {
             "rank": rank, "world": world, "ops": ops,

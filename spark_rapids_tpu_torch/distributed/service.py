@@ -58,9 +58,10 @@ same decisions go to the observability journal and ``srt_fleet_*``
 counters, exchanges and gathers open ``shuffle_exchange`` /
 ``elastic_gather`` spans with their wire and wait times recorded, and
 sender and control threads adopt the caller's (or ``trace_ctx``'s)
-span context.  ROADMAP A14 step 5(b): the fleet timeseries merger
-(``FleetTimeseries``, ``publish_timeseries``, the ``timeseries``
-control message).
+span context.  Rank 0 holds the fleet timeseries merger
+(``fleet_timeseries``): workers ship their windowed telemetry
+snapshots to it with :meth:`ShuffleService.publish_timeseries` over a
+``timeseries`` control message.
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ from spark_rapids_tpu_torch.distributed import transport as _tr
 from spark_rapids_tpu_torch.distributed.transport import (
     ACK, KIND_CTRL, KIND_EDATA, MAX_RESPLIT_SUBS, STALE, Inbox,
     Listener, PartInbox, PeerLink, pack_resplit, unpack_resplit)
+from spark_rapids_tpu_torch.observability.timeseries import FleetTimeseries
 from spark_rapids_tpu_torch.parallel import exchange as _exchange
 from spark_rapids_tpu_torch.robustness.fleet import (
     ElasticFleet, StaleEpochError)
@@ -133,6 +135,10 @@ class ShuffleService:
             r: PeerLink(self.rank, r, addresses[r], policy=policy)
             for r in range(world) if r != self.rank}
         self._started = False
+        # fleet telemetry merger: every rank holds one (cheap), but
+        # only rank 0 receives publishes — workers ship their windowed
+        # snapshots here over the CTRL path
+        self.fleet_timeseries = FleetTimeseries()
         self._lock = make_lock("dist.service")
         # per-op first-touch monotonic ns: arrival gaps feed the
         # straggler window relative to when THIS rank engaged the op
@@ -377,7 +383,15 @@ class ShuffleService:
             self._spawn(self._replay, src, int(obj.get("op", -1)),
                         obj.get("parts"))
         elif typ == "timeseries":
-            pass    # ROADMAP A14 step 5(b): the fleet timeseries merger
+            # windowed telemetry publish: fold into the fleet merger —
+            # dup windows dedup by sequence, snapshots from a stale
+            # membership epoch are fenced outright (the frame-level
+            # epoch fence already rejected older CARRIER epochs; this
+            # guards the snapshot's own claimed epoch)
+            snap = obj.get("snap") or {}
+            outcome = self.fleet_timeseries.offer(snap)
+            _obs.record_timeseries_merge(
+                outcome, int(snap.get("rank", src)))
         else:
             raise ValueError(f"unknown control type {typ!r}")
         return ACK
@@ -425,6 +439,31 @@ class ShuffleService:
                 "departed": sorted(view.departed)})
         except (PeerDiedException, OSError):
             pass  # the joiner died again; its next join retries
+
+    def publish_timeseries(self, snap: Optional[dict] = None
+                           ) -> Optional[str]:
+        """Ship this rank's windowed telemetry snapshot to rank 0's
+        fleet merger over the CTRL path (rank 0 folds locally).  The
+        send blocks for the ACK, so a completed publish IS merged —
+        callers sequencing publish-then-barrier get a fully folded
+        rank-0 view after the barrier.  Returns the merge outcome
+        ('merged'/'dup'/'stale_epoch') on rank 0, 'sent' elsewhere,
+        None when there is no elastic fabric (the launcher dump-dir
+        tier covers that case offline)."""
+        if self.fleet is None:
+            return None
+        if snap is None:
+            snap = _obs.timeseries_snapshot(rank=self.rank,
+                                            epoch=self.fleet.epoch)
+        if self.rank == 0:
+            outcome = self.fleet_timeseries.offer(snap)
+            _obs.record_timeseries_merge(outcome, self.rank)
+            return outcome
+        try:
+            self._send_ctrl(0, {"type": "timeseries", "snap": snap})
+            return "sent"
+        except (PeerDiedException, OSError):
+            return None  # rank 0 is gone; nothing to publish to
 
     def _replay(self, dst: int, op_id: int, parts=None) -> None:
         blobs = self.parts.payloads(op_id)

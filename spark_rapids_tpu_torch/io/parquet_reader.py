@@ -614,8 +614,21 @@ def read_table(path: str, columns: Optional[Sequence[str]] = None,
         _obs.record_io_file(path, columns=len(leaves),
                             pages=pages_total, rows=num_rows,
                             read_bytes=read_bytes, decode_ns=decode_ns)
-        # ROADMAP A14 step 5(b): the JAX package notes the file to the
-        # result cache's ingest epochs (result_cache.note_ingest,
-        # size+mtime fingerprint) and gives the footer's row count to the
-        # stats plane (STATS.note_source_rows) here
+        # ingest-epoch door: a successful read notes the file with a
+        # size+mtime fingerprint — the result cache's epoch for this
+        # source bumps only when the bytes CHANGED, so re-reading an
+        # unchanged file keeps warm results warm
+        try:
+            from spark_rapids_tpu_torch.perf.result_cache import (
+                note_ingest)
+            st = os.stat(path)
+            note_ingest(path, f"{st.st_size}:{st.st_mtime_ns}")
+        except OSError:
+            pass   # epoch accounting must never fail a read
+        # footer row count -> the stats plane's estimate side: a plan
+        # scanning this source inherits the footer count as its
+        # input-cardinality estimate
+        if _obs.STATS.enabled:
+            _obs.STATS.note_source_rows(path, num_rows,
+                                        origin="parquet_footer")
         return Table(out_cols, names=[lf.name for lf in leaves])

@@ -15,10 +15,11 @@ built-in runners check it before any work.
 
 The file-backed ``tpcds_q3_file``, ``tpcds_q7_file`` and
 ``tpcds_q9_file`` (models/filesource.py) read the same seeded data
-back from parquet into the in-memory twins' pipelines.  Left
-unregistered until their queue items land: the incremental
-``tpcds_*_incremental`` runners and the result-cache specs (A14).  A
-lookup of those names raises :class:`UnknownQueryError`.
+back from parquet into the in-memory twins' pipelines.  The
+incremental ``tpcds_q5_incremental`` and ``tpcds_q72_incremental``
+fold each newly arrived stream batch into a partial-aggregate state
+the result cache keeps resident (perf/result_cache), and the
+generator-backed queries register result-cache specs.
 """
 
 from __future__ import annotations
@@ -305,6 +306,126 @@ def _run_q9_file(params: dict, ctx: QueryContext):
     return filesource.run_q9_file(params, ctx)
 
 
+# ------------------------------------------------ incremental runners
+# The q5/q72 partials/finish split as an INCREMENTAL mode.  The stream
+# source's ingest epoch says how many batches have arrived; only
+# batches past the resident partial-aggregate state's watermark run
+# the map side, each folding into the state via the exact-int64 merge
+# property (segment sums are additive across batches, overflow flags
+# OR) — then one finish pass.  With the cache off (or cold) every batch
+# recomputes, which IS the differential baseline: the two paths share
+# this body, so byte-identity is structural.  The state stays on the
+# runner's device.
+
+
+def _run_q5_incremental(params: dict, ctx: QueryContext):
+    from spark_rapids_tpu_torch.models import tpcds
+    from spark_rapids_tpu_torch.perf import result_cache as _rc
+    from spark_rapids_tpu_torch.plan import catalog as _cat
+    ctx.check_cancel()
+    rows = int(params.get("rows", 2048))
+    stores = int(params.get("stores", 8))
+    seed = int(params.get("seed", 5))
+    cap = int(params.get("join_capacity", 1 << 12))
+    source = str(params.get("source", "q5_stream"))
+    device = _device(params)
+    # epoch N means N batches ARRIVED after the initial one:
+    # a fresh stream (epoch 0) still has its base batch
+    batches = _rc.ingest_epoch(source) + 1
+    key = ("q5_state", rows, stores, seed, source)
+    state, upto = None, 0
+    if _rc.cache_enabled():
+        got = _rc.CACHE.get_subplan(key)
+        if got is not None:
+            meta, arrays = got
+            w = int(meta.get("upto", 0))
+            if 0 < w <= batches:     # a shrunk stream can't rewind
+                state = [a.to(device) for a in arrays]
+                upto = w
+                cap = max(cap, int(meta.get("cap", cap)))
+    for b in range(upto, batches):
+        ctx.check_cancel()
+        d = tpcds.gen_q5(rows=rows, stores=stores, days=60,
+                         seed=seed + 7919 * b, device=device)
+        outs, cap = _cat.run_q5_partials(
+            (d.s_date, d.s_store, d.s_price, d.s_profit,
+             d.r_date, d.r_store, d.r_amt, d.r_loss, d.d_date),
+            stores, cap, check=ctx.check_cancel)
+        delta = list(outs)
+        if state is None:
+            state = delta
+        else:
+            state = _rc.fold_partials(state, delta, or_indices=(4,))
+            _rc.CACHE.record_fold("tpcds_q5_incremental")
+    if _rc.cache_enabled() and batches > upto:
+        _rc.CACHE.put_subplan(key, state,
+                              {"upto": batches, "cap": cap})
+    # dimension labels come from the BASE batch (st_id is a seeded
+    # permutation; partials are keyed by store INDEX, so the labels
+    # must not drift with the arriving batches)
+    d0 = tpcds.gen_q5(rows=stores, stores=stores, days=60, seed=seed,
+                      device=device)
+    k, sales, rets, profit, g_of = _cat.run_q5_finish(
+        state[0], state[1], state[2], state[3], state[4],
+        d0.st_id, stores)
+    if bool(g_of):
+        raise RuntimeError("q5 join capacity overflow")
+    return _rows(k, sales, rets, profit)
+
+
+def _run_q72_incremental(params: dict, ctx: QueryContext):
+    from spark_rapids_tpu_torch.models import tpcds
+    from spark_rapids_tpu_torch.perf import result_cache as _rc
+    from spark_rapids_tpu_torch.plan import catalog as _cat
+    ctx.check_cancel()
+    rows = int(params.get("rows", 2048))
+    items = int(params.get("items", 64))
+    max_week = int(params.get("max_week", 16))
+    seed = int(params.get("seed", 72))
+    cap = int(params.get("join_capacity", 1 << 17))
+    limit = int(params.get("limit", 100))
+    week0 = 11_000 // 7
+    source = str(params.get("source", "q72_stream"))
+    device = _device(params)
+    # epoch N means N batches ARRIVED after the initial one:
+    # a fresh stream (epoch 0) still has its base batch
+    batches = _rc.ingest_epoch(source) + 1
+    key = ("q72_state", rows, items, max_week, seed, source)
+    state, upto = None, 0
+    if _rc.cache_enabled():
+        got = _rc.CACHE.get_subplan(key)
+        if got is not None:
+            meta, arrays = got
+            w = int(meta.get("upto", 0))
+            if 0 < w <= batches:
+                state = [a.to(device) for a in arrays]
+                upto = w
+                cap = max(cap, int(meta.get("cap", cap)))
+    for b in range(upto, batches):
+        ctx.check_cancel()
+        d = tpcds.gen_q72(cs_rows=rows, inv_rows=rows // 2,
+                          items=items, days=35,
+                          seed=seed + 7919 * b, device=device)
+        outs, cap = _cat.run_q72_partials(
+            (d.cs_item, d.cs_date, d.cs_qty,
+             d.inv_item, d.inv_date, d.inv_qty, d.item_id),
+            items, max_week, cap, week0)
+        delta = list(outs)
+        if state is None:
+            state = delta
+        else:
+            state = _rc.fold_partials(state, delta, or_indices=(1,))
+            _rc.CACHE.record_fold("tpcds_q72_incremental")
+    if _rc.cache_enabled() and batches > upto:
+        _rc.CACHE.put_subplan(key, state,
+                              {"upto": batches, "cap": cap})
+    i, w, c, g_of = _cat.run_q72_finish(state[0], state[1], items,
+                                        max_week, limit, week0)
+    if bool(g_of):
+        raise RuntimeError("q72 join capacity overflow")
+    return _rows(i, w, c)
+
+
 register_query("tpcds_q3", _run_q3)
 register_query("tpcds_q5", _run_q5)
 register_query("tpcds_q7", _run_q7)
@@ -316,3 +437,25 @@ register_query("tpcds_q72_fused", _run_q72_fused)
 register_query("tpcds_q3_file", _run_q3_file)
 register_query("tpcds_q7_file", _run_q7_file)
 register_query("tpcds_q9_file", _run_q9_file)
+register_query("tpcds_q5_incremental", _run_q5_incremental)
+register_query("tpcds_q72_incremental", _run_q72_incremental)
+
+# result-cache specs: the generator-backed catalog queries are pure
+# functions of their parameter binding (seeded synthetic data, no
+# external reads), so their results are shareable across tenants — the
+# safety gate's "identical digests over shared sources" case.  The
+# incremental queries additionally key on their stream source's ingest
+# epoch (source_param lets a binding name its own stream).  The _file
+# queries read operator-supplied paths and are deliberately NOT
+# registered: an unregistered query is uncacheable.
+from spark_rapids_tpu_torch.perf.result_cache import \
+    register_cache_spec as _reg_spec  # noqa: E402
+
+for _q in ("tpcds_q3", "tpcds_q5", "tpcds_q7", "tpcds_q9",
+           "tpcds_q72", "tpcds_q3_fused", "tpcds_q5_fused",
+           "tpcds_q72_fused"):
+    _reg_spec(_q, shared=True)
+_reg_spec("tpcds_q5_incremental", shared=True,
+          sources=("q5_stream",), source_param="source")
+_reg_spec("tpcds_q72_incremental", shared=True,
+          sources=("q72_stream",), source_param="source")

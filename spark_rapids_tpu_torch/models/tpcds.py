@@ -40,8 +40,9 @@ The generators make the JAX package's draws (`models/tpcds.py` there)
 from the same `np.random.default_rng(seed)` in the same order, so both
 packages see the same data, and hand it over on ``device``.  Each
 pipeline runs under the task-level retry driver inside a query-root
-span (``_retried_query``); the generators' ingest notes to the result
-cache come with ROADMAP A14 step 5(b).
+span (``_retried_query``).  The q3, q5, q9 and q72 generators note each
+regeneration to the result cache's ingest-epoch registry (the device
+is not part of the note: the data is the same on every device).
 """
 
 import functools
@@ -55,6 +56,16 @@ from spark_rapids_tpu_torch.ops.device_join import inner_join_device
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
 from spark_rapids_tpu_torch.plan.compiler import sort_lex
 from spark_rapids_tpu_torch.robustness import retry as _retry
+
+
+def _note_gen(source: str, **args) -> None:
+    """Catalog data generators feed the result-cache ingest-epoch
+    registry: a regeneration with CHANGED arguments is new data over
+    that source (the epoch bumps and stale cached results miss); an
+    identical regeneration is not an ingest."""
+    from spark_rapids_tpu_torch.perf.result_cache import note_ingest
+    note_ingest(source, ",".join(
+        f"{k}={v}" for k, v in sorted(args.items())))
 
 
 def _retried_query(name: str, fn):
@@ -121,6 +132,8 @@ class Q5Data(NamedTuple):
 
 def gen_q5(rows: int = 50_000, stores: int = 32, days: int = 120,
            seed: int = 5, device="cuda") -> Q5Data:
+    _note_gen("tpcds:gen_q5", rows=rows, stores=stores, days=days,
+              seed=seed)
     rng = np.random.default_rng(seed)
     base = 11_000  # ~2000-02-14 in days-since-epoch
     win0 = base + 40
@@ -246,6 +259,7 @@ def oracle_q5(d: Q5Data, stores: int):
 
 def gen_q9(rows: int = 100_000, seed: int = 9, device="cuda"):
     """(quantity i32 1-100, price i64 cents, profit i64 cents)."""
+    _note_gen("tpcds:gen_q9", rows=rows, seed=seed)
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(a).to(device) for a in (
         rng.integers(1, 101, rows).astype(np.int32),
@@ -303,6 +317,8 @@ class Q72Data(NamedTuple):
 def gen_q72(cs_rows: int = 30_000, inv_rows: int = 30_000,
             items: int = 512, days: int = 70, seed: int = 72,
             device="cuda") -> Q72Data:
+    _note_gen("tpcds:gen_q72", cs_rows=cs_rows, inv_rows=inv_rows,
+              items=items, days=days, seed=seed)
     rng = np.random.default_rng(seed)
     base = 11_000
     cols = (
@@ -432,6 +448,8 @@ class Q3Data(NamedTuple):
 
 def gen_q3(rows: int = 50_000, items: int = 256, days: int = 730,
            brands: int = 32, seed: int = 3, device="cuda") -> Q3Data:
+    _note_gen("tpcds:gen_q3", rows=rows, items=items, days=days,
+              brands=brands, seed=seed)
     rng = np.random.default_rng(seed)
     base = 10_957  # 2000-01-01
     day_idx = np.arange(days)

@@ -21,11 +21,12 @@ parallel/exchange.py, memory/, distributed/, io/) call the
 ``record_*`` helpers below; they must never import back into those
 layers.
 
-ROADMAP A14 step 5(b): the flight recorder, SLO monitor, data
-statistics, timeseries sampler and query profiler (``FLIGHT``,
-``SLO``, ``STATS``, ``TIMESERIES``, ``PROFILER``, ``ATTRIBUTION``,
-``trigger_incident`` and ``health()``) and the branches of the hooks
-below that feed them; step 5(c): the query-server hooks.
+Beside them, each behind its own switch: the query profiler
+(``PROFILER``) with time attribution (``ATTRIBUTION``), the flight
+recorder (``FLIGHT``, ``trigger_incident``), the timeseries sampler
+(``TIMESERIES``), the SLO monitor (``SLO``) and the data-statistics
+plane (``STATS``); ``health()`` rolls them up.  ROADMAP A14 step 5(c):
+the query-server hooks.
 """
 
 from __future__ import annotations
@@ -35,17 +36,20 @@ import threading
 import time
 from typing import Callable, Optional
 
-# ROADMAP A14 step 5(b): the flight_recorder, slo, stats, timeseries and
-# profile imports of the JAX package's module sit here.
+from spark_rapids_tpu_torch.observability import flight_recorder as _fr
+from spark_rapids_tpu_torch.observability import slo as _slo
+from spark_rapids_tpu_torch.observability import stats as _stats
+from spark_rapids_tpu_torch.observability import timeseries as _ts
 from spark_rapids_tpu_torch.observability.dumpio import dump_via
 from spark_rapids_tpu_torch.observability.journal import EventJournal
+from spark_rapids_tpu_torch.observability.profile import (  # noqa: F401
+    QueryProfiler, diff_profiles, merge_profiles)
 from spark_rapids_tpu_torch.observability.registry import (
     DEFAULT_LATENCY_BUCKETS_NS, MetricsRegistry)
 from spark_rapids_tpu_torch.observability.task_metrics import (
     UNATTRIBUTED, TaskMetricsTable)
 from spark_rapids_tpu_torch.observability.tracing import (  # noqa: F401
     NOOP_SPAN, SpanContext, Tracer)
-
 
 # process start anchors: snapshots carry wall-clock + uptime so offline
 # consumers (srt-doctor, Perfetto export) can place a dump in real time
@@ -108,14 +112,18 @@ def reset() -> None:
     Parked OOM block-episode spans are discarded too: a stale span
     ended by a post-reset unblock would otherwise record a pre-reset
     trace_id and a bogus multi-run duration into the fresh ring."""
+    global _LAST_ATTRIBUTION
+    _LAST_ATTRIBUTION = None
     METRICS.reset()
     JOURNAL.clear()
     TASKS.reset()
     with _BLOCK_SPANS_LOCK:
         _BLOCK_SPANS.clear()
     TRACER.reset()
-    # ROADMAP A14 step 5(b): PROFILER, TIMESERIES, SLO and STATS reset
-    # here too
+    PROFILER.reset()
+    TIMESERIES.reset()
+    SLO.reset()
+    STATS.reset()
 
 
 # --------------------------------------------------------------- instruments
@@ -483,8 +491,10 @@ STATS_SKETCH_NS = METRICS.histogram(
 
 
 def _on_span_finish(rec: dict) -> None:
-    # ROADMAP A14 step 5(b): the flight recorder's span feed
-    # (FLIGHT.observe_span) comes first here
+    # flight-recorder feed first (independent switch: the straggler
+    # detector watches stage spans whether or not metrics are on)
+    if FLIGHT.enabled:
+        FLIGHT.observe_span(rec)
     if not _SWITCH.enabled:
         return
     SPAN_DURATION.observe(rec["dur_ns"],
@@ -500,30 +510,428 @@ TRACER = Tracer(capacity=65536,
                 on_finish=_on_span_finish)
 
 
-# ------------------------------------------------------- telemetry liveness
+# ------------------------------------------------------- query profiler
+# EXPLAIN ANALYZE for every query: per-query
+# artifacts assembled at query end from the rings above.  Independent
+# switch with the tracer's noop discipline — profiling off costs one
+# attribute read per hook.
+
+
+def _on_profile(profile: dict, assembly_ns: int) -> None:
+    # attribution rides the profile-end hook (its own switch): the
+    # ledger lands INSIDE the artifact, so retention, bundles and
+    # srt-explain all carry it without new plumbing
+    if ATTRIBUTION.enabled:
+        _note_attribution(profile)
+    if not _SWITCH.enabled:
+        return
+    PROFILE_QUERIES.inc(labels=(profile.get("tenant") or "-",))
+    PROFILE_ASSEMBLY.observe(assembly_ns)
+    JOURNAL.emit("query_profile", query_id=profile.get("query_id"),
+                 tenant=profile.get("tenant"),
+                 query=profile.get("query"),
+                 wall_ns=profile.get("wall_ns"),
+                 stages=len(profile.get("stages") or ()),
+                 hot_stage=profile.get("hot_stage"))
+
+
+def _profile_keep() -> int:
+    try:
+        return int(os.environ.get("SPARK_RAPIDS_TPU_PROFILE_KEEP", "")
+                   or 16)
+    except ValueError:
+        return 16
+
+
+PROFILER = QueryProfiler(
+    journal=JOURNAL, tasks=TASKS, tracer=TRACER, registry=METRICS,
+    keep=_profile_keep(), on_profile=_on_profile,
+    on_drop=lambda reason: PROFILE_DROPPED.inc(labels=(reason,)))
+
+
+def enable_profiling() -> None:
+    """Turn on per-query profile assembly (independent of the metrics
+    and tracing switches; profile counters additionally require the
+    metrics switch, trace-scoped span stats require tracing)."""
+    PROFILER.enabled = True
+
+
+def disable_profiling() -> None:
+    PROFILER.enabled = False
+
+
+def is_profiling_enabled() -> bool:
+    return PROFILER.enabled
+
+
+def cache_hit_profile(tenant: str, query: str, query_id: str,
+                      lookup_ns: int) -> Optional[dict]:
+    """Assemble + retain the profile artifact for a warm result-cache
+    hit.  A hit never executes, so there is no session to
+    fold — the artifact is the lookup itself: wall == cache.lookup_ns,
+    no stages, a ``cache`` section with the one hit.  Returns None
+    when profiling is off."""
+    if not PROFILER.enabled:
+        return None
+    from spark_rapids_tpu_torch.observability.profile import PROFILE_VERSION
+    profile = {
+        "profile_version": PROFILE_VERSION,
+        "query_id": query_id,
+        "tenant": tenant,
+        "query": query,
+        "rank": 0,
+        "world": 1,
+        "trace_id": None,
+        "t_unix_ms": int(time.time() * 1000),
+        "wall_ns": int(lookup_ns),
+        "queue_wait_ns": 0,
+        "stages": [],
+        "hot_stage": None,
+        "cache": {"hits": 1, "misses": 0, "puts": 0, "evictions": 0,
+                  "folds": 0, "lookup_ns": int(lookup_ns),
+                  "bytes": 0},
+    }
+    return PROFILER.note_external(profile)
+
+
+# ----------------------------------------------------- time attribution
+# Where did the time go: at profile end the wall is
+# classified into exhaustive non-overlapping buckets with a
+# conservation contract.  Independent switch; with it off the only
+# cost is ONE attribute read inside the profile-end hook (and nothing
+# at all when profiling itself is off).
+
+ATTRIBUTION = _Switch()
+_LAST_ATTRIBUTION: Optional[dict] = None
+
+
+def _attribution_tolerance() -> float:
+    try:
+        return float(os.environ.get(
+            "SPARK_RAPIDS_TPU_ATTRIBUTION_TOLERANCE", "") or 0.25)
+    except ValueError:
+        return 0.25
+
+
+def _note_attribution(profile: dict) -> None:
+    global _LAST_ATTRIBUTION
+    try:
+        from spark_rapids_tpu_torch.observability.attribution import (
+            attribute_profile)
+        ledger = attribute_profile(
+            profile, tolerance=_attribution_tolerance())
+    except Exception:
+        return  # a ledger must never fail the query it describes
+    profile["attribution"] = ledger
+    _LAST_ATTRIBUTION = ledger
+    if not _SWITCH.enabled:
+        return
+    tenant = ledger.get("tenant") or "-"
+    for bucket, ns in ledger.get("buckets", {}).items():
+        if ns > 0:
+            ATTRIBUTION_TIME.inc(int(ns), labels=(tenant, bucket))
+    ATTRIBUTION_QUERIES.inc(
+        labels=("true" if ledger.get("conserved") else "false",))
+
+
+def enable_attribution() -> None:
+    """Turn on per-query time-attribution ledgers (rides the profiler:
+    arming attribution without profiling yields no ledgers; counters
+    additionally require the metrics switch)."""
+    ATTRIBUTION.enabled = True
+
+
+def disable_attribution() -> None:
+    ATTRIBUTION.enabled = False
+
+
+def is_attribution_enabled() -> bool:
+    return ATTRIBUTION.enabled
+
+
+def attribution_last() -> Optional[dict]:
+    """The most recently built ledger (what a flight-recorder bundle
+    freezes as ``attribution.json``)."""
+    return _LAST_ATTRIBUTION
+
+
+# -------------------------------------------------------- flight recorder
+# The black box: anomaly detectors fed by the
+# record helpers below, freezing the rings above into incident bundles.
+# Independent switch — always-on capture is cheap, bundle dumps are
+# not, so the recorder arms separately from metrics/tracing.
+
+FLIGHT = _fr.FlightRecorder.from_env()
+
+
+def enable_flight_recorder(out_dir: Optional[str] = None,
+                           max_bytes: Optional[int] = None,
+                           min_interval_s: Optional[float] = None
+                           ) -> None:
+    FLIGHT.configure(out_dir=out_dir, max_bytes=max_bytes,
+                     min_interval_s=min_interval_s)
+    FLIGHT.enabled = True
+
+
+def disable_flight_recorder() -> None:
+    FLIGHT.enabled = False
+
+
+def is_flight_recorder_enabled() -> bool:
+    return FLIGHT.enabled
+
+
+def trigger_incident(kind: str, cause: Optional[BaseException] = None,
+                     severity: str = "error", **detail) -> Optional[str]:
+    """Explicit incident trigger for the instrumented layers
+    (RetryExhausted in robustness/retry.py, KudoCorruptException in
+    shuffle/kudo.py, task-end leaks in the OOM state machine).  One
+    attribute read when the recorder is off."""
+    if not FLIGHT.enabled:
+        return None
+    # bundle dumps take real wall time on the calling thread — beat
+    # before and after so the hung-worker watchdog never mistakes a
+    # worker busy FREEZING an incident for the incident itself
+    hook = _HEARTBEAT_HOOK
+    if hook is not None:
+        hook(f"incident:{kind}")
+    try:
+        return FLIGHT.trigger(kind, cause=cause, severity=severity,
+                              **detail)
+    finally:
+        if hook is not None:
+            hook(f"incident:{kind}")
+
+
+# ------------------------------------------------------- telemetry plane
+# Windowed time-series + per-tenant SLO burn monitoring.
+# Independent switches with the usual noop discipline:
+# the Monitor thread calls record_monitor_sample() every period, and
+# with both switches off that costs two attribute reads.
+
+
+def _on_timeseries_tick(elapsed_ns: int) -> None:
+    if not _SWITCH.enabled:
+        return
+    TIMESERIES_WINDOWS.inc()
+    TIMESERIES_TICK.observe(elapsed_ns)
+
+
+def _env_num(name: str, default: float) -> float:
+    raw = os.environ.get(name, "")
+    try:
+        return float(raw) if raw else default
+    except ValueError:
+        return default
+
+
+TIMESERIES = _ts.TimeseriesSampler(
+    METRICS,
+    window_s=_env_num("SPARK_RAPIDS_TPU_TIMESERIES_WINDOW_S", 5.0),
+    capacity=int(_env_num("SPARK_RAPIDS_TPU_TIMESERIES_CAPACITY", 120)),
+    on_tick=_on_timeseries_tick)
+
+
+def _on_slo_burn(tenant: str, alert: dict) -> None:
+    """One multi-window burn alert: journal + breach counter, then the
+    slo_burn incident bundle freezing the ring tail + the offending
+    tenant's SLO snapshot next to the usual evidence (the last
+    profile rides along via the recorder's own bundle assembly)."""
+    detail = {k: v for k, v in alert.items() if k != "tenant"}
+    if _SWITCH.enabled:
+        SLO_BREACHES.inc(labels=(tenant,))
+        JOURNAL.emit("slo_burn", tenant=tenant, **detail)
+    trigger_incident(
+        "slo_burn", severity="error", tenant=tenant, **detail,
+        tenant_slo=SLO.status().get(tenant, {}),
+        timeseries_tail=TIMESERIES.windows(4))
+
+
+try:
+    SLO = _slo.SloMonitor.from_env(on_burn=_on_slo_burn)
+except Exception as _e:  # malformed SLO_CONFIG: warn loudly, run bare
+    import sys as _sys
+    print(f"spark_rapids_tpu_torch: ignoring bad SPARK_RAPIDS_TPU_SLO_* "
+          f"config: {_e}", file=_sys.stderr)
+    SLO = _slo.SloMonitor(on_burn=_on_slo_burn)
+
 # last Monitor sample, monotonic — the liveness source behind
 # srt_monitor_last_sample_age_s (set at exposition, never by the
 # sampler itself: a dead thread must show a GROWING age)
 _LAST_MONITOR_SAMPLE: Optional[float] = None
 
 
+def enable_timeseries(window_s: Optional[float] = None,
+                      capacity: Optional[int] = None) -> None:
+    """Arm the windowed sampler (independent switch; pair with the
+    metrics switch — with the registry disabled every delta is
+    zero)."""
+    if window_s is not None:
+        TIMESERIES.window_s = float(window_s)
+    if capacity is not None:
+        from collections import deque as _dq
+        TIMESERIES.capacity = int(capacity)
+        TIMESERIES._windows = _dq(TIMESERIES._windows,
+                                  maxlen=int(capacity))
+    TIMESERIES.enabled = True
+
+
+def disable_timeseries() -> None:
+    TIMESERIES.enabled = False
+
+
+def is_timeseries_enabled() -> bool:
+    return TIMESERIES.enabled
+
+
+def enable_slo() -> None:
+    SLO.enabled = True
+
+
+def disable_slo() -> None:
+    SLO.enabled = False
+
+
+def is_slo_enabled() -> bool:
+    return SLO.enabled
+
+
+def _apply_slo_gauges() -> None:
+    if not _SWITCH.enabled:
+        return
+    for tenant, st in SLO.status().items():
+        SLO_BURN_RATE.set(st["burn_fast"], labels=(tenant, "fast"))
+        SLO_BURN_RATE.set(st["burn_slow"], labels=(tenant, "slow"))
+        SLO_ATTAINMENT.set(st["attainment"], labels=(tenant,))
+
+
+# --------------------------------------------------------- data statistics
+# The cardinality & statistics observatory: per-node
+# observed row counts tapped out of fused stages, column sketches, and
+# the est-vs-actual misestimate sentinel.  Independent switch with the
+# usual discipline — stats off costs the compiler ONE attribute read
+# (``STATS.enabled``) per stage run.
+
+
+def _on_stats_observation(stage: str, nodes: list,
+                          misestimates: list) -> None:
+    if not _SWITCH.enabled:
+        return
+    STATS_OBSERVATIONS.inc(len(nodes), labels=(stage,))
+    JOURNAL.emit("node_stats", stage=stage, nodes=len(nodes),
+                 misestimates=len(misestimates),
+                 thread=threading.get_ident())
+
+
+def _on_stats_misestimate(stage: str, node: str, est: int, actual: int,
+                          ratio: float, first: bool) -> None:
+    """One detected cardinality misestimate: metric + journal on every
+    detection, the flight-recorder bundle only on the FIRST detection
+    of a (stage, node) pair — a misestimate repeats on every run of
+    the stage and one bundle is the evidence, fifty are noise."""
+    if _SWITCH.enabled:
+        STATS_MISESTIMATE.inc(labels=(stage, node))
+        JOURNAL.emit("cardinality_misestimate", stage=stage, node=node,
+                     est=int(est), actual=int(actual),
+                     ratio=float(ratio),
+                     thread=threading.get_ident())
+    if first:
+        trigger_incident(
+            "cardinality_misestimate", severity="warn", stage=stage,
+            node=node, est=int(est), actual=int(actual),
+            ratio=float(ratio), stage_stats=STATS.last(stage))
+
+
+def _on_stats_sketch(ns: int) -> None:
+    if not _SWITCH.enabled:
+        return
+    STATS_SKETCH_NS.observe(int(ns))
+
+
+STATS = _stats.StatsCollector(
+    on_observation=_on_stats_observation,
+    on_misestimate=_on_stats_misestimate,
+    on_sketch=_on_stats_sketch)
+
+
+def enable_stats() -> None:
+    """Arm the data-statistics plane (independent switch; the
+    srt_stats_* counters additionally require the metrics switch)."""
+    STATS.enabled = True
+
+
+def disable_stats() -> None:
+    STATS.enabled = False
+
+
+def is_stats_enabled() -> bool:
+    return STATS.enabled
+
+
+def record_tenant_rows(tenant: str, rows: int) -> None:
+    """Server job-completion hook: result rows delivered to one
+    tenant (the rows/s column in srt-top)."""
+    if not _SWITCH.enabled:
+        return
+    STATS_ROWS.inc(int(rows), labels=(str(tenant) or "-",))
+
+
+def evaluate_slo(now: Optional[float] = None) -> list:
+    """Force one burn-rate evaluation + gauge refresh; returns the
+    alerts that fired (each already routed through the slo_burn
+    incident path).  Tests and the smoke drive this with synthetic
+    clocks; production rides record_monitor_sample."""
+    fired = SLO.evaluate(now)
+    _apply_slo_gauges()
+    return fired
+
+
 def record_monitor_sample(now: Optional[float] = None) -> None:
-    """utils/telemetry.Monitor loop hook: stamps sampler liveness.
-    ROADMAP A14 step 5(b): the JAX package also drives the timeseries
-    sampler and the SLO burn evaluation from here."""
+    """utils/telemetry.Monitor loop hook: stamps sampler liveness and
+    drives the telemetry plane at window granularity (maybe_tick /
+    maybe_evaluate are no-ops until a window has elapsed)."""
     global _LAST_MONITOR_SAMPLE
     _LAST_MONITOR_SAMPLE = time.monotonic() if now is None else now
+    if TIMESERIES.enabled:
+        TIMESERIES.maybe_tick()
+    if SLO.enabled:
+        fired = SLO.maybe_evaluate()
+        if fired is not None:
+            _apply_slo_gauges()
 
 
 def _refresh_liveness(now: Optional[float] = None) -> None:
-    """Exposition-time liveness: every snapshot/expose path recomputes
-    the sampler age so a stalled Monitor thread cannot freeze a
-    healthy-looking value into dumps."""
+    """Exposition-time liveness: every snapshot/health/expose path
+    recomputes the sampler age so a stalled Monitor thread cannot
+    freeze a healthy-looking value into dumps and bundles."""
     if not _SWITCH.enabled or _LAST_MONITOR_SAMPLE is None:
         return
     now = time.monotonic() if now is None else now
     MONITOR_SAMPLE_AGE.set(
         round(max(0.0, now - _LAST_MONITOR_SAMPLE), 3))
+
+
+def timeseries_snapshot(rank: int = 0, epoch: int = 0) -> dict:
+    """One publishable per-rank snapshot: the ring dump tagged with
+    fleet identity (+ the SLO status when armed) — the unit workers
+    send over CTRL frames / dump to ``timeseries_rank{r}.json`` and
+    ``FleetTimeseries.offer`` merges."""
+    snap = TIMESERIES.snapshot()
+    snap["rank"] = int(rank)
+    snap["epoch"] = int(epoch)
+    if SLO.enabled:
+        snap["slo"] = SLO.status()
+    return snap
+
+
+def record_timeseries_merge(outcome: str, rank: int) -> None:
+    """Rank 0's fleet-merge hook: one offered per-rank snapshot, by
+    outcome ('merged', 'dup', 'stale_epoch')."""
+    if not _SWITCH.enabled:
+        return
+    TIMESERIES_MERGE.inc(labels=(outcome,))
+    JOURNAL.emit("timeseries_merge", outcome=outcome, rank=int(rank),
+                 thread=threading.get_ident())
 
 
 # ------------------------------------------------------------ record helpers
@@ -790,7 +1198,8 @@ def record_retry_episode(name: str, *, attempts: int, retries: int,
                          errors=()) -> None:
     """Retry-driver episode hook (robustness/retry.py) — called only
     for episodes that saw at least one failure."""
-    # ROADMAP A14 step 5(b): FLIGHT.observe_retry_episode here
+    if FLIGHT.enabled:
+        FLIGHT.observe_retry_episode(name, outcome)
     if not _SWITCH.enabled:
         return
     RETRY_EPISODES.inc(labels=(outcome,))
@@ -959,8 +1368,10 @@ def record_lockdep(kind: str, *, cycle=(), op: str = "", held=(),
     incident bundle when the recorder is armed, carrying the
     acquisition stacks of both directions — srt-doctor renders it as
     a ranked finding."""
-    # ROADMAP A14 step 5(b): a cycle freezes the lockdep_cycle
-    # incident bundle here (trigger_incident)
+    if kind == "cycle" and FLIGHT.enabled:
+        trigger_incident("lockdep_cycle", severity="warn",
+                         cycle=list(cycle),
+                         evidence=evidence or {})
     if not _SWITCH.enabled:
         return
     if kind == "cycle":
@@ -990,7 +1401,8 @@ def record_device_memory(allocated_bytes: int) -> None:
 
 
 def record_hbm_sample(device_index: int, bytes_in_use: int) -> None:
-    # ROADMAP A14 step 5(b): FLIGHT.observe_hbm here
+    if FLIGHT.enabled:
+        FLIGHT.observe_hbm(device_index, bytes_in_use)
     if not _SWITCH.enabled:
         return
     HBM_BYTES_IN_USE.set(bytes_in_use, labels=(str(device_index),))
@@ -1001,7 +1413,8 @@ def record_task_leak(task_id: int, leaked_bytes: int,
     """Memory-ledger leak hook: ``task_done`` saw device bytes still
     attributed to the finishing task (the leak detector's feed, and a
     journal event so a later bundle still shows the history)."""
-    # ROADMAP A14 step 5(b): FLIGHT.observe_task_leak here
+    if FLIGHT.enabled:
+        FLIGHT.observe_task_leak(task_id, leaked_bytes, holders)
     if not _SWITCH.enabled:
         return
     MEMORY_LEAK_EVENTS.inc()
@@ -1076,8 +1489,50 @@ def snapshot() -> dict:
     }
 
 
-# ROADMAP A14 step 5(b): health(), the JNI door's health_json rollup
-# (it reads FLIGHT, PROFILER and TIMESERIES).
+def health() -> dict:
+    """One-call process health rollup for the JVM shim's
+    ``health_json``: switches, ring fill/drops, recorder stats, and a
+    memory-ledger summary when the OOM runtime is installed."""
+    _refresh_liveness()
+    h = {
+        "snapshot_unix_ms": int(time.time() * 1000),
+        "start_unix_ms": int(_START_UNIX * 1000),
+        "uptime_s": round(time.monotonic() - _START_MONO, 3),
+        "pid": os.getpid(),
+        "metrics_enabled": _SWITCH.enabled,
+        "tracing_enabled": TRACER.enabled,
+        "journal": {"events": len(JOURNAL), "dropped": JOURNAL.dropped},
+        "spans": {"finished": len(TRACER), "dropped": TRACER.dropped},
+        "flight_recorder": FLIGHT.stats(),
+        "profiler": PROFILER.stats(),
+        "monitor": {
+            "last_sample_age_s": (
+                None if _LAST_MONITOR_SAMPLE is None else
+                round(max(0.0,
+                          time.monotonic() - _LAST_MONITOR_SAMPLE), 3)),
+            "timeseries_enabled": TIMESERIES.enabled,
+            "timeseries_windows": len(TIMESERIES.windows()),
+            "slo_enabled": SLO.enabled,
+            "attribution_enabled": ATTRIBUTION.enabled,
+        },
+    }
+    try:
+        from spark_rapids_tpu_torch.memory import rmm_spark
+        from spark_rapids_tpu_torch.memory import spark_resource_adaptor as sra
+        adaptor = rmm_spark.installed_adaptor()
+        if adaptor is not None:
+            states = adaptor.thread_state_dump()
+            h["memory"] = {
+                "allocated_bytes": adaptor.gpu_memory_allocated_bytes,
+                "threads": len(states),
+                "blocked_threads": sum(
+                    1 for s in states
+                    if s["state"] in (sra.THREAD_BLOCKED,
+                                      sra.THREAD_BUFN)),
+            }
+    except Exception:
+        pass
+    return h
 
 
 def dump_spans_jsonl(path_or_file) -> int:
@@ -1107,8 +1562,16 @@ def dump_journal_jsonl(path_or_file) -> int:
         f.write(_json.dumps({"kind": "registry_snapshot",
                              "registry": METRICS.snapshot()}) + "\n")
         n += 1
-        # ROADMAP A14 step 5(b): the timeseries_snapshot and slo_status
-        # records ride this dump when their planes are armed
+        # the telemetry plane rides the same dump: the metrics report's
+        # --window mode and srt-top's dump-dir tier read these records
+        if TIMESERIES.enabled:
+            f.write(_json.dumps({"kind": "timeseries_snapshot",
+                                 **timeseries_snapshot()}) + "\n")
+            n += 1
+        if SLO.enabled:
+            f.write(_json.dumps({"kind": "slo_status",
+                                 "slo": SLO.status()}) + "\n")
+            n += 1
         return n
 
     return dump_via(path_or_file, _write)
@@ -1118,3 +1581,13 @@ if os.environ.get("SPARK_RAPIDS_TPU_METRICS", "") not in ("", "0"):
     enable()
 if os.environ.get("SPARK_RAPIDS_TPU_TRACE", "") not in ("", "0"):
     enable_tracing()
+if os.environ.get("SPARK_RAPIDS_TPU_PROFILE", "") not in ("", "0"):
+    enable_profiling()
+if os.environ.get("SPARK_RAPIDS_TPU_TIMESERIES", "") not in ("", "0"):
+    enable_timeseries()
+if os.environ.get("SPARK_RAPIDS_TPU_SLO", "") not in ("", "0"):
+    enable_slo()
+if os.environ.get("SPARK_RAPIDS_TPU_ATTRIBUTION", "") not in ("", "0"):
+    enable_attribution()
+if os.environ.get("SPARK_RAPIDS_TPU_STATS", "") not in ("", "0"):
+    enable_stats()

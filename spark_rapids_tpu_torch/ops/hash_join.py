@@ -34,6 +34,7 @@ candidates all carry its one hash, and the right side is sorted stably
 by hash, so a collision cannot reorder them.
 """
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -112,10 +113,9 @@ def key_hashes(words) -> torch.Tensor:
     avalanche.  Internal group ids only, not the Spark row hash
     (ops/hash.xxhash64 keeps that); u64 values ride in int64 lanes.
 
-    ROADMAP A14 step 5(b): the JAX package compiles this once per
-    power-of-two
-    row bucket through its process compile cache; here it runs
-    eagerly."""
+    Eager PyTorch, so unlike the JAX package it needs no program per
+    power-of-two row bucket and takes no compile-cache entry; compiling
+    it (``JitCache.cached_call``) is later perf_opt work."""
     rows = int(words[0].shape[0])
     dev = words[0].device
     start = _signed64((JOIN_HASH_SEED + _XXP5 + 8 * len(words))
@@ -268,24 +268,28 @@ def host_hash_join(lwords, rwords, lvalid, rvalid
 
 # ---------------------------------------------------------- device engine
 
-def _device_step_factory(capacity: int):
-    """The hash-join program at one pair capacity: pairs of equal hash
-    ids, each verified word by word, the true pair count, and the
-    overflow flag with_capacity_retry reads.
-
-    ROADMAP A14 step 5(b): the JAX package memoizes this factory per
-    (word count,
-    row buckets, digest) so one process compile-cache entry owns each
-    capacity's executable; eager PyTorch has nothing to compile."""
-    def run(lh, rh, lv, rv, lwords, rwords):
-        pairs = inner_join_device(lh, rh, capacity, lv, rv)
-        eq = pairs.valid
-        for lw, rw in zip(lwords, rwords):
-            eq = eq & (lw[pairs.left_indices] == rw[pairs.right_indices])
-        overflow = pairs.total > capacity
-        return (pairs.left_indices, pairs.right_indices, eq, pairs.total,
-                overflow)
-    return run
+@functools.lru_cache(maxsize=64)
+def _device_step_factory(k: int, nlb: int, nrb: int, digest: str):
+    """Capacity-parameterized factory for the hash-join step, memoized
+    per (word count, row buckets, digest) so repeated same-shape joins
+    present the SAME factory object to with_capacity_retry: its steps
+    live in the process compile cache under that owner (one entry per
+    capacity, steady-state cache hits).  Each step gives the pairs of
+    equal hash ids, each verified word by word, the true pair count,
+    and the overflow flag with_capacity_retry reads.  The step runs as
+    eager PyTorch (the JAX package compiles it per bucket)."""
+    def make_step(capacity: int):
+        def run(lh, rh, lv, rv, lwords, rwords):
+            pairs = inner_join_device(lh, rh, capacity, lv, rv)
+            eq = pairs.valid
+            for lw, rw in zip(lwords, rwords):
+                eq = eq & (lw[pairs.left_indices]
+                           == rw[pairs.right_indices])
+            overflow = pairs.total > capacity
+            return (pairs.left_indices, pairs.right_indices, eq,
+                    pairs.total, overflow)
+        return run
+    return make_step
 
 
 # pair-capacity memo per (digest, words, row buckets): a steady workload
@@ -317,7 +321,9 @@ def device_hash_join(lwords, rwords, lvalid, rvalid, digest_extra: str,
     cap0 = (int(initial_capacity) if initial_capacity
             else max(1 << max(4, nl.bit_length()),
                      _LEARNED_CAPACITY.get(cap_key, 0)))
-    run = with_capacity_retry(_device_step_factory, cap0,
+    factory = _device_step_factory(len(lwords), bucket_rows(nl),
+                                   bucket_rows(nr), digest_extra)
+    run = with_capacity_retry(factory, cap0,
                               overflow_index=-1, max_doublings=20)
     (li, ri, eq, total, _of), cap_used = run(lh, rh, lvalid, rvalid,
                                              lwords, rwords)

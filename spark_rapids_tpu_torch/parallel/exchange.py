@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import observability as _obs
+from spark_rapids_tpu_torch.perf import jit_cache as _jc
 from spark_rapids_tpu_torch.robustness.retry import RetryPolicy
 
 
@@ -101,11 +102,20 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
                                 base_backoff_s=0.0)
 
     def _step_for(cap: int):
-        # ROADMAP A14 step 5(b): steps live in the process compile cache
-        # (JitCache) there
-        if cap not in steps:
-            steps[cap] = make_step(cap)
-        return steps[cap]
+        """Capacity-parameterized steps live in the process compile
+        cache (perf/jit_cache.py): one entry per (factory, capacity),
+        so steady-state budgets survive across driver instances, show
+        up in srt_jit_cache_* stats, and participate in LRU eviction.
+        The factory object itself is the entry owner — identity-checked
+        on hits, so a recycled id() can never resurrect a stale step."""
+        if not _jc.CACHE.enabled():
+            if cap not in steps:
+                steps[cap] = make_step(cap)
+            return steps[cap]
+        return _jc.CACHE.get_or_build(
+            "exchange.step", f"factory@{id(make_step)}", cap,
+            lambda: make_step(cap), owner=make_step,
+            counts_compile=False)
 
     def run(*args):
         # stage-level span: one per driver invocation, covering every

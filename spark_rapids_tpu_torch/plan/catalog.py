@@ -25,8 +25,9 @@ aggregates), which is what makes the results byte-identical.  Fact
 inputs pad their join-key columns with side-specific sentinels (-1
 left, -2 right) so bucket-pad rows can never match each other.
 
-The generator-size row estimates come with ROADMAP A14 step 5(b) and the
-multi-process fused stage factories with A10.
+The q3, q5 and q72 runners register their inputs' generator-size row
+estimates with the stats plane (one attribute read while it is off).
+The multi-process fused stage factories come with A10.
 """
 
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
@@ -143,9 +144,23 @@ def q5_pipeline(stores: int, join_capacity: int) -> Pipeline:
     )
 
 
+def _note_estimates(stage: str, rows_by_input) -> None:
+    """Register generator-size row estimates for a stage's scan
+    inputs (the est side of the stats plane's est-vs-actual loop).
+    One attribute read when the stats plane is off."""
+    from spark_rapids_tpu_torch import observability as _obs
+    if not _obs.STATS.enabled:
+        return
+    _obs.STATS.register_input_estimates(
+        stage, {k: len(v) for k, v in rows_by_input.items()},
+        origin="catalog")
+
+
 def run_q5(d, stores: int, capacity: int):
     """q5 under the capacity retry, on the device of ``d``'s
     tensors.  Returns the same tuple as models.tpcds.make_q5(...)(d)."""
+    _note_estimates("q5_partials", {"s": d.s_date, "r": d.r_date,
+                                    "d": d.d_date})
 
     def build(cap):
         pipe = compile_pipeline(q5_pipeline(stores, cap))
@@ -272,6 +287,9 @@ def q72_pipeline(items: int, max_week: int, join_capacity: int,
 def run_q72(d, items: int, max_week: int, capacity: int,
             limit: int = 100, week0: int = 0):
     """q72 under the capacity retry — same tuple as make_q72."""
+    _note_estimates("q72_partials", {"cs": d.cs_item,
+                                     "inv": d.inv_item,
+                                     "dim": d.item_id})
 
     def build(cap):
         pipe = compile_pipeline(
@@ -380,8 +398,7 @@ def run_q3(d, base: int, years: int, brands: int, manufact: int,
     """q3 on the device of ``d``'s tensors — same tuple as
     models.tpcds.make_q3(...)(d).  The second ScanBind is unbucketed:
     the date and item dims' exact lengths enter the compile key."""
-    # ROADMAP A14 step 5(b): the generator-size row estimates are noted
-    # here
+    _note_estimates("q3", {"s": d.s_date, "dims": d.d_moy})
     st = compile_stage(q3_plan(base, years, brands, manufact, month,
                                limit))
     return st.run({"s": (d.s_date, d.s_item, d.s_price),

@@ -12,7 +12,10 @@ with one evaluator on two engines:
 
 Both engines are byte-identical by contract (same evaluator, exact
 integer aggregates, stable sorts); fusion is a speed choice only.
-``SPARK_RAPIDS_TPU_STAGE_FUSION=1|0`` picks the engine.
+``SPARK_RAPIDS_TPU_STAGE_FUSION=1|0`` pins the engine; unset ('auto'),
+the first run of a (plan, operand shapes, device) measures both on a
+sample of at most ``_STAGE_CALIB_MAX_ROWS`` rows through
+perf/calibrate's ``pick_path`` and every later run takes the winner.
 
 The evaluator follows the JAX package's semantics (x64 mode), not
 PyTorch's defaults, wherever the two differ:
@@ -35,11 +38,12 @@ A stage also runs once per hash partition of spilled inputs
 Every run records ``srt_stage_fusion_total{stage,outcome}`` and a
 ``stage_fusion`` journal event while observability is on, and a fused
 key's first call (tracing and compiling) opens a ``stage_compile``
-span.  Left out until their queue items land: the stats taps and the
-stage profile records (ROADMAP A14 step 5(b)), fused-vs-op-by-op
-calibration (ROADMAP A14 step 5(b): ``auto`` takes the fused engine
-meanwhile), plan verification (A8), the result cache
-(ROADMAP A14 step 5(b)) and the whole-pipeline function for
+span.  With the stats plane on, a run taps its data-dependent row
+counts (join totals, predicate popcounts) into ``observability.STATS``;
+while a query is profiled, each run adds one stage record to its
+profile.  A pipeline consults the semantic result cache per stage when
+it is armed (perf/result_cache).  Left out until their queue items
+land: plan verification (A8) and the whole-pipeline function for
 multi-process runs (A10).
 """
 
@@ -58,6 +62,11 @@ from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows
 from spark_rapids_tpu_torch.plan import ir
 
 # ------------------------------------------------------------------- knobs
+
+
+# calibration samples: bucketed inputs past this many rows are row-sliced
+# for the fused-vs-op-by-op measurement
+_STAGE_CALIB_MAX_ROWS = 1 << 18
 
 
 def fusion_mode() -> str:
@@ -469,6 +478,77 @@ def _eval_node(node, env) -> None:
         raise TypeError(f"unknown node {type(node).__name__}")
 
 
+def _expr_is_bool(e, bool_names=frozenset()) -> bool:
+    """Statically decide whether an expression evaluates to a boolean
+    (a predicate/mask) from the IR alone — the tap planner must pick
+    its nodes BEFORE tracing, and the choice must be a pure function
+    of the plan so tapped programs key on digest alone.
+    ``bool_names`` carries the names already known boolean upstream
+    (JoinProbe ``.valid`` outputs, earlier predicate Projects), so a
+    conjunction like ``j.valid AND qty < limit`` still taps."""
+    if isinstance(e, ir.Bin):
+        if e.op in ("and", "or"):
+            return (_expr_is_bool(e.a, bool_names)
+                    and _expr_is_bool(e.b, bool_names))
+        return e.op in ("eq", "ne", "lt", "le", "gt", "ge")
+    if isinstance(e, ir.Un):
+        if e.op == "not":
+            return _expr_is_bool(e.a, bool_names)
+        return e.op == "b"
+    if isinstance(e, ir.Where):
+        return (_expr_is_bool(e.a, bool_names)
+                and _expr_is_bool(e.b, bool_names))
+    if isinstance(e, ir.Mask):
+        return True
+    if isinstance(e, ir.Idx):
+        return _expr_is_bool(e.src, bool_names)
+    if isinstance(e, ir.Sl):
+        return _expr_is_bool(e.a, bool_names)
+    if isinstance(e, ir.Lit):
+        return isinstance(e.value, bool)
+    if isinstance(e, ir.Col):
+        return e.name in bool_names
+    return False
+
+
+def _tap_spec(plan: ir.StagePlan) -> list:
+    """The per-node row-count taps this plan admits, in node order:
+    ``(node_id, kind, env_key)`` triples.  Only DATA-DEPENDENT
+    cardinalities are tapped — JoinProbe match totals (already
+    computed by the probe) and boolean Project predicates (one
+    popcount each); every other node's output size is statically
+    known from its inputs, so observing it would buy nothing."""
+    taps = []
+    bool_names = set()
+    for node in plan.nodes:
+        if isinstance(node, ir.JoinProbe):
+            bool_names.add(f"{node.prefix}.valid")
+            taps.append((node.prefix, "JoinProbe",
+                         f"{node.prefix}.total"))
+        elif isinstance(node, ir.Project) and \
+                _expr_is_bool(node.expr, bool_names):
+            bool_names.add(node.out)
+            taps.append((node.out, "Project", node.out))
+    return taps
+
+
+def _tap_counts(plan: ir.StagePlan, env) -> list:
+    """Scalar int32 observed-row counts for every tap, evaluated from
+    the node outputs ALREADY in ``env`` (shared by the fused program
+    and the eager walk — same expressions, so the two engines observe
+    identical counts).  A predicate popcount is one reduction over a
+    value the program computed anyway; compiled, it fuses into the
+    same program."""
+    vals = []
+    for _nid, kind, key in _tap_spec(plan):
+        v = env[key]
+        if kind == "JoinProbe":
+            vals.append(torch.as_tensor(v).to(torch.int32))
+        else:
+            vals.append(torch.sum(v.to(torch.int32)).to(torch.int32))
+    return vals
+
+
 def _all_true_mask(first: torch.Tensor) -> torch.Tensor:
     rows = first.shape[0] if first.dim() else 0
     return torch.ones(rows, dtype=torch.bool, device=first.device)
@@ -542,9 +622,13 @@ class CompiledStage:
                 cols.extend(a.contiguous() for a in arrs)
         return cols + nvalids, parts, max_bucket
 
-    def _fused_callable(self):
+    def _fused_callable(self, taps: bool = False):
         """The evaluator as a pure fn(*args): binds the flat arg list
-        back to named columns and row masks, then walks the nodes."""
+        back to named columns and row masks, then walks the nodes.
+        With ``taps`` the program additionally returns one stacked
+        int32 vector of per-node observed row counts: the values
+        already exist inside the program (JoinProbe totals, predicate
+        masks), so the same single program carries them out."""
         plan = self.plan
 
         def fn(*args):
@@ -567,7 +651,13 @@ class CompiledStage:
                     device=first.device) < args[pos + i]
             for node in plan.nodes:
                 _eval_node(node, env)
-            return tuple(env[o] for o in plan.outputs)
+            outs = tuple(env[o] for o in plan.outputs)
+            if taps:
+                vals = _tap_counts(plan, env)
+                counts = (torch.stack(vals) if vals else torch.zeros(
+                    0, dtype=torch.int32, device=args[0].device))
+                return outs + (counts,)
+            return outs
 
         return fn
 
@@ -578,13 +668,13 @@ class CompiledStage:
         engine's compile key with the bucket and the device."""
         return f"{self.plan.digest}|{operands_digest(parts)}"
 
-    def _compile(self, key) -> object:
+    def _compile(self, key, taps: bool = False) -> object:
         """torch.compile of the evaluator for one key, with a code
         object of its own: dynamo keeps its compiled graphs per code
         object and runs a frame eagerly once that object has been
         recompiled past its limit, so stages sharing one closure's
         code would quietly fall back to eager after a few keys."""
-        fn = self._fused_callable()
+        fn = self._fused_callable(taps=taps)
         name = f"stage_{self.plan.name}_{len(self._fused)}"
         fn = types.FunctionType(fn.__code__.replace(co_name=name),
                                 fn.__globals__, name, None,
@@ -598,28 +688,47 @@ class CompiledStage:
         return torch.compile(fn, backend=backend, fullgraph=True,
                              dynamic=False)
 
-    def _run_fused(self, inputs) -> tuple:
+    def _run_fused(self, inputs, run_digest=None,
+                   taps: bool = False) -> tuple:
+        """One compiled program per (run digest, row bucket, device),
+        kept in the stage's memo.  Returns (outputs, compile_ns,
+        run_digest, counts): ``compile_ns`` is the first call's wall
+        (tracing and compiling) when THIS call built the program, 0 on
+        a memo hit; ``counts`` is the tapped per-node row-count vector
+        (None without ``taps``).  A tapped program is a DIFFERENT
+        program, so its memo key gets a ``|taps`` suffix while the
+        reported run digest stays the base one — journal, profile and
+        calibration rows fold together whichever way the stats switch
+        points."""
         args, parts, bucket = self._bind_args(inputs)
-        key = (self._run_digest(parts), bucket, str(args[0].device))
+        digest = run_digest or self._run_digest(parts)
+        key_digest = f"{digest}|taps" if taps else digest
+        key = (key_digest, bucket, str(args[0].device))
         fn = self._fused.get(key)
+        compile_ns = 0
         if fn is not None:
-            return fn(*args)
-        fn = self._compile(key)
-        before = self.compiles
-        t0 = time.perf_counter()
-        with _obs.TRACER.span(
-                "stage_compile", kind="compile",
-                attrs={"stage": self.plan.name, "digest": key[0],
-                       "bucket": bucket,
-                       "nodes": self.dispatch_count}):
             out = fn(*args)
-        self.compile_seconds[key] = time.perf_counter() - t0
-        if self.compiles == before:
-            raise RuntimeError(
-                f"stage {self.plan.name!r} ran without compiling: the "
-                "fused engine must not fall back to eager")
-        self._fused[key] = fn
-        return out
+        else:
+            fn = self._compile(key, taps=taps)
+            before = self.compiles
+            t0 = time.perf_counter_ns()
+            with _obs.TRACER.span(
+                    "stage_compile", kind="compile",
+                    attrs={"stage": self.plan.name, "digest": digest,
+                           "bucket": bucket,
+                           "nodes": self.dispatch_count}):
+                out = fn(*args)
+            compile_ns = max(time.perf_counter_ns() - t0, 1)
+            self.compile_seconds[key] = compile_ns / 1e9
+            if self.compiles == before:
+                raise RuntimeError(
+                    f"stage {self.plan.name!r} ran without compiling: "
+                    "the fused engine must not fall back to eager")
+            self._fused[key] = fn
+        counts = None
+        if taps:
+            counts, out = out[-1], out[:-1]
+        return out, compile_ns, digest, counts
 
     def _walk_env(self, inputs) -> Dict[str, object]:
         """The op-by-op walk's environment (every node output by name)
@@ -641,33 +750,97 @@ class CompiledStage:
         env = self._walk_env(inputs)
         return tuple(env[o] for o in self.plan.outputs)
 
+    def _host_counts(self, env) -> list:
+        """Tapped counts off an eager walk's env, as python ints."""
+        return [int(v) for v in _tap_counts(self.plan, env)]
+
     # -------------------------------------------------------------- entry
 
     def run(self, inputs: Mapping[str, Sequence]) -> tuple:
-        """Execute the stage under the current fusion mode.  'auto'
-        takes the fused engine until the measured calibration of
-        ROADMAP A14 step 5(b) lands.  With observability on, the run is
-        recorded (``srt_stage_fusion_total{stage,outcome}`` and a
-        ``stage_fusion`` journal event) with its wall measured past a
-        device sync; off, nothing is synced."""
-        t0 = time.monotonic_ns()
-        if fusion_mode() == "off":
-            out = self.run_unfused(inputs)
-            outcome, compiled = "unfused", False
+        """Execute the stage under the current fusion mode: 'on' the
+        fused engine, 'off' the op-by-op walk, 'auto' the measured
+        winner (:meth:`_run_calibrated`).  With observability on the
+        run is recorded (``srt_stage_fusion_total{stage,outcome}`` and
+        a ``stage_fusion`` journal event) with its wall measured past
+        a device sync; with the stats plane on the per-node row counts
+        are tapped and folded (:meth:`_note_stats`); while the calling
+        thread profiles a query, one stage record goes to its profile.
+        With all of them off and a pinned engine nothing is synced."""
+        mode = fusion_mode()
+        # data-statistics tap: ONE attribute read when the stats plane
+        # is off — no observation dict, no extra outputs
+        taps = _obs.STATS.enabled
+        observed = _obs.is_enabled() or taps or _obs.PROFILER.active()
+        counts = None
+        compile_ns = 0
+        if mode == "auto":
+            out, compiled, outcome, wall_ns, digest, compile_ns, \
+                counts = self._run_calibrated(inputs, taps=taps)
         else:
-            before = self.compiles
-            out = self._run_fused(inputs)
-            outcome, compiled = "fused", self.compiles != before
-        if _obs.is_enabled():
-            dev = getattr(out[0], "device", None) if out else None
-            if dev is not None and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            t0 = time.monotonic_ns()
+            if mode == "off":
+                if taps:
+                    env = self._walk_env(inputs)
+                    out = tuple(env[o] for o in self.plan.outputs)
+                    counts = self._host_counts(env)
+                else:
+                    out = self.run_unfused(inputs)
+                outcome, compiled = "unfused", False
+                digest = None
+            else:
+                out, compile_ns, digest, counts = self._run_fused(
+                    inputs, taps=taps)
+                outcome, compiled = "fused", bool(compile_ns)
+            wall_ns = None
+            if observed:
+                _sync(out)
+                wall_ns = time.monotonic_ns() - t0
+        if observed:
+            if digest is None:
+                digest = self._run_digest(self._shape_parts(inputs)[0])
             _obs.record_stage_fusion(
-                self.plan.name, outcome,
-                digest=self._run_digest(self._shape_parts(inputs)[0]),
-                wall_ns=time.monotonic_ns() - t0,
-                nodes=self.dispatch_count, compiled=compiled)
+                self.plan.name, outcome, digest=digest,
+                wall_ns=wall_ns, nodes=self.dispatch_count,
+                compiled=compiled)
+            stats = (self._note_stats(inputs, digest, counts)
+                     if taps else None)
+            # query-profile feed: one structured record per stage
+            # execution while the calling thread profiles a query
+            if _obs.PROFILER.active():
+                _obs.PROFILER.note_stage(self._profile_record(
+                    inputs, digest=digest, engine=outcome,
+                    wall_ns=wall_ns, compiled=compiled,
+                    compile_ns=compile_ns, stats=stats))
         return out
+
+    def _note_stats(self, inputs, digest: str, counts):
+        """Fold one execution's observation into the stats plane and
+        return the profile's per-stage ``stats`` section.  Input row
+        counts are host-known; tapped counts arrive as the program's
+        int32 vector (fused, one copy to the host) or python ints (the
+        eager walk)."""
+        spec = _tap_spec(self.plan)
+        vals = []
+        if counts is not None:
+            if isinstance(counts, torch.Tensor):
+                counts = counts.cpu().reshape(-1).tolist()
+            vals = [int(x) for x in list(counts)[:len(spec)]]
+        nodes = [{"node": nid, "kind": kind, "rows": v}
+                 for (nid, kind, _key), v in zip(spec, vals)]
+        ins, cols = [], {}
+        for inp in self.plan.inputs:
+            arrs = inputs.get(inp.name)
+            if not arrs:
+                continue
+            shape = tuple(arrs[0].shape)
+            ins.append({"name": inp.name,
+                        "rows": int(shape[0]) if shape else 0})
+            cols[inp.name] = arrs[0]
+        return _obs.STATS.note_stage(
+            {"stage": self.plan.name,
+             "plan_digest": self.plan.digest,
+             "run_digest": digest, "inputs": ins, "nodes": nodes},
+            columns=cols)
 
     def run_spilled(self, partitions: Sequence[Mapping[str, object]]
                     ) -> list:
@@ -700,6 +873,169 @@ class CompiledStage:
                     stage_inputs[name] = tuple(v)
                 outs.append(self.run(stage_inputs))
         return outs
+
+    def _profile_record(self, inputs, *, digest: str, engine: str,
+                        wall_ns, compiled: bool,
+                        compile_ns: int = 0, stats=None) -> dict:
+        """The typed per-stage profile row: plan structure (node
+        kinds + outputs), per-input rows/bucket/pad-waste, engine,
+        wall, compile-vs-memo-hit (plus the build's own wall, for the
+        attribution ledger's compile bucket), dispatch count, and the
+        monotonic dispatch window the critical path orders by."""
+        ins = []
+        for inp in self.plan.inputs:
+            arrs = inputs.get(inp.name)
+            if not arrs:
+                continue
+            shape = tuple(arrs[0].shape)
+            rows = int(shape[0]) if shape else 0
+            bucket = bucket_rows(rows) if inp.bucket else rows
+            ins.append({"name": inp.name, "rows": rows,
+                        "bucket": bucket,
+                        "pad_rows": max(bucket - rows, 0)})
+        t_end_ns = time.monotonic_ns()
+        rec = {
+            "stage": self.plan.name,
+            "digest": digest,
+            "engine": ("unfused" if engine == "unfused" else "fused"),
+            "compiled": bool(compiled),
+            "compile_ns": int(compile_ns),
+            "wall_ns": int(wall_ns or 0),
+            "t_start_ns": t_end_ns - int(wall_ns or 0),
+            "t_end_ns": t_end_ns,
+            "dispatches": (self.dispatch_count
+                           if engine == "unfused" else 1),
+            "nodes_total": self.dispatch_count,
+            "nodes": [{"kind": type(n).__name__,
+                       "outs": list(n.outs())}
+                      for n in self.plan.nodes],
+            "inputs": ins,
+        }
+        if stats is not None:
+            rec["stats"] = stats
+        return rec
+
+    def _calibration_sample(self, inputs):
+        """Row-slice oversized bucketed inputs for the measurement
+        runs (the verdict still keys on the FULL-size digest — size
+        class separation is operands_digest's job).  Returns
+        (sample_inputs, sampled?)."""
+        sampled = False
+        out = {}
+        for inp in self.plan.inputs:
+            arrs = tuple(inputs[inp.name])
+            if inp.bucket and \
+                    int(arrs[0].shape[0]) > _STAGE_CALIB_MAX_ROWS:
+                arrs = tuple(a[:_STAGE_CALIB_MAX_ROWS] for a in arrs)
+                sampled = True
+            out[inp.name] = arrs
+        return out, sampled
+
+    def _run_calibrated(self, inputs, taps: bool = False):
+        """Stage-granularity engine verdict: the first stage of a
+        given (plan digest, operand shapes, device) measures fused vs
+        op-by-op — on row-sliced samples past _STAGE_CALIB_MAX_ROWS,
+        so a huge first query does not pay two full-size runs — and
+        every later one takes the cached winner (perf/calibrate's
+        verdict cache, keyed by the torch device).  Both engines are
+        byte-identical, so calibration is a speed choice only.  Returns
+        (outputs, compiled, outcome, wall_ns, run_digest, compile_ns,
+        counts) with the wall of the winning engine's OWN execution
+        (measurement runs excluded); ``counts`` is the winner's tapped
+        row-count vector (None without ``taps``, and None when a
+        sampled measurement won on sliced inputs — sliced counts would
+        reconcile against nothing)."""
+        from spark_rapids_tpu_torch.perf import calibrate
+
+        parts, _bucket = self._shape_parts(inputs)
+        digest = self._run_digest(parts)
+        compiled = []
+        last: Dict[str, tuple] = {}
+        walls: Dict[str, int] = {}
+        tap_cell: Dict[str, object] = {}
+        calib_inputs, sampled = self._calibration_sample(inputs)
+
+        def timed(tag, fn):
+            def go():
+                t0 = time.monotonic_ns()
+                out = fn()
+                _sync(out)
+                last[tag] = out
+                walls[tag] = time.monotonic_ns() - t0
+                return out
+            return go
+
+        def fused_body():
+            # sampled inputs key their own (smaller) program; the
+            # full-size digest stays the verdict key
+            out, c, _d, cts = self._run_fused(
+                calib_inputs, run_digest=None if sampled else digest,
+                taps=taps)
+            if c:
+                compiled.append(c)
+            if cts is not None:
+                tap_cell["fused"] = cts
+            return out
+
+        def unfused_body():
+            if not taps:
+                return self.run_unfused(calib_inputs)
+            env = self._walk_env(calib_inputs)
+            tap_cell["op_by_op"] = self._host_counts(env)
+            return tuple(env[o] for o in self.plan.outputs)
+
+        path = calibrate.pick_path(
+            f"stage:{self.plan.name}", digest,
+            {"fused": timed("fused", fused_body),
+             "op_by_op": timed("op_by_op", unfused_body)},
+            default="fused", device=_first_device(inputs, self.plan))
+        if path not in ("fused", "op_by_op"):
+            # pick_path returns env pins verbatim — callers validate
+            # membership; an unknown pin falls back to the default
+            path = "fused"
+        outcome = "unfused" if path == "op_by_op" else "fused"
+        if not sampled and path in last:
+            # calibration just ran the winner on the REAL inputs —
+            # reuse its outputs and its measured wall instead of
+            # paying a third execution
+            return (last[path], bool(compiled), outcome, walls[path],
+                    digest, sum(compiled), tap_cell.get(path))
+        t0 = time.monotonic_ns()
+        counts = None
+        if path == "op_by_op":
+            if taps:
+                env = self._walk_env(inputs)
+                out = tuple(env[o] for o in self.plan.outputs)
+                counts = self._host_counts(env)
+            else:
+                out = self.run_unfused(inputs)
+        else:
+            out, c, _d, counts = self._run_fused(
+                inputs, run_digest=digest, taps=taps)
+            if c:
+                compiled.append(c)
+        _sync(out)
+        return (out, bool(compiled), outcome,
+                time.monotonic_ns() - t0, digest, sum(compiled),
+                counts)
+
+
+def _sync(out) -> None:
+    """Wait for the device that holds ``out`` (a tuple of tensors): a
+    wall read past this covers the work, not just its launch."""
+    for o in out:
+        if isinstance(o, torch.Tensor):
+            if o.device.type == "cuda":
+                torch.cuda.synchronize(o.device)
+            return
+
+
+def _first_device(inputs, plan) -> torch.device:
+    for inp in plan.inputs:
+        for a in inputs[inp.name]:
+            if isinstance(a, torch.Tensor):
+                return a.device
+    return torch.device("cpu")
 
 
 # one CompiledStage per plan digest, process-wide: catalog entry points
@@ -735,8 +1071,12 @@ class CompiledPipeline:
         self.stages = [compile_stage(s) for s in pipeline.stages]
 
     def run(self, inputs: Mapping[str, Sequence]) -> tuple:
-        # ROADMAP A14 step 5(b): the JAX package's semantic result
-        # cache can short-circuit an unchanged stage here
+        # semantic stage cache: with the result cache armed, each stage
+        # consults a content-keyed entry (plan digest + input bytes)
+        # before executing — an unchanged upstream stage
+        # short-circuits and only the delta recomputes
+        from spark_rapids_tpu_torch.perf import result_cache as _rc
+        cache = _rc.CACHE if _rc.cache_enabled() else None
         feed: Dict[str, object] = {}
         out: Tuple = ()
         for cs in self.stages:
@@ -747,7 +1087,10 @@ class CompiledPipeline:
                         feed[c.name] for c in inp.columns)
                 else:
                     stage_inputs[inp.name] = inputs[inp.name]
-            out = cs.run(stage_inputs)
+            if cache is not None:
+                out = cache.stage_run(cs, stage_inputs)
+            else:
+                out = cs.run(stage_inputs)
             feed.update(zip(cs.plan.outputs, out))
         return out
 

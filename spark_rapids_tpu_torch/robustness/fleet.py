@@ -20,18 +20,16 @@ into *policy*:
     that is not the flagged owner; a partition re-splits when its
     payload dwarfs the median of its op's other partitions.
   * :class:`ElasticFleet`: one per worker.  Tracks membership + epoch,
-    keeps each op's part arrival gaps, decides speculation (robust-z
-    over the arrival window, with a wall-clock floor so a cold window
-    still speculates) and keeps every membership change in ``events``.
+    feeds per-stage wall times and part arrival gaps into the
+    flight-recorder :class:`~spark_rapids_tpu_torch.observability.
+    anomaly.StragglerDetector`, decides speculation (robust-z over the
+    arrival window, with a wall-clock floor so a cold window still
+    speculates) and keeps every membership change in ``events``.
 
 Membership changes and the epoch go to the observability spine
 (``srt_fleet_epoch``, ``srt_fleet_*`` counters, ``fleet_membership``
-journal events).  ROADMAP A14 step 5(b): the JAX package also feeds
-stage walls and arrival gaps to the flight recorder's
-``observability.anomaly.StragglerDetector`` (journal
-``fleet_straggler``) and triggers a ``fleet_incident`` bundle on a
-death.  The robust-z arithmetic that ``should_speculate`` needs is
-kept here (:func:`robust_z`).
+journal events, ``fleet_straggler`` for a detector outlier), and a
+death freezes a ``fleet_incident`` flight-recorder bundle.
 
 Epoch fencing: every elastic frame carries the sender's epoch; a
 receiver ahead of the sender answers the ``E`` verdict (stale-epoch
@@ -45,10 +43,13 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from spark_rapids_tpu_torch import observability as _obs
+from spark_rapids_tpu_torch.observability.anomaly import (  # noqa: F401
+    StragglerDetector, robust_z)
 
 
 def _env_float(name: str, default: float) -> float:
@@ -56,23 +57,6 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, "") or default)
     except ValueError:
         return default
-
-
-def robust_z(value: float, samples) -> float:
-    """Robust z-score of ``value`` against ``samples`` via median/MAD
-    (consistent-estimator scaling 1.4826).  The MAD is floored at 5%
-    of the median (and at 1.0) so a near-constant sample set cannot
-    turn ordinary jitter into an infinite score."""
-    xs = sorted(samples)
-    n = len(xs)
-    if n == 0:
-        return 0.0
-    med = (xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2.0)
-    devs = sorted(abs(x - med) for x in xs)
-    mad = (devs[n // 2] if n % 2
-           else (devs[n // 2 - 1] + devs[n // 2]) / 2.0)
-    scale = max(1.4826 * mad, 0.05 * abs(med), 1.0)
-    return (value - med) / scale
 
 
 class StaleEpochError(RuntimeError):
@@ -166,23 +150,26 @@ class ElasticFleet:
 
     Thread-safe; the shuffle service consults it from the exchange
     thread AND the listener's handler threads (death notices, joins,
-    stale-epoch checks arrive on connections).  ``threshold`` is the
-    robust-z a current wait must reach to speculate (the JAX package's
-    straggler detector threshold for the fleet)."""
+    stale-epoch checks arrive on connections)."""
 
     def __init__(self, rank: int, world: int, *,
                  policy: Optional[ElasticPolicy] = None,
-                 threshold: float = 4.0,
+                 detector: Optional[StragglerDetector] = None,
                  spec_delay_s: Optional[float] = None,
                  skew_ratio: Optional[float] = None,
-                 min_arrivals: int = 3):
+                 min_arrivals: int = 3,
+                 clock=time.monotonic):
         self.rank = int(rank)
         self.world0 = int(world)
         self.policy = policy or ElasticPolicy()
-        # ROADMAP A14 step 5(b): the JAX package builds a flight-
-        # recorder StragglerDetector here (threshold 4.0, min_samples
-        # min_arrivals, cooldown 5 s) and exports it as `detector`
-        self.threshold = float(threshold)
+        # the flight-recorder straggler spine: per-stage wall times
+        # and arrival gaps feed the SAME detector class the recorder
+        # watches, so a flagged straggler is bundle-able evidence, not
+        # a private heuristic (min_samples lowered: a fleet op has
+        # world-1 arrivals, not 8 task repetitions)
+        self.detector = detector or StragglerDetector(
+            threshold=4.0, min_samples=min_arrivals, cooldown_s=5.0,
+            clock=clock)
         self.spec_delay_s = (spec_delay_s if spec_delay_s is not None
                              else _env_float(
                                  "SPARK_RAPIDS_TPU_FLEET_SPEC_DELAY_S",
@@ -192,6 +179,7 @@ class ElasticFleet:
                                "SPARK_RAPIDS_TPU_FLEET_SKEW_RATIO",
                                4.0))
         self.min_arrivals = int(min_arrivals)
+        self.clock = clock
         self._lock = threading.Lock()
         self._epoch = 0
         self._departed: set = set()
@@ -261,8 +249,10 @@ class ElasticFleet:
         _obs.record_fleet_membership(
             "death", dead=sorted(new), epoch=epoch,
             live=live, moved=moved)
-        # ROADMAP A14 step 5(b): the flight recorder's fleet_incident
-        # trigger
+        _obs.FLIGHT.trigger(
+            "fleet_incident", severity="warn", rank=self.rank,
+            change="death", dead=sorted(new), epoch=epoch,
+            shards_moved=moved, live=live)
         self._record("death", dead=sorted(new), epoch=epoch, live=live,
                      moved=moved)
         return True
@@ -348,10 +338,13 @@ class ElasticFleet:
     # --------------------------------------------------- straggling
 
     def note_stage_wall(self, stage: str, wall_ns: int) -> None:
-        """Distributed runners feed their per-stage wall times here.
-        ROADMAP A14 step 5(b): the JAX package runs them through the
-        straggler detector, whose outliers reach the journal as
-        fleet_straggler."""
+        """Distributed runners feed their per-stage wall times here;
+        a robust-z outlier fires the existing straggler spine (journal
+        + the flight recorder's trigger matrix)."""
+        fired = self.detector.observe(f"fleet.{stage}", int(wall_ns))
+        if fired:
+            _obs.JOURNAL.emit("fleet_straggler", rank=self.rank,
+                              **fired)
 
     def note_arrival(self, op_id: int, part: int, src: int,
                      dt_ns: int) -> None:
@@ -360,6 +353,8 @@ class ElasticFleet:
             if win is None:
                 win = self._arrivals[op_id] = deque(maxlen=64)
             win.append(float(dt_ns))
+        self.detector.observe(f"fleet.op{op_id}.arrival", int(dt_ns),
+                              task=src)
 
     def should_speculate(self, op_id: int, elapsed_ns: int
                          ) -> Optional[dict]:
@@ -373,7 +368,7 @@ class ElasticFleet:
             win = list(self._arrivals.get(op_id, ()))
         if len(win) >= self.min_arrivals:
             z = robust_z(float(elapsed_ns), win)
-            if z >= self.threshold:
+            if z >= self.detector.threshold:
                 return {"reason": "robust_z", "robust_z": round(z, 2),
                         "samples": len(win),
                         "elapsed_ms": elapsed_ns // 1_000_000}

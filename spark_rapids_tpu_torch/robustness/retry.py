@@ -31,10 +31,12 @@ spine: ``srt_retry_*`` counters, a ``retry_episode`` journal event,
 and a ``retry``-kind span (attach=False — it never re-parents the
 traced work under it).  A zero-failure episode records nothing.
 
+An exhausted budget freezes a ``retry_exhausted`` incident bundle
+when the flight recorder is armed.
+
 Not ported, each marked below: the fault injector's rules
-(``utils/fault_injection.maybe_inject``, ROADMAP A16), the
-lifeguard heartbeat at each attempt start (ROADMAP A14 step 5(c)) and
-the retry_exhausted incident trigger (ROADMAP A14 step 5(b)).
+(``utils/fault_injection.maybe_inject``, ROADMAP A16) and the
+lifeguard heartbeat at each attempt start (ROADMAP A14 step 5(c)).
 """
 
 from __future__ import annotations
@@ -287,8 +289,13 @@ class _Episode:
         if last is not None and ex.__cause__ is None:
             ex.__cause__ = last
         self.finish("exhausted:" + reason)
-        # ROADMAP A14 step 5(b): the retry_exhausted incident trigger
-        # here
+        # black-box trigger: an exhausted budget is terminal for the
+        # query — freeze the evidence while it is still in the rings
+        _obs.trigger_incident(
+            "retry_exhausted", cause=ex, name=self.name, reason=reason,
+            attempts=self.attempts,
+            lost_ns=sum(a.elapsed_ns for a in self.history),
+            errors=[a.error for a in self.history[-16:]])
         return ex
 
     def finish(self, outcome: str) -> None:

@@ -116,9 +116,13 @@ def arrow_ingest(batch, device="cuda") -> List[int]:
     caller may free its batch immediately."""
     from spark_rapids_tpu_torch.io.arrow_cabi import ingest
     cols, _names = ingest(batch, device)
-    # ROADMAP A14 step 5(b): the JAX package bumps the "arrow" source's
-    # ingest epoch here (result_cache.bump_ingest_epoch)
-    return [REGISTRY.register(c) for c in cols]
+    handles = [REGISTRY.register(c) for c in cols]
+    # ingest-epoch door: an Arrow batch has no stable file identity, so
+    # every hand-off is new data — results keyed over the "arrow"
+    # source go stale unconditionally
+    from spark_rapids_tpu_torch.perf.result_cache import bump_ingest_epoch
+    bump_ingest_epoch("arrow")
+    return handles
 
 
 def parquet_read_table(path: str, columns=None,
@@ -197,8 +201,7 @@ def spill_store_stats_json() -> str:
 # --------------------------------------------------------- observability
 # (reference: RmmSpark getAndReset* + Profiler control surface; here the
 # unified registry/journal is exported to the JVM as text/JSON blobs so
-# the binding needs no schema compiler).  ROADMAP A14 step 5(b):
-# health_json.
+# the binding needs no schema compiler).
 
 
 def metrics_set_enabled(enabled: bool) -> bool:
@@ -294,3 +297,284 @@ def tracing_flush(path: str) -> int:
 def tracing_reset() -> None:
     from spark_rapids_tpu_torch import observability as obs
     obs.TRACER.reset()
+
+
+# ------------------------------------------------------- query profiles
+# (EXPLAIN ANALYZE control surface: the JVM flips profiling around a
+# workload, then pulls per-query artifacts by id — reference analog:
+# the profiler sidecar's capture window + profile_converter pull)
+
+
+def profile_set_enabled(enabled: bool) -> bool:
+    """Flip per-query profile assembly; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_profiling_enabled()
+    (obs.enable_profiling if enabled else obs.disable_profiling)()
+    return prior
+
+
+def profile_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_profiling_enabled()
+
+
+def profile_last_json() -> str:
+    """Most recently assembled query profile as JSON ('' when none
+    has been assembled yet)."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    prof = obs.PROFILER.last()
+    return json.dumps(prof, sort_keys=True, default=str) \
+        if prof is not None else ""
+
+
+# ROADMAP A14 step 5(c): server_profile_json (the server-retained
+# profile of one query id) comes with the query server.
+
+
+# ------------------------------------------------------ flight recorder
+# (reference: the CUPTI profiler dump + RmmSpark state dump the JVM
+# pulls on failure; here the JVM arms the recorder, forces bundles,
+# and lists/fetches what the anomaly detectors froze)
+
+
+def flight_recorder_set_enabled(enabled: bool) -> bool:
+    """Arm/disarm the flight recorder; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_flight_recorder_enabled()
+    (obs.enable_flight_recorder if enabled
+     else obs.disable_flight_recorder)()
+    return prior
+
+
+def flight_recorder_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_flight_recorder_enabled()
+
+
+def flight_recorder_configure(out_dir: str = "", max_bytes: int = 0,
+                              min_interval_s: float = -1.0) -> None:
+    """Set bundle directory / byte budget / rate-limit interval;
+    zero/negative/empty values leave the current setting."""
+    from spark_rapids_tpu_torch import observability as obs
+    obs.FLIGHT.configure(
+        out_dir=out_dir or None,
+        max_bytes=int(max_bytes) if max_bytes > 0 else None,
+        min_interval_s=(float(min_interval_s)
+                        if min_interval_s >= 0 else None))
+
+
+def incident_dump(reason: str = "manual") -> str:
+    """Force an incident bundle NOW (bypasses the enabled flag and the
+    rate limit; still honors the byte budget).  Returns the bundle
+    path, or '' when the byte budget suppressed it."""
+    from spark_rapids_tpu_torch import observability as obs
+    path = obs.FLIGHT.trigger("manual", force=True, severity="info",
+                              reason=str(reason))
+    return path or ""
+
+
+def incident_list() -> str:
+    """JSON list of complete bundles in the recorder's directory
+    (path, trigger kind, severity, wall-clock, bytes)."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.FLIGHT.incident_list())
+
+
+def health_json() -> str:
+    """One-call process health rollup (switches, ring fill/drops,
+    recorder stats, memory-ledger summary) as JSON."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.health(), sort_keys=True, default=str)
+
+
+# ------------------------------------------------------ telemetry plane
+# (windowed time-series + per-tenant SLO control surface: the JVM
+# flips the sampler/monitor around a workload, pulls the window ring
+# for its own dashboards, and polls burn-rate status between stages)
+
+
+def timeseries_set_enabled(enabled: bool) -> bool:
+    """Flip the windowed time-series sampler; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_timeseries_enabled()
+    (obs.enable_timeseries if enabled else obs.disable_timeseries)()
+    return prior
+
+
+def timeseries_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_timeseries_enabled()
+
+
+def timeseries_snapshot_json() -> str:
+    """The window ring (per-window counter deltas, gauge last-values,
+    windowed histogram buckets) plus SLO status when the monitor is
+    armed, as JSON — the same shape the fleet publishes to rank 0."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.timeseries_snapshot(), sort_keys=True)
+
+
+def slo_set_enabled(enabled: bool) -> bool:
+    """Arm/disarm per-tenant SLO burn-rate monitoring; returns prior
+    state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_slo_enabled()
+    (obs.enable_slo if enabled else obs.disable_slo)()
+    return prior
+
+
+def slo_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_slo_enabled()
+
+
+def slo_status_json() -> str:
+    """Per-tenant SLO status (target, objective, attainment, fast/slow
+    burn rates, breach count) as JSON."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.SLO.status(), sort_keys=True)
+
+
+def slo_evaluate_json() -> str:
+    """Force a burn-rate evaluation NOW (bypasses the throttle the
+    Monitor thread uses) and return any fired alerts as a JSON list —
+    each alert also routed through the normal slo_burn incident path."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.evaluate_slo(), sort_keys=True)
+
+
+# ----------------------------------------------------- time attribution
+# (the "where did the time go" ledger: the JVM arms it around a
+# workload and pulls the last query's bucket waterfall for its own
+# p99-miss triage)
+
+
+def attribution_set_enabled(enabled: bool) -> bool:
+    """Flip per-query time-attribution ledgers; returns prior state."""
+    from spark_rapids_tpu_torch import observability as obs
+    prior = obs.is_attribution_enabled()
+    (obs.enable_attribution if enabled
+     else obs.disable_attribution)()
+    return prior
+
+
+def attribution_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_attribution_enabled()
+
+
+def attribution_last_json() -> str:
+    """Most recent query's time-attribution ledger (bucket ns,
+    fractions, dominant bucket, conservation verdict) as JSON
+    ('' when no profiled query has completed with the switch on)."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    led = obs.attribution_last()
+    return json.dumps(led, sort_keys=True, default=str) \
+        if led is not None else ""
+
+
+# ----------------------------------------------------------- jit cache
+# (compile-cache control surface: the JVM polls hit rates between
+# stages and clears the cache around schema migrations)
+
+
+def jit_cache_stats() -> str:
+    """JSON stats of the process kernel compile cache (perf/jit_cache):
+    entries/bytes, hit/miss/eviction/compile totals, and per-kernel
+    breakdowns."""
+    import json
+
+    from spark_rapids_tpu_torch.perf import jit_cache
+    return json.dumps(jit_cache.CACHE.stats(), sort_keys=True)
+
+
+def jit_cache_clear(reset_stats: bool = False) -> int:
+    """Drop every cached program; returns the number dropped.
+    ``reset_stats`` additionally zeroes the cumulative counters."""
+    from spark_rapids_tpu_torch.perf import jit_cache
+    return jit_cache.CACHE.clear(reset_stats=bool(reset_stats))
+
+
+# -------------------------------------------------------- result cache
+# (semantic result/subplan cache control surface: the JVM
+# polls hit rates, clears around catalog reloads, and bumps a source's
+# ingest epoch when ITS ingest path — not ours — landed new data)
+
+
+def result_cache_stats() -> str:
+    """JSON stats of the semantic result/subplan cache
+    (perf/result_cache): entries/bytes, hit/miss/eviction/put/fold
+    totals, per-scope entry counts."""
+    import json
+
+    from spark_rapids_tpu_torch.perf import result_cache
+    return json.dumps(result_cache.CACHE.stats(), sort_keys=True)
+
+
+def result_cache_clear(reset_stats: bool = False) -> int:
+    """Drop every cached result/subplan entry; returns the number
+    dropped.  ``reset_stats`` additionally zeroes the counters."""
+    from spark_rapids_tpu_torch.perf import result_cache
+    return result_cache.CACHE.clear(reset_stats=bool(reset_stats))
+
+
+def result_cache_bump_epoch(source: str) -> int:
+    """Advance ``source``'s ingest epoch (externally-landed data):
+    every cached result keyed over it goes stale; returns the new
+    epoch."""
+    from spark_rapids_tpu_torch.perf import result_cache
+    return result_cache.bump_ingest_epoch(str(source))
+
+
+# ----------------------------------------------------------- data stats
+# (per-node cardinality observatory: the JVM arms the
+# collector during plan-quality investigations, then pulls one JSON
+# snapshot of est-vs-actual rows per stage/node; disabled it costs one
+# attribute read per stage run)
+
+
+def stats_set_enabled(enabled: bool) -> bool:
+    """Arm/disarm the per-node statistics collector; returns the new
+    state."""
+    from spark_rapids_tpu_torch import observability as obs
+    if enabled:
+        obs.enable_stats()
+    else:
+        obs.disable_stats()
+    return obs.is_stats_enabled()
+
+
+def stats_enabled() -> bool:
+    from spark_rapids_tpu_torch import observability as obs
+    return obs.is_stats_enabled()
+
+
+def stats_snapshot_json() -> str:
+    """JSON snapshot of the statistics collector: observation and
+    misestimate totals, registered estimates and source row counts,
+    and the latest per-node section per stage."""
+    import json
+
+    from spark_rapids_tpu_torch import observability as obs
+    return json.dumps(obs.STATS.snapshot(), sort_keys=True,
+                      default=str)
+
+
+def stats_store_clear() -> None:
+    """Drop the persistent StatsStore (process map and file layer)."""
+    from spark_rapids_tpu_torch import observability as obs
+    obs.STATS.store.clear()

@@ -13,17 +13,20 @@ are the JAX package's; columns made from host values go to `device`,
 "cuda" unless the caller asks for the CPU, and every op runs on the
 device of the columns its handles name.
 
-The observability entries (``metrics_*``, ``tracing_*``) and device
-telemetry (``telemetry_*``) are here.  ROADMAP step 6 (A16's rest)
-brings the remainder of the JAX module to this one: initialize/shutdown
-(which configured JAX there), the bulk string ingest and readback, the
-kudo write memo that `free` purges and the host tables (guarded there by
-the lockdep locks ``shim.kudo_cache`` and ``shim.host_tables``, which
-come with them), the query-server and profiler entries (``health_json``
-is ROADMAP A14 step 5(b)), and the entries of
-the ops that earlier slices ported into jni_api (hashes, row
-conversion, the string casts, parse_url, JSON, joins, datetime,
-ingest).  The comments below mark where each group goes.
+The observability entries (``metrics_*``, ``tracing_*``, ``profile_*``,
+``flight_recorder_*``, ``incident_*``, ``health_json``,
+``timeseries_*``, ``slo_*``, ``attribution_*``, ``jit_cache_*``,
+``result_cache_*``, ``stats_*``) and device telemetry (``telemetry_*``)
+are here; the query-server entries come with ROADMAP A14 step 5(c).
+ROADMAP step 6 (A16's rest) brings the remainder of the JAX module to
+this one: initialize/shutdown (which configured JAX there), the bulk
+string ingest and readback, the kudo write memo that `free` purges and
+the host tables (guarded there by the lockdep locks
+``shim.kudo_cache`` and ``shim.host_tables``, which come with them),
+the profiler and fault-injection entries, and the entries of the ops
+that earlier slices ported into jni_api (hashes, row conversion, the
+string casts, parse_url, JSON, joins, datetime, ingest).  The
+comments below mark where each group goes.
 """
 
 from __future__ import annotations
@@ -339,6 +342,162 @@ def tracing_flush(path: str) -> int:
 def tracing_reset() -> None:
     from spark_rapids_tpu_torch.shim import jni_api
     jni_api.tracing_reset()
+
+
+# ------------------------------------------- profiles, incidents, caches
+# (primitive-only twins of jni_api's query-profile, flight-recorder,
+# telemetry-plane, attribution, compile-cache, result-cache and
+# data-statistics entries)
+
+
+def profile_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.profile_set_enabled(bool(enabled))
+
+
+def profile_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.profile_enabled()
+
+
+def profile_last_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.profile_last_json()
+
+
+# ROADMAP A14 step 5(c): server_profile_json comes with the query
+# server.
+
+
+def flight_recorder_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.flight_recorder_set_enabled(bool(enabled))
+
+
+def flight_recorder_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.flight_recorder_enabled()
+
+
+def flight_recorder_configure(out_dir: str = "", max_bytes: int = 0,
+                              min_interval_s: float = -1.0) -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.flight_recorder_configure(str(out_dir), int(max_bytes),
+                                      float(min_interval_s))
+
+
+def incident_dump(reason: str = "manual") -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.incident_dump(str(reason))
+
+
+def incident_list() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.incident_list()
+
+
+def health_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.health_json()
+
+
+def timeseries_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.timeseries_set_enabled(bool(enabled))
+
+
+def timeseries_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.timeseries_enabled()
+
+
+def timeseries_snapshot_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.timeseries_snapshot_json()
+
+
+def slo_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.slo_set_enabled(bool(enabled))
+
+
+def slo_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.slo_enabled()
+
+
+def slo_status_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.slo_status_json()
+
+
+def slo_evaluate_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.slo_evaluate_json()
+
+
+def attribution_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.attribution_set_enabled(bool(enabled))
+
+
+def attribution_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.attribution_enabled()
+
+
+def attribution_last_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.attribution_last_json()
+
+
+# ROADMAP step 6: the fault_injection_* entries come with
+# utils/fault_injection.
+
+
+def jit_cache_stats() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.jit_cache_stats()
+
+
+def jit_cache_clear(reset_stats: bool = False) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.jit_cache_clear(bool(reset_stats))
+
+
+def result_cache_stats() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.result_cache_stats()
+
+
+def result_cache_clear(reset_stats: bool = False) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.result_cache_clear(bool(reset_stats))
+
+
+def result_cache_bump_epoch(source: str) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.result_cache_bump_epoch(str(source))
+
+
+def stats_set_enabled(enabled: bool) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.stats_set_enabled(bool(enabled))
+
+
+def stats_enabled() -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.stats_enabled()
+
+
+def stats_snapshot_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.stats_snapshot_json()
+
+
+def stats_store_clear() -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.stats_store_clear()
 
 
 # ----------------------------------------- device telemetry over JNI

@@ -28,8 +28,9 @@ The merger parses its tables under split-and-retry
 on, the writer prefixes each table with the KTRX trace extension and
 the merge opens a ``kudo_merge`` span linked to every writer context
 it consumed; the write and merge counters and the corruption and
-resync records go to the observability spine.  ROADMAP A14 step 5(b):
-the ``kudo_corrupt`` incident triggers, marked below.
+resync records go to the observability spine, and a corrupt table
+freezes a ``kudo_corrupt`` incident bundle when the flight recorder is
+armed.
 """
 
 from __future__ import annotations
@@ -226,8 +227,10 @@ class KudoTableHeader:
                     _obs.record_kudo_corruption(
                         "crc", detail=f"deferred: want {want:08x} "
                                       f"got {pending:08x}")
-                    # ROADMAP A14 step 5(b): the kudo_corrupt incident
-                    # trigger here
+                    _obs.trigger_incident(
+                        "kudo_corrupt", reason="crc",
+                        detail=f"deferred trailer mismatch want "
+                               f"{want:08x} got {pending:08x}")
                     raise KudoCorruptException(
                         f"kudo crc mismatch (want {want:08x} got "
                         f"{pending:08x})", deferred=True)
@@ -252,8 +255,10 @@ class KudoTableHeader:
         off, rows, vlen, olen, tlen, ncols = fields
         if (min(off, rows, vlen, olen, tlen, ncols) < 0
                 or vlen + olen > tlen):
-            # ROADMAP A14 step 5(b): the kudo_corrupt incident trigger
-            # here
+            _obs.trigger_incident(
+                "kudo_corrupt", reason="magic",
+                detail=f"impossible header rows={rows} "
+                       f"total_len={tlen} cols={ncols}")
             raise KudoCorruptException(
                 f"impossible kudo header (offset={off} rows={rows} "
                 f"validity_len={vlen} offset_len={olen} "
@@ -513,8 +518,10 @@ def read_one_table(stream) -> Optional[KudoTable]:
             _obs.record_kudo_corruption(
                 "crc", detail=f"want {want:08x} got {got:08x} "
                               f"rows={header.num_rows}")
-            # ROADMAP A14 step 5(b): the kudo_corrupt incident trigger
-            # here
+            _obs.trigger_incident(
+                "kudo_corrupt", reason="crc",
+                detail=f"trailer mismatch want {want:08x} got "
+                       f"{got:08x} rows={header.num_rows}")
             raise KudoCorruptException(
                 f"kudo crc mismatch (want {want:08x} got {got:08x})")
     else:

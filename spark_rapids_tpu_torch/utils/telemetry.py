@@ -235,8 +235,9 @@ class Monitor:
             except Exception as e:
                 self._report(e)
             self.sample_count += 1
-            # liveness stamp (ROADMAP A14 step 5(b): the timeseries and
-            # SLO planes ride this call in the JAX package)
+            # liveness stamp + telemetry-plane drive (windowed ticks /
+            # SLO burn evaluation run at window granularity off THIS
+            # thread; two attribute reads when the plane is off)
             _obs.record_monitor_sample()
             try:
                 self.listener(infos)

@@ -37,7 +37,11 @@ the card; and the observability core: device telemetry and the Monitor's
 HBM samples against torch.cuda's counters, the kudo hooks on card
 columns (KTRX bytes, counters) against the same calls on CPU columns,
 a fused stage's compile span and fusion record, and chip_smoke.py's
-observability phase at a small size.
+observability phase at a small size; and the rest of observability and
+the caches: the stage cache's hit on the card giving the first run's
+bytes, ``data_digest`` of a card tensor equal to its CPU copy's,
+``pad_axis0`` keeping a tensor on its device, and chip_smoke.py's
+observability_plane phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1202,3 +1206,68 @@ def test_observability_phase_on_card_small(cuda, tmp_path, monkeypatch):
     assert res["on"]["merged_rows"] == 1 << 16
     assert res["hbm_worst_rel_diff"] <= 0.01 and res["quiet_samples"] > 0
 
+
+
+@pytest.mark.gpu
+def test_stage_cache_hit_gives_the_same_bytes_on_the_card(cuda,
+                                                          monkeypatch):
+    from spark_rapids_tpu_torch.models import tpcds as TT
+    from spark_rapids_tpu_torch.perf import result_cache as RC
+    from spark_rapids_tpu_torch.plan import catalog as TC
+    from spark_rapids_tpu_torch.plan import compiler as C
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_RESULT_CACHE", "1")
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "1")
+    RC.CACHE.clear(reset_stats=True)
+    d = TT.gen_q5(rows=1 << 16, stores=32, days=60, seed=3, device=cuda)
+    pipe = C.compile_pipeline(TC.q5_pipeline(32, 1 << 16))
+    args = {"s": (d.s_date, d.s_store, d.s_price, d.s_profit),
+            "r": (d.r_date, d.r_store, d.r_amt, d.r_loss),
+            "d": (d.d_date,), "dims": (d.st_id,)}
+    try:
+        first = pipe.run(args)
+        hits = RC.CACHE.stats()["hits"]
+        second = pipe.run(args)
+        assert RC.CACHE.stats()["hits"] == hits + 2
+        for a, b in zip(first, second):
+            assert b.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)
+    finally:
+        RC.CACHE.clear(reset_stats=True)
+
+
+@pytest.mark.gpu
+def test_data_digest_of_a_card_tensor_equals_its_cpu_copy(cuda):
+    from spark_rapids_tpu_torch.perf.result_cache import data_digest
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ts = [torch.randint(-9, 9, (4097,), generator=g, device=cuda),
+          torch.rand(513, generator=g, dtype=torch.float64, device=cuda),
+          torch.tensor([-0.0, float("nan")], dtype=torch.float64,
+                       device=cuda),
+          torch.ones(7, dtype=torch.bool, device=cuda)]
+    assert data_digest(ts) == data_digest([t.cpu() for t in ts])
+
+
+@pytest.mark.gpu
+def test_pad_axis0_keeps_the_tensor_on_its_device(cuda):
+    from spark_rapids_tpu_torch.perf.jit_cache import pad_axis0
+    t = torch.arange(10, dtype=torch.int32, device=cuda)
+    p = pad_axis0(t, 16)
+    assert p.device == t.device and p.shape == (16,)
+    assert torch.equal(p.cpu(), torch.cat([torch.arange(10),
+                                           torch.zeros(6)]).int())
+    assert pad_axis0(t, 10) is t
+
+
+@pytest.mark.gpu
+def test_observability_plane_phase_on_card_small(cuda, tmp_path,
+                                                 monkeypatch):
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "1")
+    res = C.observability_plane_phase(
+        "cuda", q5=dict(rows=1 << 16, stores=32, join_capacity=1 << 16),
+        flagship_rows=1 << 16)
+    assert res["stage_cache"]["hit_counts"]["hits"] == 2
+    assert res["stage_cache"]["incremental_folds"] == 2
+    assert res["incidents"]["kinds"] == ["kudo_corrupt",
+                                         "retry_exhausted"]

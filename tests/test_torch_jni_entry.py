@@ -168,3 +168,63 @@ def test_iceberg_hllpp_and_struct_child():
     assert 900 < est < 1100                 # +-10% at precision 9
     child = J.struct_child(sk, 0)
     assert host(child) == [host(sk)[0][0]]
+
+
+# ------------------------------------------- profiles, incidents, caches
+
+JSON_ENTRIES = ["profile_last_json", "incident_list", "health_json",
+                "timeseries_snapshot_json", "slo_status_json",
+                "slo_evaluate_json", "attribution_last_json",
+                "jit_cache_stats", "result_cache_stats",
+                "stats_snapshot_json"]
+SWITCH_ENTRIES = ["profile", "flight_recorder", "timeseries", "slo",
+                  "attribution", "stats"]
+
+
+@pytest.fixture
+def planes(monkeypatch, tmp_path):
+    from torch_planes import isolate
+    yield from isolate(monkeypatch, tmp_path)
+
+
+@pytest.mark.parametrize("name", JSON_ENTRIES)
+def test_observability_json_entries_match_reference(name, planes):
+    """Each JSON entry gives the reference's keys (values that are
+    times, paths or pids aside: the keys alone are compared where the
+    reference's document is a dict, the document where it is a list
+    or empty)."""
+    import json
+    got, want = getattr(J, name)(), getattr(JJ, name)()
+    if want == "":
+        assert got == ""
+        return
+    got, want = json.loads(got), json.loads(want)
+    assert type(got) is type(want)
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("plane", SWITCH_ENTRIES)
+def test_observability_switch_entries_match_reference(plane, planes):
+    on = getattr(J, f"{plane}_set_enabled")
+    jon = getattr(JJ, f"{plane}_set_enabled")
+    assert on(True) == jon(True)
+    assert getattr(J, f"{plane}_enabled")() is True
+    assert on(False) == jon(False)
+    assert getattr(J, f"{plane}_enabled")() is False
+
+
+def test_cache_entries_and_incident_dump(planes, tmp_path):
+    import json
+    assert J.jit_cache_clear(True) == JJ.jit_cache_clear(True) == 0
+    assert J.result_cache_clear(True) == JJ.result_cache_clear(True) == 0
+    assert J.result_cache_bump_epoch("arrow") == \
+        JJ.result_cache_bump_epoch("arrow") == 1
+    J.flight_recorder_configure(str(tmp_path / "inc"), 1 << 20, 0.0)
+    path = J.incident_dump("probe")
+    assert path.startswith(str(tmp_path / "inc"))
+    (inc,) = json.loads(J.incident_list())
+    assert inc["kind"] == "manual" and inc["path"] == path
+    J.stats_store_clear()

@@ -1,7 +1,7 @@
 """PyTorch port: the named query catalog (`spark_rapids_tpu_torch.models`)
 against the JAX package's (`spark_rapids_tpu.models`): the eight built-in
-names (and the three file-backed ones, tests/test_torch_filesource.py)
-give the reference's rows with `{"device": "cpu"}` (the reference
+names (and the three file-backed ones, tests/test_torch_filesource.py,
+and the two incremental ones, tests/test_torch_result_cache.py) give the reference's rows with `{"device": "cpu"}` (the reference
 ignores the key), cancel and deadline raise before any work, unknown
 and not-yet-ported names raise UnknownQueryError, the pipeline cache
 stays bounded, and eight threads give the bytes of a serial run.  The
@@ -20,6 +20,7 @@ import spark_rapids_tpu_torch.models as TM
 NAMES = ["tpcds_q3", "tpcds_q3_fused", "tpcds_q5", "tpcds_q5_fused",
          "tpcds_q7", "tpcds_q72", "tpcds_q72_fused", "tpcds_q9"]
 FILE_NAMES = ["tpcds_q3_file", "tpcds_q7_file", "tpcds_q9_file"]
+INCREMENTAL_NAMES = ["tpcds_q5_incremental", "tpcds_q72_incremental"]
 PARAMS = [{}, {"rows": 3001, "seed": 1}]
 
 
@@ -33,9 +34,10 @@ def _run(m, name, params):
 
 
 def test_the_eight_names_are_registered():
-    assert TM.catalog_queries() == sorted(NAMES + FILE_NAMES)
-    assert all(TM.has_query(n) for n in NAMES + FILE_NAMES)
-    assert set(NAMES + FILE_NAMES) <= set(JM.catalog_queries())
+    every = NAMES + FILE_NAMES + INCREMENTAL_NAMES
+    assert TM.catalog_queries() == sorted(every)
+    assert all(TM.has_query(n) for n in every)
+    assert set(every) <= set(JM.catalog_queries())
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -54,8 +56,8 @@ def test_hand_and_stage_names_agree():
 
 
 @pytest.mark.parametrize("name", ["tpcds_q5_file", "tpcds_q72_file",
-                                  "tpcds_q67_file", "tpcds_q5_incremental",
-                                  "tpcds_q72_incremental", "tpcds_q99"])
+                                  "tpcds_q67_file", "tpcds_q5_stream",
+                                  "tpcds_q72_stream", "tpcds_q99"])
 def test_unported_and_unknown_names_raise(name):
     assert not TM.has_query(name)
     with pytest.raises(TM.UnknownQueryError):

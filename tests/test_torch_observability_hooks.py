@@ -14,8 +14,13 @@ tracing on, then compares:
 What only the JAX package records is left out of the comparison and
 named here: the op brackets its ops layer opens around every public op
 (``span_kind="op"`` spans and ``srt_op_latency_ns``; ROADMAP step 6 in
-the port) and its process compile cache's events (off here through
-``SPARK_RAPIDS_TPU_JIT_CACHE=0``; ROADMAP A14 step 5(b) in the port).
+the port) and the compile-cache events of the programs it compiles per
+row bucket (off here through ``SPARK_RAPIDS_TPU_JIT_CACHE=0``; the
+port runs those ops eagerly and takes no cache entry for them).
+
+Every test starts with the Monitor's liveness stamp cleared in both
+packages and no Monitor thread left running (``both_on``), and the
+incident and profile cases arm fresh flight recorders.
 """
 
 import io
@@ -39,7 +44,9 @@ TIME_FAMILIES = {
     "srt_spill_ns_total", "srt_thread_blocked_time_ns_total",
     "srt_io_read_ns", "srt_io_decode_ns_total",
     "srt_shuffle_wire_ns_total", "srt_shuffle_wait_ns_total",
-    "srt_monitor_last_sample_age_s",
+    "srt_monitor_last_sample_age_s", "srt_profile_assembly_ns",
+    "srt_attribution_ns_total", "srt_jit_compile_ns",
+    "srt_stats_sketch_ns", "srt_timeseries_tick_ns",
 }
 # span attributes holding times
 TIME_ATTRS = {"lost_ns", "wall_ns"}
@@ -48,9 +55,26 @@ JAX_ONLY_SPAN_KINDS = {"op"}
 JAX_ONLY_FAMILIES = {"srt_op_latency_ns"}
 
 
+def stop_stray_monitors():
+    """Stop every telemetry Monitor thread an earlier test in this
+    process left running: its next sample would stamp the package's
+    ``_LAST_MONITOR_SAMPLE`` in the middle of a comparison."""
+    from spark_rapids_tpu.utils import telemetry as JT
+    from spark_rapids_tpu_torch.utils import telemetry as PT
+    for t in threading.enumerate():
+        owner = getattr(getattr(t, "_target", None), "__self__", None)
+        if isinstance(owner, (JT.Monitor, PT.Monitor)):
+            owner.stop()
+
+
 @pytest.fixture(autouse=True)
 def both_on(monkeypatch, tmp_path):
     monkeypatch.setenv("SPARK_RAPIDS_TPU_JIT_CACHE", "0")
+    # the Monitor's liveness stamp is process state that reset() keeps:
+    # a Monitor an earlier test ran leaves it set in one package only
+    stop_stray_monitors()
+    for m in (obs, jobs):
+        monkeypatch.setattr(m, "_LAST_MONITOR_SAMPLE", None)
     monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
                        str(tmp_path / "calib.json"))
     from spark_rapids_tpu.perf import calibrate as JCAL
@@ -581,3 +605,128 @@ def test_observability_phase_rehearsal_on_cpu(monkeypatch, tmp_path):
     assert obs.is_enabled() and obs.is_tracing_enabled()   # restored
     assert not os.path.exists(os.path.join(str(tmp_path),
                                            "observability"))
+
+
+# ------------------------------------------- incidents and profiles
+
+
+def _arm_flight(monkeypatch, tmp_path):
+    from spark_rapids_tpu.observability import flight_recorder as JFR
+    from spark_rapids_tpu_torch.observability import flight_recorder as FR
+    for o, fr in ((obs, FR), (jobs, JFR)):
+        monkeypatch.setattr(o, "FLIGHT", fr.FlightRecorder(
+            enabled=True, out_dir=str(tmp_path / o.__name__),
+            min_interval_s=0.0))
+
+
+def test_incident_triggers(monkeypatch, tmp_path):
+    """retry_exhausted, kudo_corrupt, fleet_incident and lockdep_cycle
+    each freeze one bundle in both packages, with the same trigger
+    detail and the same observations."""
+    from spark_rapids_tpu.analysis import lockdep as JLD
+    from spark_rapids_tpu.columns import dtypes as jdt
+    from spark_rapids_tpu.columns.column import Column as JCol
+    from spark_rapids_tpu.memory import exceptions as jexc
+    from spark_rapids_tpu.robustness import fleet as JF
+    from spark_rapids_tpu.robustness import retry as JR
+    from spark_rapids_tpu.shuffle import kudo as JK
+    from spark_rapids_tpu_torch.analysis import lockdep as LD
+    from spark_rapids_tpu_torch.columns import dtypes as pdt
+    from spark_rapids_tpu_torch.columns.column import Column as PCol
+    from spark_rapids_tpu_torch.memory import exceptions as pexc
+    from spark_rapids_tpu_torch.robustness import fleet as PF
+    from spark_rapids_tpu_torch.robustness import retry as PR
+    from spark_rapids_tpu_torch.shuffle import kudo as PK
+    _arm_flight(monkeypatch, tmp_path)
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_LOCKDEP", "1")
+
+    def drive(o, R, ex, K, column, dt, F, LDm):
+        def oom():
+            raise ex.GpuRetryOOM("injected")
+
+        with pytest.raises(R.RetryExhausted):
+            R.with_retry(oom, name="fr_probe",
+                         policy=R.RetryPolicy(max_attempts=2,
+                                              base_backoff_s=0.0))
+        prior = K.set_crc_enabled(True)
+        try:
+            buf = io.BytesIO()
+            K.write_to_stream([column([1, 2, 3], dt.INT64)], buf, 0, 3)
+            raw = bytearray(buf.getvalue())
+            raw[-10] ^= 0xFF
+            with pytest.raises(K.KudoCorruptException):
+                K.read_one_table(io.BytesIO(bytes(raw)))
+        finally:
+            K.set_crc_enabled(prior)
+        F.ElasticFleet(0, 3).note_death([2])
+        LDm.reset()
+        a, b = LDm.make_lock("t.a"), LDm.make_lock("t.b")
+        with a:
+            with b:
+                pass
+        with b:
+            with a:
+                pass
+        LDm.reset()
+        out = []
+        for inc in sorted(o.FLIGHT.incident_list(),
+                          key=lambda i: i["path"]):
+            with open(os.path.join(inc["path"], "trigger.json")) as f:
+                trig = json.load(f)
+            detail = trig["detail"]
+            detail.pop("evidence", None)      # acquisition stacks
+            detail.pop("lost_ns", None)
+            out.append((inc["kind"], inc["severity"], detail,
+                        [c["type"] for c in trig["cause_chain"]]))
+        return out
+
+    port = drive(obs, PR, pexc, PK,
+                 lambda v, t: PCol.from_pylist(v, t, device="cpu"), pdt,
+                 PF, LD)
+    ref = drive(jobs, JR, jexc, JK, JCol.from_pylist, jdt, JF, JLD)
+    assert port == ref
+    assert [k for k, *_ in port] == ["retry_exhausted", "kudo_corrupt",
+                                     "fleet_incident", "lockdep_cycle"]
+    assert port[0][3] == ["RetryExhausted", "GpuRetryOOM"]
+    assert port[3][2]["cycle"] in (["t.a", "t.b"], ["t.b", "t.a"],
+                                   ["t.a", "t.b", "t.a"],
+                                   ["t.b", "t.a", "t.b"])
+    assert_same_observations(("retry_episode",))
+    assert 'srt_incidents_total{trigger="retry_exhausted"} 1' in \
+        exposition(obs)[0]
+
+
+def test_stage_profile_records(monkeypatch):
+    """A stage run inside a profiled query adds one stage record to its
+    profile in both packages, and the profile's end records a
+    query_profile journal event."""
+    import jax.numpy as jnp
+
+    from spark_rapids_tpu.plan import compiler as JC
+    from spark_rapids_tpu.plan import ir as JIR
+    from spark_rapids_tpu_torch.plan import compiler as C
+    from spark_rapids_tpu_torch.plan import ir as IR
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_STAGE_FUSION", "0")
+    stages = []
+    for o, M, comp, arr in ((obs, IR, C, torch.arange(6)),
+                            (jobs, JIR, JC, jnp.arange(6))):
+        monkeypatch.setattr(o.PROFILER, "enabled", True)
+        plan = M.StagePlan(
+            "tiny_prof", inputs=(M.ScanBind("t", (M.ColSpec("x"),)),),
+            nodes=(M.Project("y", M.Bin("mul", M.Col("x"), M.Lit(3))),
+                   M.Project("p", M.Bin("gt", M.Col("y"), M.Lit(4)))),
+            outputs=("y", "p"))
+        sess = o.PROFILER.begin("q-prof", query="tiny", tenant="acme")
+        comp.compile_stage(plan).run({"t": (arr,)})
+        prof = o.PROFILER.end(sess)
+        (s,) = prof["stages"]
+        assert s.pop("wall_ns") > 0
+        for k in ("t_start_ns", "t_end_ns", "compile_ns", "digest"):
+            s.pop(k, None)
+        stages.append((s, prof["hot_stage"]))
+    assert stages[0] == stages[1]
+    assert stages[0][0]["engine"] == "unfused"
+    assert stages[0][0]["dispatches"] == 2
+    kinds, _tree = assert_same_observations(("query_profile",
+                                             "stage_fusion"))
+    assert kinds["query_profile"] == 1

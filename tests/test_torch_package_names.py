@@ -18,24 +18,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the JAX package's __init__ files that a later step brings
 LATER = {
-    "perf": {"JitCache": "A14 step 5(b)", "CACHE": "A14 step 5(b)",
-             "pad_axis0": "A14 step 5(b)"},
     "robustness": {"QuarantineBreaker": "A14 step 5(c)",
                    "Watchdog": "A14 step 5(c)"},
     "plan": {"fused_pipeline_fn": "A10(b), step 3(b)"},
-    "observability": {name: "A14 step 5(b)" for name in (
-        "ATTRIBUTION", "FLIGHT", "PROFILER", "SLO", "STATS",
-        "TIMESERIES", "QueryProfiler", "attribution_last",
-        "cache_hit_profile", "diff_profiles", "merge_profiles", "health",
-        "evaluate_slo", "timeseries_snapshot", "trigger_incident",
-        "record_tenant_rows", "record_timeseries_merge",
-        "enable_attribution", "disable_attribution",
-        "is_attribution_enabled", "enable_flight_recorder",
-        "disable_flight_recorder", "is_flight_recorder_enabled",
-        "enable_profiling", "disable_profiling", "is_profiling_enabled",
-        "enable_slo", "disable_slo", "is_slo_enabled", "enable_stats",
-        "disable_stats", "is_stats_enabled", "enable_timeseries",
-        "disable_timeseries", "is_timeseries_enabled")},
+    "observability": {},
 }
 LATER["observability"].update({name: "A14 step 5(c)" for name in (
     "record_server_admit", "record_server_complete",
