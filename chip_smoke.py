@@ -201,8 +201,9 @@
 12. The string casts and parse_url (ops/cast_string.py with its device
    engines ops/stod_device.py and ops/ftos_device.py, ops/strings_misc.py,
    ops/parse_uri.py, ops/parse_uri_device.py, columns/strbuild.py), every
-   column drawn on the card from a seed.  Casts over 2^24 rows of step 8's
-   store_sales values (one executor batch): ss_net_paid FLOAT64 (about 4%
+   column drawn on the card from a seed.  Casts over 2^23 rows of step 8's
+   store_sales values (2^24, one executor batch, until step 20 needed the
+   time): ss_net_paid FLOAT64 (about 4%
    null) and its FLOAT32 rendered by float_to_string on the card, and
    ss_quantity or ss_ticket_number (1 to 24,000,000) rendered by digit
    arithmetic; a seeded 1/16 of each column replaced by an edge
@@ -240,16 +241,16 @@
    ops/json_device.py's per-row scan and ops/json_tokenizer.py's
    structural index; ops/json_utils.py's from_json over
    ops/raw_map_device.py and ops/from_json_device.py; ops/map_utils.py),
-   every column drawn on the card from a seed.  2^19 clickstream events
-   (half of BASELINE.json's get_json_object column, cut for step 19's
-   time; `event_docs`): event, ts,
+   every column drawn on the card from a seed.  2^18 clickstream events
+   (a quarter of BASELINE.json's get_json_object column, cut for steps
+   19 and 20's time; `event_docs`): event, ts,
    user {id, name, tags}, page, items (0-8 objects of sku, qty and a
    fractional price), ctx 1-5 deep; 100-1,000 bytes (about 400), 4%
    null, a seeded 1/32 replaced by JSON_EDGES (single quotes, escapes,
    control chars, 17-deep nesting, leading zeros, whitespace, duplicate
    keys, non-ASCII, invalid JSON).  get_json_object through the router
    (its verdict file fresh under build/) for `$.event`, `$.user.id`,
-   `$.user.name` and `$.ctx.a.b.c` over all 2^19 rows, and for
+   `$.user.name` and `$.ctx.a.b.c` over all 2^18 rows, and for
    `$.items[0]` and `$.items[*].sku` over the first 2^14 (most of their
    rows go to the host parser: a fractional price in every item, several
    items); the multi-path entry over the six paths on those 2^14; each
@@ -258,7 +259,7 @@
    over 2^14.  Each engine over the six paths on the first 2^14 rows
    must equal its CPU run byte for byte, with as many rows sent to the
    host, and the three engines each other; every router result's first
-   2^14 rows must equal the host engine's.  2^20 flat objects of
+   2^14 rows must equal the host engine's.  2^18 flat objects of
    4-40 pairs (a seeded 1/256 of 65-70, past the tokenizer's 64; the
    device scan takes 32): from_json_to_raw_map and from_json_to_structs
    (INT64, INT32, FLOAT64, BOOL8, STRING, STRING) through the router,
@@ -454,6 +455,45 @@
    and digest ms, the incremental q5's cold and warm ms, the incidents
    and their bundle bytes, the timeseries windows and the phase's
    seconds.
+20. The query server (server/, robustness/lifeguard.py, the shim's
+   server_* entries, analysis/plan_verify.py), driven as the JVM would
+   drive it.  (a) server_start with 3 pool threads; four tenants submit
+   tpcds_q5 (2^25 x 2^22 rows, 402 stores, step 6's join capacity),
+   tpcds_q9 and tpcds_q3 (2^25 rows, 204,000 items, 1,000 brands) and
+   tpcds_q72 (step 6's 2^22 x 2^21 cut, 204,000 items) at two seeds
+   each through server_submit, with metrics, tracing, profiles and the
+   SLO monitor on.  Every result must equal a direct run_catalog_query
+   of the same request on the main thread (run once a request, before
+   the server starts); each tenant's stats must count its requests; the
+   journal must hold server_admit and server_complete for every
+   tenant, each request one server_query span with its own task id,
+   the srt_server_* families in the exposition, one SLO event a
+   completion, and server_profile_json a retained profile.  (b) The
+   flagship step (2^22 rows) registered as a query and served to two
+   tenants at once: the rows must equal the main thread's, and the
+   fixed-width to-rows kernel must launch once a request.  (c) A full
+   queue and a tenant over its in-flight quota are refused typed
+   (queue_full, tenant_inflight, that tenant alone); a query whose first
+   attempt meets an injected GpuRetryOOM is requeued at a strictly
+   lower task priority and then succeeds.  (d) A q5 with a 0.2 s
+   deadline is cancelled by the watchdog (deadline); a query that sleeps
+   without a heartbeat under hang_s = 2 s is declared hung, its task
+   force-released, its worker replaced, a q9 waiting behind it finishes
+   past the 1 s stall bar, and the flight recorder holds a query_hang
+   and an admission_stall bundle (torch.cuda.memory_allocated() before
+   and after is printed); a query failing twice is quarantined, refused
+   typed, and readmitted by a probe after the cooldown.  (e) q5 over the
+   unix socket door equals (a)'s rows; server_drain with a q5 and a
+   gated query in flight refuses a new submit as draining, finishes
+   both, and writes the journal, span and metric dumps; a following
+   server_start serves q9 again with no new compile (dynamo's graph
+   count is unchanged over the whole phase).  (f) Every plan the script
+   compiled was verified exactly once, and a plan with a non-bool Where
+   condition or an unbound column is refused with PlanVerifyError
+   before it compiles.  Prints a `server` line: per-request and queue
+   wait ms, q5 through the server over its direct call, rejects,
+   requeues, watchdog actions, quarantine events, the drain report,
+   the socket round trip and the phase's seconds.
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -693,14 +733,15 @@ MEM_Q5_PARTS = 4
 MEM_THREAD_TIMEOUT_S = 300
 MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
 # the string casts and parse_url (step 12), drawn on the card: the casts
-# over 2^24 rows of the operators' store_sales values (one executor
-# batch; about 300 MB of rendered chars), a seeded 1/16 of the rows
+# over 2^23 rows of the operators' store_sales values (2^24, one
+# executor batch of about 300 MB of rendered chars, until step 20 needed
+# the time), a seeded 1/16 of the rows
 # replaced by an edge vocabulary; parse_url over 2^21 URLs of at most
 # 199 bytes (about 195 MB; 2^22 before step 19 needed the time), and QUERY with a key over BASELINE.json's
 # 1e6-row column (2^20 rows), since the key is matched per row on the
 # host; each checked against a CPU run of a slice and against the host
 # engine on a sample
-STR_CAST_ROWS = 1 << 24
+STR_CAST_ROWS = 1 << 23
 STR_EDGE_EVERY = 16
 STR_CPU_ROWS = 1 << 18
 STR_HOST_ROWS = 1 << 16
@@ -743,7 +784,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "protobuf": (),
                 "distributed": (),
                 "observability": ("to_rows",),
-                "observability_plane": ("to_rows",)}
+                "observability_plane": ("to_rows",),
+                "server": ("to_rows",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -3191,9 +3233,9 @@ def run_strings(device="cuda", cast_kw=None, url_kw=None):
 
 # --------------------------------------------------------------- json (13)
 
-# half of BASELINE.json's get_json_object column (all 2^20 rows before
-# step 19 needed the time)
-JSON_ROWS = 1 << 19
+# a quarter of BASELINE.json's get_json_object column (all 2^20 rows
+# before step 19 needed the time, 2^19 before step 20)
+JSON_ROWS = 1 << 18
 JSON_CHUNK_ROWS = 1 << 17    # one device-scan chunk (DEVICE_ROW_CHUNK)
 JSON_CPU_ROWS = 1 << 14      # the CPU run's rows, and the host engine's
 JSON_SMALL_ROWS = 1 << 14    # the host-bound calls: one calibration sample
@@ -5858,6 +5900,657 @@ def run_observability_plane(device="cuda", **kw):
     return read_launches("observability_plane"), res
 
 
+# ------------------------------------------------------- step 20: the server
+
+SERVER_TENANTS = ("tenant_a", "tenant_b", "tenant_c", "tenant_d")
+SERVER_CONCURRENCY = 3
+SERVER_QUEUE = 16
+SERVER_SEEDS = (1, 2)
+SERVER_WAIT_S = 600.0
+# the named queries at the stage path's sizes (step 6): q5 over 2^25 x
+# 2^22 rows, 402 stores, its join capacity; q9 and q3 over 2^25 rows;
+# q72's 2^22 x 2^21 cut with 204,000 items and its join capacity
+SERVER_PARAMS = {
+    "tpcds_q5": dict(rows=Q5_DATA["rows"], stores=Q5_DATA["stores"],
+                     join_capacity=Q5_CAPACITY),
+    "tpcds_q9": dict(rows=Q9_DATA["rows"]),
+    "tpcds_q3": dict(rows=Q3_DATA["rows"], items=Q3_DATA["items"],
+                     brands=Q3_DATA["brands"],
+                     manufact=Q3_PARAMS["manufact"]),
+    "tpcds_q72": dict(rows=Q72_DATA["cs_rows"], items=Q72_DATA["items"],
+                      max_week=Q72_MAX_WEEK, join_capacity=Q72_CAPACITY),
+}
+# the phase at a small size (its rehearsal on the CPU and the gpu test):
+# the deadline's q5 must outlast the deadline
+SERVER_SMALL = {
+    "tpcds_q5": dict(rows=1 << 12, stores=16, join_capacity=1 << 13),
+    "tpcds_q9": dict(rows=1 << 12),
+    "tpcds_q3": dict(rows=1 << 12, items=128, brands=16, manufact=3),
+    "tpcds_q72": dict(rows=1 << 11, items=64, max_week=16,
+                      join_capacity=1 << 17),
+}
+SERVER_SMALL_DEADLINE_Q5 = dict(rows=1 << 21, stores=16,
+                                join_capacity=1 << 21)
+SERVER_FLAGSHIP = "chip_smoke_flagship"
+SERVER_OOM = "chip_smoke_oom_once"
+SERVER_GATE = "chip_smoke_gate"
+SERVER_HANG = "chip_smoke_hang"
+SERVER_POISON = "chip_smoke_poison"
+SERVER_HANG_S = 2.0
+SERVER_WATCHDOG_S = 0.05
+SERVER_STALL_MS = 1000
+SERVER_QUARANTINE = 2
+SERVER_COOLDOWN_S = 0.5
+SERVER_DEADLINE_S = 0.2
+SERVER_OOM_BYTES = 1 << 20
+
+
+def server_dir():
+    return os.path.join(_BUILD, "server")
+
+
+def server_mix(device, params=None):
+    """(a)'s requests: q5, q9, q3 and q72 at two seeds each, dealt to the
+    four tenants in turn."""
+    params = params or SERVER_PARAMS
+    reqs = []
+    for seed in SERVER_SEEDS:
+        for name in ("tpcds_q5", "tpcds_q9", "tpcds_q3", "tpcds_q72"):
+            reqs.append((SERVER_TENANTS[len(reqs) % len(SERVER_TENANTS)],
+                         name, dict(params[name], seed=seed,
+                                    device=device)))
+    return reqs
+
+
+def server_config(**kw):
+    from spark_rapids_tpu_torch import server as srv
+    return srv.ServerConfig(**dict(dict(
+        max_queue=SERVER_QUEUE, stall_ms=0, hang_s=0.0,
+        quarantine_failures=0, watchdog_interval_s=SERVER_WATCHDOG_S),
+        **kw))
+
+
+def server_poll(J, qid, timeout_s=SERVER_WAIT_S):
+    st = json.loads(J.server_poll(qid, timeout_s))
+    check(st["state"] not in ("queued", "running"),
+          f"server: {qid} finished within {timeout_s} s ({st['state']})")
+    return st
+
+
+def dynamo_graphs():
+    """Graphs dynamo has compiled in this process."""
+    from torch._dynamo.utils import counters
+    return int(counters["stats"]["unique_graphs"])
+
+
+def server_interleaved(device, mix):
+    """(a): the mix through the shim's entries against direct calls."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch import server as srv
+    from spark_rapids_tpu_torch.shim import jni_entry as J
+    want, direct_ms = {}, {}
+    for _t, name, p in mix:        # the main thread: once per request
+        key = (name, json.dumps(p, sort_keys=True))
+        if key not in want:
+            t0 = time.perf_counter()
+            want[key] = TM.run_catalog_query(name, dict(p))
+            sync(device)
+            direct_ms[key] = (time.perf_counter() - t0) * 1e3
+    check(len(want) == len(mix), "server: one direct run a request")
+    obs.enable()
+    obs.enable_tracing()
+    obs.enable_slo()
+    obs.enable_profiling()
+    obs.reset()
+    with env(SPARK_RAPIDS_TPU_SERVER_STALL_MS="0"):
+        check(J.server_start(SERVER_CONCURRENCY, SERVER_QUEUE),
+              "server: server_start created the server")
+    check(not J.server_start(), "server: server_start is idempotent")
+    for t in SERVER_TENANTS:
+        J.server_set_tenant_quota(t, max_inflight=4)
+    t0 = time.perf_counter()
+    ids = []
+    for t, name, p in mix:
+        resp = json.loads(J.server_submit(t, name, json.dumps(p)))
+        check(resp["ok"], f"server: {t} {name} admitted ({resp})")
+        ids.append(resp["query_id"])
+    out = [server_poll(J, qid) for qid in ids]
+    served_s = time.perf_counter() - t0
+    for (t, name, p), st in zip(mix, out):
+        key = (name, json.dumps(p, sort_keys=True))
+        check(st["state"] == "done" and st["outcome"] == "success",
+              f"server: {t} {name} seed {p['seed']} succeeded ({st})")
+        check(st["result"] == want[key],
+              f"server: {t} {name} seed {p['seed']} == the direct call")
+    stats = json.loads(J.server_stats_json())
+    for t in SERVER_TENANTS:
+        n = sum(1 for tt, _n, _p in mix if tt == t)
+        row = stats["tenants"][t]
+        check(row["admitted"] == n and row["success"] == n
+              and row["rejected"] == 0 and row["running"] == 0
+              and row["queued"] == 0,
+              f"server: {t}'s stats count its {n} requests ({row})")
+    check({e["tenant"] for e in obs.JOURNAL.records("server_admit")}
+          == set(SERVER_TENANTS)
+          and {e["tenant"] for e in obs.JOURNAL.records("server_complete")}
+          == set(SERVER_TENANTS),
+          "server: server_admit and server_complete for every tenant")
+    spans = [r for r in obs.TRACER.records()
+             if r["name"].startswith("server_query:")]
+    check(len(spans) == len(mix) and len(
+        {r["attrs"]["server_task_id"] for r in spans}) == len(mix),
+        "server: one server_query span a request, distinct task ids")
+    text = obs.expose_text()
+    for family in ("srt_server_admitted_total", "srt_server_completed_total",
+                   "srt_server_queue_wait_ns", "srt_server_running"):
+        check(family in text, f"server: {family} in the exposition")
+    slo = obs.SLO.status()
+    check(sum(v["events"] for v in slo.values()) == len(mix),
+          f"server: one SLO event a completion ({slo})")
+    obs.disable_slo()     # (d)'s deaths must not fire a burn alert
+    prof = json.loads(J.server_profile_json(ids[0]))
+    check(prof["ok"] and prof["profile"]["query_id"] == ids[0],
+          "server: server_profile_json returns the retained profile")
+    q5 = [i for i, (_t, n, _p) in enumerate(mix) if n == "tpcds_q5"][0]
+    key5 = (mix[q5][1], json.dumps(mix[q5][2], sort_keys=True))
+    served = [st["dur_ns"] / 1e6 for st in out]
+    waits = [st["wait_ns"] / 1e6 for st in out]
+    return {"requests": len(mix), "served_s": served_s,
+            "request_ms": {"median": float(np.median(served)),
+                           "max": max(served)},
+            "queue_wait_ms": {"median": float(np.median(waits)),
+                              "max": max(waits)},
+            "q5_server_ms": served[q5], "q5_direct_ms": direct_ms[key5],
+            "q5_over_direct": served[q5] / direct_ms[key5],
+            "slo_events": sum(v["events"] for v in slo.values()),
+            "ids": ids, "want": want}
+
+
+def server_flagship(device, rows):
+    """(b): the flagship step served as a registered query from two pool
+    threads; the rows must equal the main thread's, one to-rows launch a
+    request."""
+    from spark_rapids_tpu_torch import server as srv
+    inputs = F.example_inputs(rows, device=device)
+    want = F.flagship_step(*inputs)[2]
+    sync(device)
+    kept = {}
+
+    def run(params, ctx):
+        ctx.check_cancel()
+        out = F.flagship_step(*inputs)[2]
+        sync(device)
+        kept[ctx.query_id] = out
+        return {"rows_bytes": int(out.numel())}
+
+    TM.register_query(SERVER_FLAGSHIP, run)
+    try:
+        s = srv.get_server()
+        before = RA.LAUNCHES["to_rows"]
+        ids = [s.submit(t, SERVER_FLAGSHIP, {}) for t in SERVER_TENANTS[:2]]
+        for qid in ids:
+            st = s.wait(qid, SERVER_WAIT_S)
+            check(st["state"] == "done",
+                  f"server: flagship {qid} succeeded ({st})")
+            check(torch.equal(kept[qid], want),
+                  f"server: flagship {qid}'s rows == the main thread's")
+        launched = RA.LAUNCHES["to_rows"] - before
+        if torch.device(device).type == "cuda":
+            check(launched == len(ids),
+                  f"server: one to-rows launch a request ({launched})")
+    finally:
+        TM.unregister_query(SERVER_FLAGSHIP)
+    return {"requests": len(ids), "to_rows_launches": launched}
+
+
+def gate_runner(gate, started):
+    def run(params, ctx):
+        started.append(ctx.query_id)
+        while not gate.wait(0.01):
+            ctx.check_cancel()
+        ctx.check_cancel()
+        return ["done"]
+    return run
+
+
+def server_backpressure(device, q9_rows):
+    """(c): typed refusals and the load-shedding requeue."""
+    from spark_rapids_tpu_torch import server as srv
+    gate, started = threading.Event(), []
+    TM.register_query(SERVER_GATE, gate_runner(gate, started))
+    s = srv.QueryServer(server_config(max_concurrency=1, max_queue=2))
+    s.start()
+    res = {}
+    try:
+        first = s.submit("tenant_a", SERVER_GATE)
+        check(wait_until(lambda: len(started) == 1),
+              "server: the gated query started")
+        s.set_tenant_quota("tenant_b", max_inflight=1)
+        s.submit("tenant_b", SERVER_GATE)
+        try:
+            s.submit("tenant_b", SERVER_GATE)
+            check(False, "server: tenant_b's second submit was refused")
+        except srv.ServerOverloaded as e:
+            check(e.reason == "tenant_inflight",
+                  f"server: refused as tenant_inflight ({e.reason})")
+        s.submit("tenant_c", SERVER_GATE)   # the queue is full now
+        try:
+            s.submit("tenant_d", SERVER_GATE)
+            check(False, "server: a submit past max_queue was refused")
+        except srv.ServerOverloaded as e:
+            check(e.reason == "queue_full" and e.retry_after_s > 0,
+                  f"server: refused as queue_full ({e.to_dict()})")
+        gate.set()
+        check(s.wait(first, SERVER_WAIT_S)["state"] == "done",
+              "server: the gated queries finish after the gate opens")
+        st = s.stats()["tenants"]
+        check(st["tenant_b"]["rejected"] == 1
+              and st["tenant_d"]["rejected"] == 1
+              and st["tenant_c"]["rejected"] == 0,
+              f"server: only the refused tenants count rejects ({st})")
+        res["rejects"] = sum(r["rejected"] for r in st.values())
+    finally:
+        gate.set()
+        s.stop()
+        TM.unregister_query(SERVER_GATE)
+
+    adaptor = rmm_spark.set_event_handler(1 << 60)
+    attempts = []
+
+    def oom_once(params, ctx):
+        attempts.append(ctx.query_id)
+        if len(attempts) == 1:
+            rmm_spark.force_retry_oom(rmm_spark.current_thread_id(), 1)
+        adaptor.allocate(SERVER_OOM_BYTES)   # the first attempt's OOMs
+        try:
+            return TM.run_catalog_query(
+                "tpcds_q9", {"rows": q9_rows, "device": device})
+        finally:
+            adaptor.deallocate(SERVER_OOM_BYTES)
+
+    TM.register_query(SERVER_OOM, oom_once)
+    s = srv.QueryServer(server_config(max_concurrency=1, max_requeues=1))
+    s.start()
+    try:
+        qid = s.submit("tenant_a", SERVER_OOM)
+        job = s._jobs[qid]
+        p0 = job.priority
+        st = s.wait(qid, SERVER_WAIT_S)
+        want = TM.run_catalog_query("tpcds_q9",
+                                    {"rows": q9_rows, "device": device})
+        check(st["state"] == "done" and st["demotions"] == 1
+              and st["result"] == want and len(attempts) == 2,
+              f"server: the OOMed query was requeued once and then "
+              f"succeeded ({st.get('state')}, {len(attempts)} attempts)")
+        check(job.priority < p0,
+              f"server: the requeue landed a lower task priority "
+              f"({job.priority} < {p0})")
+        check(s.stats()["tenants"]["tenant_a"]["requeued"] == 1,
+              "server: the requeue is counted")
+        check(adaptor.resource.used == 0, "server: nothing left reserved")
+        res["requeues"] = 1
+    finally:
+        s.stop()
+        TM.unregister_query(SERVER_OOM)
+        rmm_spark.clear_event_handler()
+    return res
+
+
+def incident_kinds(out_dir):
+    """The trigger kind of every finished bundle under `out_dir`."""
+    kinds = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("incident-"):
+            with open(os.path.join(out_dir, name, "trigger.json")) as f:
+                kinds.append(json.load(f)["kind"])
+    return kinds
+
+
+def wait_until(pred, timeout_s=60.0):
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        if pred():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def server_lifeguard(device, q5, q9_rows):
+    """(d): a deadline, a hung worker, a stall and a poison query."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch import server as srv
+    res = {}
+    # a running q5 past its deadline is cancelled cooperatively
+    s = srv.QueryServer(server_config(max_concurrency=1))
+    s.start()
+    try:
+        qid = s.submit("tenant_a", "tpcds_q5", dict(q5),
+                       deadline_s=SERVER_DEADLINE_S)
+        st = s.wait(qid, SERVER_WAIT_S)
+        check(st["state"] == "failed" and st["outcome"] == "deadline"
+              and st["error"]["reason"] == "deadline"
+              and st.get("cancel_reason") == "deadline",
+              f"server: q5 past its deadline cancelled ({st})")
+        acts = [e["action"] for e in obs.JOURNAL.records("server_watchdog")
+                if e["query_id"] == qid]
+        check(acts == ["deadline_cancel"],
+              f"server: the watchdog fired the deadline cancel ({acts})")
+        res["deadline_ms"] = st["dur_ns"] / 1e6
+    finally:
+        s.stop()
+
+    # a silent runner is declared hung and force-released; its neighbour
+    # waits past the stall bar behind it and finishes on the replacement
+    inc_dir = os.path.join(server_dir(), "incidents")
+    obs.enable_flight_recorder(out_dir=inc_dir, min_interval_s=0.0)
+    adaptor = rmm_spark.set_event_handler(1 << 60)
+    release, entered = threading.Event(), threading.Event()
+
+    def hang(params, ctx):
+        adaptor.allocate(4096)
+        entered.set()
+        release.wait(SERVER_WAIT_S)        # silent: no beat, no poll
+        return ["late"]
+
+    TM.register_query(SERVER_HANG, hang)
+    s = srv.QueryServer(server_config(
+        max_concurrency=1, hang_s=SERVER_HANG_S, stall_ms=SERVER_STALL_MS))
+    s.start()
+    try:
+        mem0 = allocated(device)
+        hung = s.submit("tenant_b", SERVER_HANG)
+        check(entered.wait(SERVER_WAIT_S), "server: the hung query started")
+        neighbour = s.submit("tenant_c", "tpcds_q9",
+                             {"rows": q9_rows, "device": device})
+        st = s.wait(hung, SERVER_WAIT_S)
+        check(st["state"] == "failed" and st["outcome"] == "hung"
+              and st["error"]["type"] == "QueryHung" and st.get("hung"),
+              f"server: the silent worker was declared hung ({st})")
+        nb = s.wait(neighbour, SERVER_WAIT_S)
+        check(nb["state"] == "done" and nb["result"]
+              == TM.run_catalog_query("tpcds_q9", {"rows": q9_rows,
+                                                   "device": device}),
+              f"server: the neighbour finished on the replacement ({nb})")
+        check(nb["wait_ns"] > SERVER_STALL_MS * 1e6,
+              "server: the neighbour waited past the stall bar")
+        rels = [e for e in obs.JOURNAL.records("server_watchdog")
+                if e["action"] == "hang_release"]
+        check(len(rels) == 1 and rels[0]["query_id"] == hung,
+              f"server: one hang_release ({rels})")
+        check(not any(t["pool_tasks"] for t in adaptor.thread_state_dump()),
+              "server: the hung task was force-released")
+        check(any("FORCE_RELEASE" in row for row in adaptor.get_log()),
+              "server: the force release is in the adaptor's log")
+        res["hang"] = {"silent_ms": rels[0]["silent_ms"],
+                       "memory_allocated": [mem0, allocated(device)]}
+        release.set()
+        check(wait_until(lambda: s.stats()["lifeguard"]["orphaned_workers"]
+                         == 0),
+              "server: the orphaned worker exits when it wakes")
+        kinds = sorted(incident_kinds(inc_dir))
+        check(kinds == ["admission_stall", "query_hang"],
+              f"server: query_hang and admission_stall bundles ({kinds})")
+        res["incidents"] = kinds
+        res["watchdog_actions"] = len(obs.JOURNAL.records("server_watchdog"))
+    finally:
+        release.set()
+        s.stop()
+        TM.unregister_query(SERVER_HANG)
+        rmm_spark.clear_event_handler()
+        obs.disable_flight_recorder()
+
+    # a poison query is quarantined; a probe after the cooldown readmits it
+    healthy = {"on": False}
+
+    def poison(params, ctx):
+        if not healthy["on"]:
+            raise RuntimeError("poison query")
+        return TM.run_catalog_query("tpcds_q9", {"rows": q9_rows,
+                                                 "device": device})
+
+    TM.register_query(SERVER_POISON, poison)
+    s = srv.QueryServer(server_config(
+        max_concurrency=1, quarantine_failures=SERVER_QUARANTINE,
+        quarantine_cooldown_s=SERVER_COOLDOWN_S))
+    s.start()
+    try:
+        for _ in range(SERVER_QUARANTINE):
+            st = s.wait(s.submit("tenant_d", SERVER_POISON), SERVER_WAIT_S)
+            check(st["outcome"] == "failed", f"server: poison failed ({st})")
+        try:
+            s.submit("tenant_d", SERVER_POISON)
+            check(False, "server: the quarantined query was refused")
+        except srv.ServerOverloaded as e:
+            check(e.reason == "quarantined" and e.retry_after_s > 0,
+                  f"server: refused as quarantined ({e.to_dict()})")
+        healthy["on"] = True
+        time.sleep(SERVER_COOLDOWN_S * 1.2)
+        st = s.wait(s.submit("tenant_d", SERVER_POISON), SERVER_WAIT_S)
+        check(st["outcome"] == "success", f"server: the probe passed ({st})")
+        check(s.stats()["lifeguard"]["quarantine"]["quarantined"] == {},
+              "server: the probe closed the circuit")
+        events = [e["event"]
+                  for e in obs.JOURNAL.records("server_quarantine")]
+        check(events == ["opened", "rejected", "probe", "closed"],
+              f"server: the breaker's transitions ({events})")
+        res["quarantine_events"] = events
+    finally:
+        s.stop()
+        TM.unregister_query(SERVER_POISON)
+    return res
+
+
+def server_socket_and_drain(device, mix, want, q9_rows):
+    """(e): the socket door and the drain, then a warm restart."""
+    import socket as socket_mod
+    from spark_rapids_tpu_torch import server as srv
+    from spark_rapids_tpu_torch.shim import jni_entry as J
+    res = {}
+    path = os.path.join(server_dir(), "server.sock")
+    check(not J.server_start(socket_path=path),
+          "server: the running server gained the socket door")
+    t, name, p = [r for r in mix if r[1] == "tpcds_q5"][0]
+    conn = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
+    conn.connect(path)
+    f = conn.makefile("rwb")
+
+    def rpc(req):
+        f.write(json.dumps(req).encode() + b"\n")
+        f.flush()
+        return json.loads(f.readline())
+
+    t0 = time.perf_counter()
+    sub = rpc({"op": "submit", "tenant": t, "query": name, "params": p})
+    st = rpc({"op": "poll", "query_id": sub.get("query_id"),
+              "timeout_s": SERVER_WAIT_S})
+    res["socket_round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+    check(sub["ok"] and st["ok"] and st["status"]["state"] == "done"
+          and st["status"]["result"]
+          == want[(name, json.dumps(p, sort_keys=True))],
+          "server: q5 over the socket == (a)'s rows")
+    conn.close()
+
+    # drain with a q5 and a gated query in flight: the gate holds the
+    # drain open while a new submit is refused, then both finish
+    gate, started = threading.Event(), []
+    TM.register_query(SERVER_GATE, gate_runner(gate, started))
+    served = srv.get_server()
+    try:
+        qids = []
+        for q, qp in ((name, p), (SERVER_GATE, {})):
+            resp = json.loads(J.server_submit(t, q, json.dumps(qp)))
+            check(resp["ok"], f"server: in-flight {q} admitted ({resp})")
+            qids.append(resp["query_id"])
+        check(wait_until(lambda: len(started) == 1),
+              "server: the gated query started")
+        box = {}
+        drainer = threading.Thread(target=lambda: box.setdefault(
+            "r", json.loads(J.server_drain(SERVER_WAIT_S, os.path.join(
+                server_dir(), "drain")))))
+        drainer.start()
+        check(wait_until(lambda: srv.get_server()._draining),
+              "server: the drain began")
+        late = json.loads(J.server_submit(t, "tpcds_q9", json.dumps(
+            {"rows": q9_rows, "device": device})))
+        check(not late["ok"] and late["error"]["reason"] == "draining",
+              f"server: a submit during the drain was refused ({late})")
+        gate.set()
+        drainer.join(SERVER_WAIT_S)
+    finally:
+        gate.set()
+        TM.unregister_query(SERVER_GATE)
+    rep = box["r"]
+    check(rep["state"] == "drained" and rep["in_flight"] >= 1
+          and rep["completed"] == rep["in_flight"] and rep["cancelled"] == 0
+          and rep["abandoned"] == 0,
+          f"server: the drain finished the in-flight work ({rep})")
+    st = served.poll(qids[0])
+    check(st["state"] == "done" and st["result"]
+          == want[(name, json.dumps(p, sort_keys=True))],
+          "server: the q5 submitted before the drain == (a)'s rows")
+    for fn in ("journal.jsonl", "spans.jsonl", "metrics.json"):
+        check(os.path.isfile(os.path.join(rep["flush"]["dir"], fn)),
+              f"server: the drain wrote {fn}")
+    check(srv.get_server() is None and not os.path.exists(path),
+          "server: the drain cleared the singleton and its door")
+    res["drain"] = {k: rep[k] for k in ("in_flight", "completed",
+                                        "cancelled", "abandoned",
+                                        "duration_s")}
+    res["drain"].update(journal_records=rep["flush"]["journal_records"],
+                        span_records=rep["flush"]["span_records"])
+    # a warm restart serves q9 again without compiling anything
+    graphs = dynamo_graphs()
+    with env(SPARK_RAPIDS_TPU_SERVER_STALL_MS="0"):
+        check(J.server_start(1, SERVER_QUEUE), "server: restarted")
+    q9 = [r for r in mix if r[1] == "tpcds_q9"][0]
+    resp = json.loads(J.server_submit(q9[0], q9[1], json.dumps(q9[2])))
+    st = server_poll(J, resp["query_id"])
+    check(st["state"] == "done" and st["result"]
+          == want[(q9[1], json.dumps(q9[2], sort_keys=True))],
+          "server: q9 after the restart == (a)'s rows")
+    check(dynamo_graphs() == graphs, "server: the restart compiled nothing")
+    J.server_stop()
+    return res
+
+
+def server_plan_verify(verify_calls):
+    """(f): every plan compiled so far verified exactly once; a malformed
+    plan refused before it compiles."""
+    from spark_rapids_tpu_torch.analysis import plan_verify as PV
+    from spark_rapids_tpu_torch.plan import compiler as PC
+    from spark_rapids_tpu_torch.plan import ir
+    if verify_calls is not None:
+        check(verify_calls and max(verify_calls.values()) == 1
+              and len(PC._VERIFIED) == len(verify_calls),
+              f"server: each plan digest verified once "
+              f"({len(verify_calls)} digests, {len(PC._VERIFIED)} memo)")
+    check(set(PC._STAGE_MEMO) <= set(PC._VERIFIED),
+          "server: every compiled stage was verified")
+    bad = ir.StagePlan(
+        "chip_smoke_bad_where",
+        inputs=(ir.ScanBind("f", (ir.ColSpec("x"),)),),
+        nodes=(ir.Project("y", ir.Where(ir.Col("x"), ir.Col("x"),
+                                        ir.Lit(0))),),
+        outputs=("y",))
+    try:
+        PV.verify_stage(bad, input_dtypes={"f": ("int64",)})
+        check(False, "server: a Where over int64 was refused")
+    except PV.PlanVerifyError as e:
+        check("expected bool" in str(e), f"server: {e}")
+    unbound = ir.StagePlan(
+        "chip_smoke_unbound",
+        inputs=(ir.ScanBind("f", (ir.ColSpec("x"),)),),
+        nodes=(ir.Project("y", ir.Col("ghost")),), outputs=("y",))
+    graphs, memo = dynamo_graphs(), len(PC._STAGE_MEMO)
+    try:
+        PC.compile_stage(unbound)
+        check(False, "server: an unbound plan was refused")
+    except PV.PlanVerifyError as e:
+        check("ghost" in str(e), f"server: {e}")
+    check(dynamo_graphs() == graphs and len(PC._STAGE_MEMO) == memo,
+          "server: the refused plan compiled nothing")
+    return {"verified_digests": len(PC._VERIFIED)}
+
+
+def count_plan_verifications():
+    """Counts, per digest, the compiler's plan verifications (calls of
+    plan/compiler._verify_once that miss its memo) from here on."""
+    from spark_rapids_tpu_torch.plan import compiler as PC
+    calls = {}
+    real = PC._verify_once
+
+    def counted(plan_or_pipeline):
+        if plan_or_pipeline.digest not in PC._VERIFIED:
+            d = plan_or_pipeline.digest
+            calls[d] = calls.get(d, 0) + 1
+        return real(plan_or_pipeline)
+
+    PC._verify_once = counted
+    return calls
+
+
+def server_phase(device="cuda", params=None, flagship_rows=None,
+                 q9_rows=1 << 20, deadline_q5=None, verify_calls=None):
+    """Step 20 (see the module docstring)."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch import server as srv
+    clock = time.perf_counter()
+    shutil.rmtree(server_dir(), ignore_errors=True)
+    os.makedirs(server_dir())
+    saved = (obs.is_enabled(), obs.is_tracing_enabled())
+    mix = server_mix(device, params)
+    graphs = dynamo_graphs()
+    res = {}
+    try:
+        a = server_interleaved(device, mix)
+        want = a.pop("want")
+        a.pop("ids")
+        res["interleaved"] = a
+        res["flagship"] = server_flagship(device,
+                                          flagship_rows or FLAGSHIP_ROWS)
+        res["backpressure"] = server_backpressure(device, q9_rows)
+        q5 = deadline_q5 or [p for _t, n, p in mix if n == "tpcds_q5"][0]
+        res["lifeguard"] = server_lifeguard(device, dict(q5, device=device),
+                                            q9_rows)
+        res["socket_drain"] = server_socket_and_drain(device, mix, want,
+                                                      q9_rows)
+        res["plan_verify"] = server_plan_verify(verify_calls)
+        res["dynamo_graphs_added"] = dynamo_graphs() - graphs
+        check(res["dynamo_graphs_added"] == 0,
+              "server: the phase compiled no graph")
+    finally:
+        srv.stop_server()
+        for off in (obs.disable_profiling, obs.disable_slo,
+                    obs.disable_flight_recorder):
+            off()
+        obs.reset()
+        (obs.enable if saved[0] else obs.disable)()
+        (obs.enable_tracing if saved[1] else obs.disable_tracing)()
+        shutil.rmtree(server_dir(), ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - clock
+    return res
+
+
+def run_server(device="cuda", **kw):
+    """Step 20 on the card (see the module docstring)."""
+    RA.reset_launches()
+    res = server_phase(device, **kw)
+    a, lg = res["interleaved"], res["lifeguard"]
+    line = {
+        "request_ms": a["request_ms"], "queue_wait_ms": a["queue_wait_ms"],
+        "q5_server_ms": a["q5_server_ms"], "q5_direct_ms": a["q5_direct_ms"],
+        "q5_over_direct": a["q5_over_direct"],
+        "rejects": res["backpressure"]["rejects"],
+        "requeues": res["backpressure"]["requeues"],
+        "watchdog_actions": lg["watchdog_actions"],
+        "quarantine_events": len(lg["quarantine_events"]),
+        "drain": res["socket_drain"]["drain"],
+        "socket_round_trip_ms": res["socket_drain"]["socket_round_trip_ms"],
+        "phase_s": res["phase_s"], "detail": res}
+    print(json.dumps({"server": line}, default=str), flush=True)
+    return read_launches("server"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -5879,6 +6572,7 @@ def main() -> int:
     os.environ.setdefault("SPARK_RAPIDS_TPU_STAGE_FUSION", "1")
     phase_s = {}
     clock = [time.perf_counter()]
+    verify_calls = count_plan_verifications()
 
     def phase(name):
         now = time.perf_counter()
@@ -5981,6 +6675,8 @@ def main() -> int:
     by_path["observability_plane"], _ = run_observability_plane(
         dist_profiles_res=dist["a"]["profiles"])
     phase("observability_plane")
+    by_path["server"], _ = run_server(verify_calls=verify_calls)
+    phase("server")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

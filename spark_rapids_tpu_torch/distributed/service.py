@@ -145,7 +145,7 @@ class ShuffleService:
         self._op_t0: Dict[int, int] = {}
         self._op_t0_lock = make_lock("dist.service.op_t0")
         self.events: List[dict] = []
-        self._events_lock = threading.Lock()
+        self._events_lock = make_lock("dist.service.events")
         # fallback trace context for control/replay daemon threads
         # (they have no ambient span: without this every replayed
         # shuffle_send would root a fresh orphan trace and break the
@@ -261,6 +261,7 @@ class ShuffleService:
             holder = _obs.TRACER.activate(ctx)
             try:
                 sent[dst] = self.links[dst].send(op_id, payloads[dst])
+            # srt-lint: disable=SRT007 captured into errs and re-raised by the collector after every worker joins
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errs[dst] = e
             finally:

@@ -134,7 +134,7 @@ def _parse_addr(addr: str):
 
 # ------------------------------------------------------------ counters
 
-_STATS_LOCK = threading.Lock()
+_STATS_LOCK = make_lock("dist.stats")
 # frames_sent / bytes_sent: DATA/EDATA/CTRL frames this process sent
 # and ACKed (payload bytes, frames' headers not counted); frames_recv /
 # bytes_recv: frames delivered here; naks_sent: corrupt payloads this

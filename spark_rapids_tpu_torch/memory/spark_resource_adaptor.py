@@ -351,7 +351,7 @@ class SparkResourceAdaptor:
         return woke_any
 
     def force_release_task(self, task_id: int) -> dict:
-        """Watchdog entry (the query lifeguard, ROADMAP A14 step 5(c)):
+        """Watchdog entry (the query lifeguard, robustness/lifeguard.py):
         forcibly unwind a HUNG task's thread associations so its held
         accounting and blocked neighbors unblock without waiting for the wedged
         thread to cooperate.  Semantically ``task_done`` — blocked

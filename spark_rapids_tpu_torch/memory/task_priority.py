@@ -6,7 +6,7 @@ order task work; the OOM deadlock breaker derives its own priority from
 (task, thread) ids independently (spark_resource_adaptor.py).
 
 Re-registration semantics (load-bearing for the query server's
-load-shedding path, ROADMAP A14 step 5(c)): priorities are handed out from
+load-shedding path, server/server.py): priorities are handed out from
 a strictly DECREASING counter and an attempt's value is forgotten at
 ``task_done`` — so an attempt id that is re-registered after its
 ``task_done`` receives a *newer, strictly lower* priority than it held

@@ -28,6 +28,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from spark_rapids_tpu_torch.robustness import lifeguard as _lifeguard
+
 
 class QueryCancelled(Exception):
     """Raised by a runner that observed its cancel flag."""
@@ -64,9 +66,11 @@ class QueryContext:
         return (self.deadline_ns - time.monotonic_ns()) / 1e9
 
     def check_cancel(self) -> None:
-        # ROADMAP A14 step 5(c): each poll also beats the lifeguard's
-        # heartbeat
-        # an explicit cancel wins over the deadline
+        _lifeguard.beat(f"ctx:{self.query_id or 'query'}")
+        # an explicit cancel wins over the deadline: the server keys
+        # the outcome off its cancel_reason, so a user-cancelled job
+        # whose deadline ALSO lapsed reports "cancelled", not a bogus
+        # deadline failure (which would count as a quarantine death)
         if self.cancelled():
             raise QueryCancelled(self.query_id or "query")
         if self.deadline_ns is not None \

@@ -25,8 +25,9 @@ Beside them, each behind its own switch: the query profiler
 (``PROFILER``) with time attribution (``ATTRIBUTION``), the flight
 recorder (``FLIGHT``, ``trigger_incident``), the timeseries sampler
 (``TIMESERIES``), the SLO monitor (``SLO``) and the data-statistics
-plane (``STATS``); ``health()`` rolls them up.  ROADMAP A14 step 5(c):
-the query-server hooks.
+plane (``STATS``); ``health()`` rolls them up.  The query server
+(``server/``) reports through the ``record_server_*`` hooks, and its
+completions feed the SLO monitor.
 """
 
 from __future__ import annotations
@@ -1460,8 +1461,103 @@ def record_io_file(source: str, *, columns: int, pages: int, rows: int,
 # package, never the reverse)
 
 
-# ROADMAP A14 step 5(c): the query-server hooks (record_server_* and
-# set_server_tenant_gauges) sit here.
+def record_server_admit(tenant: str, query: str, query_id: str,
+                        queue_depth: int) -> None:
+    if not _SWITCH.enabled:
+        return
+    SERVER_ADMITTED.inc(labels=(tenant,))
+    JOURNAL.emit("server_admit", tenant=tenant, query=query,
+                 query_id=query_id, queue_depth=queue_depth)
+
+
+def record_server_reject(tenant: str, query: str, reason: str,
+                         retry_after_s: float = 0.0) -> None:
+    if not _SWITCH.enabled:
+        return
+    SERVER_REJECTED.inc(labels=(tenant, reason))
+    JOURNAL.emit("server_reject", tenant=tenant, query=query,
+                 reason=reason, retry_after_s=retry_after_s)
+
+
+def record_server_dequeue(tenant: str, query_id: str,
+                          wait_ns: int) -> None:
+    if not _SWITCH.enabled:
+        return
+    SERVER_QUEUE_WAIT.observe(wait_ns, labels=(tenant,))
+    JOURNAL.emit("server_dequeue", tenant=tenant, query_id=query_id,
+                 wait_ns=wait_ns)
+
+
+def record_server_requeue(tenant: str, query_id: str, reason: str,
+                          demotions: int) -> None:
+    if not _SWITCH.enabled:
+        return
+    SERVER_REQUEUED.inc(labels=(tenant, reason))
+    JOURNAL.emit("server_requeue", tenant=tenant, query_id=query_id,
+                 reason=reason, demotions=demotions)
+
+
+def record_server_complete(tenant: str, query: str, query_id: str,
+                           outcome: str, dur_ns: int,
+                           wait_ns: int) -> None:
+    # SLO feed first (independent switch): one SLI event per
+    # completion, latency = what the caller experienced end to end
+    if SLO.enabled:
+        SLO.observe(tenant, outcome, int(wait_ns) + int(dur_ns))
+    if not _SWITCH.enabled:
+        return
+    SERVER_COMPLETED.inc(labels=(tenant, outcome))
+    JOURNAL.emit("server_complete", tenant=tenant, query=query,
+                 query_id=query_id, outcome=outcome, dur_ns=dur_ns,
+                 wait_ns=wait_ns)
+
+
+def record_server_watchdog(action: str, tenant: str, query_id: str,
+                           **extra) -> None:
+    """Lifeguard watchdog intervention: ``deadline_cancel`` (the
+    cooperative flag was fired), ``deadline_expired_queued`` (a queued
+    job's deadline passed before dispatch), ``hang_release`` (a silent
+    worker's task was force-released and the worker orphaned)."""
+    if not _SWITCH.enabled:
+        return
+    SERVER_WATCHDOG.inc(labels=(action,))
+    JOURNAL.emit("server_watchdog", action=action, tenant=tenant,
+                 query_id=query_id, **extra)
+
+
+def record_server_quarantine(event: str, tenant: str, query: str,
+                             signature: str, **extra) -> None:
+    """Poison-query circuit-breaker transition: event in {'opened',
+    'reopened', 'probe', 'closed', 'rejected'}."""
+    if not _SWITCH.enabled:
+        return
+    SERVER_QUARANTINE.inc(labels=(event,))
+    JOURNAL.emit("server_quarantine", event=event, tenant=tenant,
+                 query=query, signature=signature, **extra)
+
+
+def record_server_drain(phase: str, **extra) -> None:
+    """Graceful-drain lifecycle marker: phase in {'begin', 'end'}."""
+    if not _SWITCH.enabled:
+        return
+    SERVER_DRAIN.inc(labels=(phase,))
+    JOURNAL.emit("server_drain", phase=phase, **extra)
+
+
+def set_server_tenant_gauges(queued: dict, running: dict,
+                             deficit: dict, device_bytes: dict) -> None:
+    """Per-tenant gauge refresh (the server calls this after every
+    state transition with its current per-tenant snapshot)."""
+    if not _SWITCH.enabled:
+        return
+    for tenant, v in queued.items():
+        SERVER_QUEUED.set(v, labels=(tenant,))
+    for tenant, v in running.items():
+        SERVER_RUNNING.set(v, labels=(tenant,))
+    for tenant, v in deficit.items():
+        SERVER_FAIR_DEFICIT.set(round(float(v), 6), labels=(tenant,))
+    for tenant, v in device_bytes.items():
+        SERVER_TENANT_BYTES.set(int(v), labels=(tenant,))
 
 
 # ------------------------------------------------------------------- dumping

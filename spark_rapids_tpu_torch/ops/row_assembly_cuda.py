@@ -33,7 +33,8 @@ switch and no fallback from the card to the plain version.
     compacted to the row offsets.
 
 The kernels are bound by device-memory bytes (see the source for the
-bounds at the main-path shapes).  `LAUNCHES` counts kernel launches only.
+bounds at the main-path shapes).  `LAUNCHES` counts kernel launches only
+(under a lock: the query server's pool threads launch concurrently).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.analysis.lockdep import make_lock
 from spark_rapids_tpu_torch.columns.dtypes import DType, Kind
 from spark_rapids_tpu_torch.ops.row_conversion import (
     JCUDF_ROW_ALIGNMENT, _col_byte_size, _round_up, field_word_slots)
@@ -53,6 +55,12 @@ from spark_rapids_tpu_torch.ops.row_conversion import \
 from spark_rapids_tpu_torch.utils import cuda_build
 
 LAUNCHES: Dict[str, int] = {"to_rows": 0, "from_rows": 0, "to_rows_var": 0}
+_LAUNCHES_LOCK = make_lock("row_assembly.launches")
+
+
+def _launched(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 _SIGNATURES = {
     # (cols, plan, rows, ncols, nruns, nnarrow, npieces, ndyn, ncst,
@@ -99,8 +107,9 @@ NARROW_STAGED = 4
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def tile_log2(row_size: int) -> int:
@@ -411,7 +420,7 @@ def launch_to_rows(desc_t: torch.Tensor, key, rows: int, row_size: int,
             torch.cuda.current_stream(out.device).cuda_stream)
     if err:
         raise _launch_error("to-rows", err)
-    LAUNCHES["to_rows"] += 1
+    _launched("to_rows")
 
 
 def assemble_rows_by_plan(cols, starts: Sequence[int], validity_offset: int,
@@ -575,7 +584,7 @@ def launch_to_rows_var(desc_t: torch.Tensor, str_idx: torch.Tensor,
             torch.cuda.current_stream(out.device).cuda_stream)
     if err:
         raise _launch_error("variable-width to-rows", err)
-    LAUNCHES["to_rows_var"] += 1
+    _launched("to_rows_var")
 
 
 # ----------------------------------------------------------- from-rows
@@ -700,4 +709,4 @@ def launch_from_rows(row_bytes: torch.Tensor, rows: int, row_size: int,
             torch.cuda.current_stream(row_bytes.device).cuda_stream)
     if err:
         raise _launch_error("from-rows", err)
-    LAUNCHES["from_rows"] += 1
+    _launched("from_rows")

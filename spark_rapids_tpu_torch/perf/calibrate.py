@@ -136,6 +136,7 @@ def cached_verdict(key: str) -> Optional[str]:
         return None
     v = rec.get("verdict")
     try:
+        # srt-lint: disable=SRT005 wall-clock TTL of the on-disk verdict cache; expiry never folds into a digest or cache key
         fresh = time.time() - float(rec.get("t", 0)) < _ttl()
     except (TypeError, ValueError):
         fresh = False
@@ -146,6 +147,7 @@ def store_verdict(key: str, verdict: str) -> None:
     with _LOCK:
         path = cache_path()
         d = _load(path)
+        # srt-lint: disable=SRT005 wall-clock stamp read back only by the TTL check above; never part of a digest
         d[key] = {"verdict": verdict, "t": time.time()}
         _store(path, d)
 

@@ -1038,6 +1038,34 @@ def _first_device(inputs, plan) -> torch.device:
     return torch.device("cpu")
 
 
+# plan-verify gate: every distinct plan digest is verified ONCE before
+# anything compiles, so a malformed plan fails as a typed
+# PlanVerifyError naming the offending node instead of a dtype error
+# from inside a compiled graph.  Memoized by digest so the hot path
+# pays a dict hit; SPARK_RAPIDS_TPU_PLAN_VERIFY=0 is the escape hatch.
+# (The JAX package's third caller, fused_pipeline_fn, comes with
+# ROADMAP A10(b).)
+_VERIFIED: Dict[str, bool] = {}
+_VERIFIED_CAP = 4096
+
+
+def _verify_once(plan_or_pipeline) -> None:
+    if os.environ.get("SPARK_RAPIDS_TPU_PLAN_VERIFY", "") == "0":
+        return
+    digest = plan_or_pipeline.digest
+    if digest in _VERIFIED:
+        return
+    from spark_rapids_tpu_torch.analysis import plan_verify
+    if isinstance(plan_or_pipeline, ir.Pipeline):
+        plan_verify.verify_pipeline(plan_or_pipeline)
+    else:
+        plan_verify.verify_stage(plan_or_pipeline)
+    if len(_VERIFIED) >= _VERIFIED_CAP:
+        for k in list(_VERIFIED)[:_VERIFIED_CAP // 2]:
+            del _VERIFIED[k]
+    _VERIFIED[digest] = True
+
+
 # one CompiledStage per plan digest, process-wide: catalog entry points
 # build plans per call, and the stage's compiled programs must survive
 # across calls.  Bounded: oldest half dropped past the cap (plan digests
@@ -1047,9 +1075,9 @@ _STAGE_MEMO_CAP = 128
 
 
 def compile_stage(plan: ir.StagePlan) -> CompiledStage:
-    # ROADMAP A8: the JAX package verifies each new plan once here
     cs = _STAGE_MEMO.get(plan.digest)
     if cs is None:
+        _verify_once(plan)
         cs = CompiledStage(plan)
         if len(_STAGE_MEMO) >= _STAGE_MEMO_CAP:
             for k in list(_STAGE_MEMO)[:_STAGE_MEMO_CAP // 2]:
@@ -1067,6 +1095,7 @@ class CompiledPipeline:
     direct handoff)."""
 
     def __init__(self, pipeline: ir.Pipeline):
+        _verify_once(pipeline)      # seam checks on top of per-stage
         self.pipeline = pipeline
         self.stages = [compile_stage(s) for s in pipeline.stages]
 

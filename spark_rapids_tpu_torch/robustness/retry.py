@@ -34,9 +34,9 @@ traced work under it).  A zero-failure episode records nothing.
 An exhausted budget freezes a ``retry_exhausted`` incident bundle
 when the flight recorder is armed.
 
-Not ported, each marked below: the fault injector's rules
-(``utils/fault_injection.maybe_inject``, ROADMAP A16) and the
-lifeguard heartbeat at each attempt start (ROADMAP A14 step 5(c)).
+Every attempt start beats the lifeguard's heartbeat
+(``robustness/lifeguard.beat``).  Not ported, marked below: the fault
+injector's rules (``utils/fault_injection.maybe_inject``, ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.memory import exceptions as exc
+from spark_rapids_tpu_torch.robustness import lifeguard as _lifeguard
 
 # what the drivers recover from (reference catch set: RetryOOM,
 # SplitAndRetryOOM, CudfException — GpuOOM/OffHeapOOM stay terminal)
@@ -238,8 +239,10 @@ class _Episode:
         as this attempt's failure."""
         self.attempts += 1
         self.attempt_t0 = time.monotonic_ns()
-        # ROADMAP A14 step 5(c): the lifeguard heartbeat (lifeguard.beat)
-        # here
+        # sign of life for the hung-worker watchdog: every attempt
+        # start counts, so a query grinding through a long retry
+        # episode is "slow", never "hung"
+        _lifeguard.beat(f"retry:{self.name}")
         adaptor = _installed_adaptor()
         if adaptor is not None:
             block = getattr(adaptor, "block_thread_until_ready", None)

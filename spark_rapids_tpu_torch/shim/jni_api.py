@@ -329,8 +329,25 @@ def profile_last_json() -> str:
         if prof is not None else ""
 
 
-# ROADMAP A14 step 5(c): server_profile_json (the server-retained
-# profile of one query id) comes with the query server.
+def server_profile_json(query_id: str) -> str:
+    """The server-retained profile for one query id as JSON —
+    ``{"ok": true, "profile": {...}}`` or a typed miss (never
+    profiled / evicted by the tenant's last-K window)."""
+    import json
+
+    from spark_rapids_tpu_torch import server as srv
+    s = srv.get_server()
+    if s is None:
+        raise RuntimeError("query server is not running")
+    prof = s.profile(str(query_id))
+    if prof is None:
+        return json.dumps({"ok": False,
+                           "error": {"type": "UnknownProfile",
+                                     "message": f"no retained "
+                                                f"profile for "
+                                                f"{query_id!r}"}})
+    return json.dumps({"ok": True, "profile": prof},
+                      sort_keys=True, default=str)
 
 
 # ------------------------------------------------------ flight recorder
@@ -578,3 +595,126 @@ def stats_store_clear() -> None:
     """Drop the persistent StatsStore (process map and file layer)."""
     from spark_rapids_tpu_torch import observability as obs
     obs.STATS.store.clear()
+
+
+# --------------------------------------------------------- query server
+# (the resident multi-tenant front door, server/: the JVM starts the
+# pool once per executor, then every Spark task thread submits through
+# these flat entries; backpressure crosses as a JSON error payload so
+# the binding needs no exception-class plumbing)
+
+
+def server_start(max_concurrency: int = 0, max_queue: int = 0,
+                 socket_path: str = "") -> bool:
+    """Start the process-global query server (idempotent; returns
+    True when this call started it).  Zero values take the
+    SPARK_RAPIDS_TPU_SERVER_* env defaults."""
+    from spark_rapids_tpu_torch import server as srv
+    cfg = srv.ServerConfig.from_env()
+    if max_concurrency > 0:
+        cfg.max_concurrency = int(max_concurrency)
+    if max_queue > 0:
+        cfg.max_queue = int(max_queue)
+    # created-flag decided under the singleton lock: two racing JVM
+    # threads cannot both be told they started the server
+    _server, created = srv.ensure_server(
+        cfg, socket_path=socket_path or None)
+    return created
+
+
+def server_stop() -> None:
+    from spark_rapids_tpu_torch import server as srv
+    srv.stop_server()
+
+
+def server_set_tenant_quota(tenant: str, max_inflight: int = -1,
+                            max_device_bytes: int = -1,
+                            weight: float = -1.0) -> None:
+    from spark_rapids_tpu_torch import server as srv
+    s = srv.get_server()
+    if s is None:
+        raise RuntimeError("query server is not running")
+    s.set_tenant_quota(str(tenant), max_inflight=int(max_inflight),
+                       max_device_bytes=int(max_device_bytes),
+                       weight=float(weight))
+
+
+def server_submit(tenant: str, query: str,
+                  params_json: str = "",
+                  deadline_s: float = -1.0) -> str:
+    """Submit; returns JSON — {"ok": true, "query_id": ...} or the
+    typed backpressure payload {"ok": false, "error": {...,
+    "reason": "queue_full"|"quarantined"|"draining"|...}}.
+    ``deadline_s > 0`` bounds the query's whole lifetime (the
+    lifeguard cancels and escalates past it); <= 0 takes the
+    server-wide default."""
+    import json
+
+    from spark_rapids_tpu_torch import server as srv
+    from spark_rapids_tpu_torch.models import UnknownQueryError
+    s = srv.get_server()
+    if s is None:
+        raise RuntimeError("query server is not running")
+    params = json.loads(params_json) if params_json else {}
+    try:
+        qid = s.submit(str(tenant), str(query), params,
+                       deadline_s=float(deadline_s)
+                       if deadline_s > 0 else None)
+        return json.dumps({"ok": True, "query_id": qid})
+    except srv.ServerOverloaded as e:
+        return json.dumps({"ok": False, "error": e.to_dict()})
+    except UnknownQueryError as e:
+        return json.dumps({"ok": False,
+                           "error": {"type": "UnknownQuery",
+                                     "message": str(e)}})
+
+
+def server_poll(query_id: str, timeout_s: float = -1.0) -> str:
+    """Job status as JSON (state queued|running|done|failed|cancelled
+    |unknown, result when done, typed error when failed)."""
+    import json
+
+    from spark_rapids_tpu_torch import server as srv
+    s = srv.get_server()
+    if s is None:
+        raise RuntimeError("query server is not running")
+    return json.dumps(s.poll(
+        str(query_id),
+        timeout_s=float(timeout_s) if timeout_s >= 0 else None))
+
+
+def server_cancel(query_id: str) -> bool:
+    from spark_rapids_tpu_torch import server as srv
+    s = srv.get_server()
+    if s is None:
+        return False
+    return s.cancel(str(query_id))
+
+
+def server_stats_json() -> str:
+    """Per-tenant accounting + scheduler fair-share evidence + the
+    task-priority registry snapshot, as JSON."""
+    import json
+
+    from spark_rapids_tpu_torch import server as srv
+    s = srv.get_server()
+    if s is None:
+        return json.dumps({"started": False})
+    return json.dumps(s.stats(), sort_keys=True)
+
+
+def server_drain(deadline_s: float = -1.0,
+                 flush_dir: str = "") -> str:
+    """Gracefully drain the process-global server: refuse
+    new submits typed (``draining``), finish in-flight work under the
+    drain deadline, flush journal/spans/metrics via dumpio, stop the
+    pool, and clear the singleton — a later ``server_start`` serves
+    again with the compiled stages warm.  Returns the drain report as
+    JSON (``{"state": "not_running"}`` when no server exists)."""
+    import json
+
+    from spark_rapids_tpu_torch import server as srv
+    report = srv.drain_server(
+        deadline_s=float(deadline_s) if deadline_s > 0 else None,
+        flush_dir=str(flush_dir) or None)
+    return json.dumps(report, sort_keys=True, default=str)

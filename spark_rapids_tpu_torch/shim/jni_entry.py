@@ -16,8 +16,8 @@ device of the columns its handles name.
 The observability entries (``metrics_*``, ``tracing_*``, ``profile_*``,
 ``flight_recorder_*``, ``incident_*``, ``health_json``,
 ``timeseries_*``, ``slo_*``, ``attribution_*``, ``jit_cache_*``,
-``result_cache_*``, ``stats_*``) and device telemetry (``telemetry_*``)
-are here; the query-server entries come with ROADMAP A14 step 5(c).
+``result_cache_*``, ``stats_*``), device telemetry (``telemetry_*``)
+and the query server's entries (``server_*``) are here.
 ROADMAP step 6 (A16's rest) brings the remainder of the JAX module to
 this one: initialize/shutdown (which configured JAX there), the bulk
 string ingest and readback, the kudo write memo that `free` purges and
@@ -53,9 +53,10 @@ from spark_rapids_tpu_torch.shim import jni_api
 from spark_rapids_tpu_torch.shim.errors import ShimArgumentError
 from spark_rapids_tpu_torch.shim.handles import REGISTRY
 
-# ROADMAP step 6: initialize() and shutdown() (the latter also stops the
-# query server, clears the kudo memo and the host tables and shuts the
-# profiler down) go here.
+# ROADMAP step 6: initialize() and shutdown() go here.  shutdown() stops
+# the query server first (server.stop_server, only when the server
+# package is already loaded: its pool threads hold handles), then
+# clears the kudo memo and the host tables and shuts the profiler down.
 
 
 def live_handles() -> int:
@@ -365,8 +366,9 @@ def profile_last_json() -> str:
     return jni_api.profile_last_json()
 
 
-# ROADMAP A14 step 5(c): server_profile_json comes with the query
-# server.
+def server_profile_json(query_id: str) -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_profile_json(str(query_id))
 
 
 def flight_recorder_set_enabled(enabled: bool) -> bool:
@@ -543,5 +545,58 @@ def telemetry_device_name(index: int, device=None) -> str:
 
 
 # ROADMAP step 6: device_attr_is_integrated, then the profiler, kudo
-# write/merge (with its memo), host-table spill and query-server
-# entries go here.
+# write/merge (with its memo) and host-table spill entries go here,
+# between the telemetry entries and the query server's.
+
+
+# --------------------------------------------------------- query server
+# (primitive-only twins of jni_api's server entries)
+
+
+def server_start(max_concurrency: int = 0, max_queue: int = 0,
+                 socket_path: str = "") -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_start(int(max_concurrency), int(max_queue),
+                                str(socket_path))
+
+
+def server_stop() -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.server_stop()
+
+
+def server_set_tenant_quota(tenant: str, max_inflight: int = -1,
+                            max_device_bytes: int = -1,
+                            weight: float = -1.0) -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.server_set_tenant_quota(str(tenant), int(max_inflight),
+                                    int(max_device_bytes),
+                                    float(weight))
+
+
+def server_submit(tenant: str, query: str,
+                  params_json: str = "",
+                  deadline_s: float = -1.0) -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_submit(str(tenant), str(query),
+                                 str(params_json), float(deadline_s))
+
+
+def server_poll(query_id: str, timeout_s: float = -1.0) -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_poll(str(query_id), float(timeout_s))
+
+
+def server_cancel(query_id: str) -> bool:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_cancel(str(query_id))
+
+
+def server_stats_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_stats_json()
+
+
+def server_drain(deadline_s: float = -1.0, flush_dir: str = "") -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.server_drain(float(deadline_s), str(flush_dir))

@@ -6,7 +6,9 @@ compiled by `nvcc` for sm_90a into a shared library under
 library's file name carries a hash of the source and the flags, so an
 edited source builds anew and an unchanged one is reused.  `-Xptxas -v`
 output (registers, shared memory, spills) is kept beside the library in a
-`.log` file.  A failed build raises with the compiler's output.
+`.log` file.  A failed build raises with the compiler's output.  Builds
+and loads run under one lock, so two threads that meet a kernel for the
+first time at once (the query server's pool threads) build it once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from spark_rapids_tpu_torch.analysis.lockdep import make_lock
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -28,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 Signature = Tuple[object, Sequence[object]]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = make_lock("cuda_build.load")
 
 
 def nvcc_path() -> str:
@@ -84,10 +89,14 @@ def load(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu, with `restype` and `argtypes`
     set for each function in `signatures`."""
     lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = list(argtypes)
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = list(argtypes)
+            _LOADED[name] = lib
     return lib

@@ -41,7 +41,12 @@ observability phase at a small size; and the rest of observability and
 the caches: the stage cache's hit on the card giving the first run's
 bytes, ``data_digest`` of a card tensor equal to its CPU copy's,
 ``pad_axis0`` keeping a tensor on its device, and chip_smoke.py's
-observability_plane phase at a small size.
+observability_plane phase at a small size; and the query server: q9 on
+the card served from pool threads against the main thread's rows, the
+flagship step registered as a query and launching the fixed-width
+to-rows kernel from two pool threads at once, a hung worker's task
+force-released so a card query queued behind it finishes, and
+chip_smoke.py's server phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1271,3 +1276,114 @@ def test_observability_plane_phase_on_card_small(cuda, tmp_path,
     assert res["stage_cache"]["incremental_folds"] == 2
     assert res["incidents"]["kinds"] == ["kudo_corrupt",
                                          "retry_exhausted"]
+
+
+def card_server(**kw):
+    from spark_rapids_tpu_torch import server as srv
+    return srv.QueryServer(srv.ServerConfig(**dict(
+        dict(max_concurrency=2, max_queue=16, stall_ms=0,
+             quarantine_failures=0), **kw))).start()
+
+
+@pytest.mark.gpu
+def test_server_runs_q9_on_card_from_pool_threads(cuda):
+    from spark_rapids_tpu_torch import models as TM
+    reqs = [{"rows": 1 << 16, "seed": s, "device": "cuda"}
+            for s in range(4)]
+    want = [TM.run_catalog_query("tpcds_q9", dict(p)) for p in reqs]
+    s = card_server()
+    try:
+        ids = [s.submit(f"t{i % 2}", "tpcds_q9", dict(p))
+               for i, p in enumerate(reqs)]
+        got = [s.wait(qid, 120) for qid in ids]
+    finally:
+        s.stop()
+    assert [g["state"] for g in got] == ["done"] * len(reqs)
+    assert [g["result"] for g in got] == want
+    assert want == [TM.run_catalog_query(
+        "tpcds_q9", dict(p, device="cpu")) for p in reqs]
+
+
+@pytest.mark.gpu
+def test_flagship_query_launches_to_rows_from_two_pool_threads(cuda):
+    import threading
+
+    from spark_rapids_tpu_torch import models as TM
+    from spark_rapids_tpu_torch.models import flagship as F
+    from spark_rapids_tpu_torch.ops import row_assembly_cuda as RA
+    inputs = F.example_inputs(1 << 18, device="cuda")
+    want = F.flagship_step(*inputs)[2]
+    barrier = threading.Barrier(2)
+    kept = {}
+
+    def run(params, ctx):
+        barrier.wait(60)          # both pool threads launch at once
+        kept[ctx.query_id] = F.flagship_step(*inputs)[2]
+        torch.cuda.synchronize()
+        return None
+
+    TM.register_query("t_gpu_flagship", run)
+    s = card_server()
+    try:
+        before = RA.LAUNCHES["to_rows"]
+        ids = [s.submit(t, "t_gpu_flagship") for t in ("a", "b")]
+        assert [s.wait(q, 120)["state"] for q in ids] == ["done"] * 2
+        assert RA.LAUNCHES["to_rows"] - before == 2
+        for qid in ids:
+            assert torch.equal(kept[qid], want)
+    finally:
+        s.stop()
+        TM.unregister_query("t_gpu_flagship")
+
+
+@pytest.mark.gpu
+def test_force_release_unblocks_a_card_query_behind_a_hung_one(cuda):
+    import threading
+
+    from spark_rapids_tpu_torch import models as TM
+    from spark_rapids_tpu_torch.memory import rmm_spark
+    rmm_spark.clear_event_handler()
+    adaptor = rmm_spark.set_event_handler(1 << 40)
+    release, held = threading.Event(), threading.Event()
+
+    def hog(params, ctx):
+        adaptor.allocate(1 << 20)
+        keep = torch.ones(1 << 18, device="cuda")   # card-resident
+        held.set()
+        release.wait(60)          # silent: no heartbeat, no cancel poll
+        return [int(keep.sum())]
+
+    TM.register_query("t_gpu_hog", hog)
+    p9 = {"rows": 1 << 16, "seed": 3, "device": "cuda"}
+    want = TM.run_catalog_query("tpcds_q9", dict(p9))
+    s = card_server(max_concurrency=1, hang_s=0.5,
+                    watchdog_interval_s=0.02)
+    try:
+        hung = s.submit("piggy", "t_gpu_hog")
+        assert held.wait(60)
+        neighbour = s.submit("polite", "tpcds_q9", dict(p9))
+        assert s.wait(hung, 60)["outcome"] == "hung"
+        nb = s.wait(neighbour, 60)
+        assert nb["state"] == "done" and nb["result"] == want
+        assert not any(t["pool_tasks"]
+                       for t in adaptor.thread_state_dump())
+        assert any("FORCE_RELEASE" in row for row in adaptor.get_log())
+    finally:
+        release.set()
+        s.stop()
+        TM.unregister_query("t_gpu_hog")
+        rmm_spark.clear_event_handler()
+
+
+@pytest.mark.gpu
+def test_server_phase_on_card_small(cuda, tmp_path, monkeypatch):
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    res = C.server_phase(
+        "cuda", params=C.SERVER_SMALL, flagship_rows=1 << 16,
+        q9_rows=1 << 12,
+        deadline_q5=dict(C.SERVER_SMALL_DEADLINE_Q5, rows=1 << 24))
+    assert res["flagship"]["to_rows_launches"] == 2
+    assert res["lifeguard"]["incidents"] == ["admission_stall",
+                                             "query_hang"]
+    assert res["dynamo_graphs_added"] == 0

@@ -228,3 +228,101 @@ def test_cache_entries_and_incident_dump(planes, tmp_path):
     (inc,) = json.loads(J.incident_list())
     assert inc["kind"] == "manual" and inc["path"] == path
     J.stats_store_clear()
+
+
+# --------------------------------------------------------- query server
+
+
+def shim_server_session(E, models):
+    """The JVM's server sequence through one package's jni_entry:
+    JSON in, JSON out, ids and times dropped."""
+    import json
+
+    def clean(doc):
+        doc = dict(doc)
+        for k in ("wait_ns", "dur_ns", "query_id"):
+            doc.pop(k, None)
+        return doc
+
+    models.register_query("t_shim_echo",
+                          lambda params, ctx: params.get("v"))
+    out = []
+    try:
+        out += [E.server_start(max_concurrency=1, max_queue=4),
+                E.server_start()]
+        E.server_set_tenant_quota("jvm", max_inflight=2)
+        resp = json.loads(E.server_submit(
+            "jvm", "t_shim_echo", json.dumps({"v": 31337})))
+        assert resp.pop("ok") and resp["query_id"].startswith("q-")
+        out.append(clean(json.loads(E.server_poll(resp["query_id"],
+                                                  20.0))))
+        stats = json.loads(E.server_stats_json())
+        out.append(stats["tenants"]["jvm"]["success"])
+        out.append(sorted(stats))
+        out.append(json.loads(E.server_submit("jvm", "missing_query")))
+        out.append(E.server_cancel("nonexistent"))
+        out.append(json.loads(E.server_profile_json("q-999999")))
+        report = json.loads(E.server_drain(5.0))
+        report.pop("duration_s")
+        out.append(report)
+        out.append(E.server_start(max_concurrency=1, max_queue=4))
+        resp2 = json.loads(E.server_submit(
+            "jvm", "t_shim_echo", json.dumps({"v": 1}), 30.0))
+        out.append(clean(json.loads(E.server_poll(resp2["query_id"],
+                                                  20.0))))
+        out.append(json.loads(E.server_drain())["state"])
+        out.append(json.loads(E.server_drain()))
+    finally:
+        E.server_stop()
+        models.unregister_query("t_shim_echo")
+    out.append(json.loads(E.server_stats_json()))
+    return out
+
+
+def test_server_entries_json_match_reference(planes):
+    from spark_rapids_tpu import models as JM
+    from spark_rapids_tpu_torch import models as TM
+    from spark_rapids_tpu_torch import server as TS
+    got = shim_server_session(J, TM)
+    want = shim_server_session(JJ, JM)
+    assert got == want
+    assert got[:2] == [True, False]
+    assert got[2]["result"] == 31337
+    assert got[5]["error"]["type"] == "UnknownQuery"
+    assert got[7] == {"ok": False, "error": {
+        "type": "UnknownProfile",
+        "message": "no retained profile for 'q-999999'"}}
+    assert got[-2] == {"state": "not_running"}
+    assert got[-1] == {"started": False}
+    assert TS.get_server() is None
+
+
+def test_server_entries_need_a_running_server(planes):
+    for E in (J, JJ):
+        for call in (lambda: E.server_submit("t", "tpcds_q9"),
+                     lambda: E.server_poll("q-000001"),
+                     lambda: E.server_set_tenant_quota("t"),
+                     lambda: E.server_profile_json("q-000001")):
+            with pytest.raises(RuntimeError, match="not running"):
+                call()
+        assert E.server_cancel("q-000001") is False
+
+
+def test_server_profile_json_returns_a_retained_profile(planes):
+    import json
+
+    from spark_rapids_tpu_torch import models as TM
+    from spark_rapids_tpu_torch import observability as obs
+    TM.register_query("t_shim_prof", lambda params, ctx: [1])
+    obs.enable_profiling()
+    try:
+        J.server_start(max_concurrency=1, max_queue=4)
+        qid = json.loads(J.server_submit("acme", "t_shim_prof"))["query_id"]
+        assert json.loads(J.server_poll(qid, 20.0))["state"] == "done"
+        doc = json.loads(J.server_profile_json(qid))
+        assert doc["ok"] and doc["profile"]["query_id"] == qid
+        assert doc["profile"]["tenant"] == "acme"
+    finally:
+        J.server_stop()
+        obs.disable_profiling()
+        TM.unregister_query("t_shim_prof")

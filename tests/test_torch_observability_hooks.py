@@ -730,3 +730,149 @@ def test_stage_profile_records(monkeypatch):
     kinds, _tree = assert_same_observations(("query_profile",
                                              "stage_fusion"))
     assert kinds["query_profile"] == 1
+
+
+# ---------------------------------------------------------- query server
+
+
+def server_hooks(o):
+    """Every record_server_* hook once or more, with fixed values."""
+    o.record_server_admit("acme", "tpcds_q9", "q-000001", 1)
+    o.record_server_admit("bravo", "tpcds_q3", "q-000002", 2)
+    o.record_server_reject("acme", "tpcds_q9", "queue_full", 0.03)
+    o.record_server_dequeue("acme", "q-000001", 1_500_000)
+    o.record_server_requeue("acme", "q-000001", "GpuRetryOOM", 1)
+    o.record_server_complete("acme", "tpcds_q9", "q-000001", "success",
+                             2_000_000, 1_500_000)
+    o.record_server_complete("bravo", "tpcds_q3", "q-000002", "hung",
+                             9_000_000, 0)
+    o.record_server_watchdog("hang_release", "bravo", "q-000002",
+                             query="tpcds_q3", reason="heartbeat_silent",
+                             silent_ms=2040, last_op="job_start",
+                             task_id=1_000_002)
+    o.record_server_watchdog("deadline_cancel", "acme", "q-000003",
+                             query="tpcds_q5")
+    o.record_server_quarantine("opened", "bravo", "tpcds_q3", "bravo/x@1",
+                               strikes=2, reason="hung",
+                               retry_after_s=30.0)
+    o.record_server_quarantine("rejected", "bravo", "tpcds_q3",
+                               "bravo/x@1", strikes=2, retry_after_s=29.5)
+    o.record_server_drain("begin", in_flight=2, deadline_s=30.0)
+    o.record_server_drain("end", in_flight=2, completed=2, cancelled=0,
+                          abandoned=0, duration_s=0.5)
+    o.set_server_tenant_gauges({"acme": 1, "bravo": 0}, {"acme": 2},
+                               {"acme": 0.25, "bravo": 0.0},
+                               {"acme": 4096})
+
+
+def test_server_hooks_record_like_the_reference():
+    server_hooks(obs)
+    server_hooks(jobs)
+    kinds, _tree = assert_same_observations(
+        ("server_admit", "server_reject", "server_dequeue",
+         "server_requeue", "server_complete", "server_watchdog",
+         "server_quarantine", "server_drain"))
+    assert kinds["server_complete"] == 2
+    text = exposition(obs)[0]
+    for line in ('srt_server_rejected_total{tenant="acme",'
+                 'reason="queue_full"} 1',
+                 'srt_server_completed_total{tenant="bravo",'
+                 'outcome="hung"} 1',
+                 'srt_server_watchdog_total{action="hang_release"} 1',
+                 'srt_server_quarantine_total{event="opened"} 1',
+                 'srt_server_drain_total{phase="end"} 1',
+                 'srt_server_fair_share_deficit{tenant="acme"} 0.25',
+                 'srt_server_tenant_device_bytes{tenant="acme"} 4096'):
+        assert line in text, line
+    def watchdog_records(o):
+        return [{k: v for k, v in r.items() if k != "t_ns"}
+                for r in o.JOURNAL.records("server_watchdog")]
+    assert watchdog_records(obs) == watchdog_records(jobs)
+
+
+def test_server_hooks_cost_nothing_when_off():
+    for o in (obs, jobs):
+        o.disable()
+        o.reset()
+        server_hooks(o)
+        assert o.JOURNAL.records() == []
+        assert "srt_server_admitted_total{" not in o.expose_text()
+
+
+def test_server_completions_feed_the_slo_first():
+    """record_server_complete feeds the SLO monitor under its own switch
+    (metrics off here): one event a completion, latency = wait + run."""
+    statuses = []
+    for o in (obs, jobs):
+        o.disable()
+        o.reset()
+        o.SLO.reset()
+        o.enable_slo()
+        try:
+            for outcome, dur in (("success", 1_000_000),
+                                 ("success", 10_000_000_000),
+                                 ("failed", 1_000), ("cancelled", 1_000),
+                                 ("cache_hit", 0)):
+                o.record_server_complete("acme", "q", "q-1", outcome,
+                                         dur, 5_000)
+            statuses.append(o.SLO.status())
+            assert o.JOURNAL.records() == []
+        finally:
+            o.disable_slo()
+            o.SLO.reset()
+    assert statuses[0] == statuses[1]
+    assert statuses[0]["acme"]["events"] == 3
+
+
+def test_scripted_server_run_records_like_the_reference(monkeypatch):
+    """A gated two-tenant run with a typed rejection, a load-shed requeue
+    and a cancel: the same journal kinds, families and span tree (the
+    queue-wait histogram and the deficit gauge hold times)."""
+    import time
+
+    import test_torch_lifeguard as LG
+    monkeypatch.setattr(
+        __import__(__name__), "TIME_FAMILIES",
+        TIME_FAMILIES | {"srt_server_queue_wait_ns",
+                         "srt_server_fair_share_deficit"})
+
+    def run(P):
+        gate, started, tries = threading.Event(), [], {}
+
+        def runner(query, params, ctx):
+            started.append(query)
+            tries[query] = tries.get(query, 0) + 1
+            if query == "oom" and tries[query] == 1:
+                raise P.exc.GpuRetryOOM("shed me")
+            while not gate.wait(0.005):
+                ctx.check_cancel()
+            return [query]
+
+        cfg = P.server.ServerConfig(max_concurrency=1, max_queue=2,
+                                    stall_ms=0, max_requeues=1)
+        s = P.server.QueryServer(cfg, runner=runner).start()
+        try:
+            first = s.submit("acme", "blocker")
+            assert LG.wait_for(lambda: started == ["blocker"])
+            victim = s.submit("acme", "victim")
+            oom = s.submit("bravo", "oom")
+            try:
+                s.submit("bravo", "over")
+            except P.server.ServerOverloaded:
+                pass
+            s.cancel(victim)
+            gate.set()
+            for qid in (first, oom):
+                assert s.poll(qid, timeout_s=20)["state"] == "done"
+        finally:
+            gate.set()
+            s.stop()
+            time.sleep(0.01)
+
+    run(LG.PORT)
+    run(LG.JAX)
+    kinds, tree = assert_same_observations(
+        ("server_admit", "server_reject", "server_requeue",
+         "server_complete", "server_cancel"))
+    # blocker, and oom's two attempts (the victim was cancelled queued)
+    assert sum(1 for t in tree if t[0].startswith("server_query:")) == 3

@@ -18,19 +18,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the JAX package's __init__ files that a later step brings
 LATER = {
-    "robustness": {"QuarantineBreaker": "A14 step 5(c)",
-                   "Watchdog": "A14 step 5(c)"},
     "plan": {"fused_pipeline_fn": "A10(b), step 3(b)"},
-    "observability": {},
 }
-LATER["observability"].update({name: "A14 step 5(c)" for name in (
-    "record_server_admit", "record_server_complete",
-    "record_server_dequeue", "record_server_drain",
-    "record_server_quarantine", "record_server_reject",
-    "record_server_requeue", "record_server_watchdog",
-    "set_server_tenant_gauges")})
 # JAX packages the port does not have yet
-LATER_PACKAGES = {"server": "A14 step 5(c)", "tools": "A14 step 5(d)"}
+LATER_PACKAGES = {"tools": "A14 step 5(d)"}
 
 
 def bound_names(path):
@@ -121,9 +112,27 @@ def test_port_imports_without_jax():
             "spark_rapids_tpu_torch.observability, "
             "spark_rapids_tpu_torch.analysis, spark_rapids_tpu_torch.ops, "
             "spark_rapids_tpu_torch.utils.telemetry, "
-            "spark_rapids_tpu_torch.distributed.runner; "
+            "spark_rapids_tpu_torch.distributed.runner, "
+            "spark_rapids_tpu_torch.server, "
+            "spark_rapids_tpu_torch.server.admission, "
+            "spark_rapids_tpu_torch.server.scheduler, "
+            "spark_rapids_tpu_torch.server.protocol, "
+            "spark_rapids_tpu_torch.server.server, "
+            "spark_rapids_tpu_torch.robustness.lifeguard, "
+            "spark_rapids_tpu_torch.analysis.catalog, "
+            "spark_rapids_tpu_torch.analysis.lint, "
+            "spark_rapids_tpu_torch.analysis.plan_verify; "
             "assert 'jax' not in sys.modules; "
             "assert not [m for m in sys.modules "
             "if m.split('.')[0] == 'spark_rapids_tpu']")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def test_analysis_binds_its_modules_on_first_use():
+    import spark_rapids_tpu_torch.analysis as A
+    from spark_rapids_tpu_torch.analysis import catalog, lint, plan_verify
+    assert (A.catalog, A.lint, A.plan_verify) == (catalog, lint,
+                                                  plan_verify)
+    with pytest.raises(AttributeError):
+        A.no_such_module

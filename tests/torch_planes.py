@@ -6,7 +6,9 @@ the flight recorder, the query profiler with its attribution switch,
 the data-statistics collector and its store file, the timeseries
 sampler, the SLO monitor, the result cache with its ingest epochs, the
 compile cache, the calibration verdicts and the Monitor's liveness
-stamp.  ``isolate(monkeypatch, tmp_path)`` gives a test a clean copy of
+stamp; and the query server's: the server singleton with its socket
+door, the lifeguard's heartbeat table and hook count, and the stage
+compiler's plan-verify memo.  ``isolate(monkeypatch, tmp_path)`` gives a test a clean copy of
 all of them in both packages, points every file they write at
 ``tmp_path``, and puts the switches back afterwards.  Test files use it
 as an autouse fixture:
@@ -46,6 +48,40 @@ def stop_stray_monitors():
             owner.stop()
 
 
+def stop_stray_servers():
+    """Stop every query server, socket door and watchdog an earlier test
+    left running (in either package), stop both singletons, and reset
+    the lifeguard's heartbeat table and hook count and the compiler's
+    plan-verify memo."""
+    from spark_rapids_tpu import server as jsrv
+    from spark_rapids_tpu.plan import compiler as JPC
+    from spark_rapids_tpu.robustness import lifeguard as JLG
+    from spark_rapids_tpu_torch import server as psrv
+    from spark_rapids_tpu_torch.plan import compiler as PPC
+    from spark_rapids_tpu_torch.robustness import lifeguard as PLG
+    for srv in (jsrv, psrv):
+        srv.stop_server(timeout_s=5)
+    kinds = (jsrv.QueryServer, psrv.QueryServer, jsrv.SocketFrontDoor,
+             psrv.SocketFrontDoor, JLG.Watchdog, PLG.Watchdog)
+    seen = set()
+    for t in threading.enumerate():
+        owner = getattr(getattr(t, "_target", None), "__self__", None)
+        if isinstance(owner, kinds) and id(owner) not in seen:
+            seen.add(id(owner))
+            if isinstance(owner, (jsrv.QueryServer, psrv.QueryServer)):
+                if owner._started:
+                    owner.stop(timeout_s=5)
+            else:
+                owner.stop()
+    for lg in (JLG, PLG):
+        while lg._HOOK_INSTALLS > 0:
+            lg.release_heartbeat_hook()
+        with lg._BEATS_LOCK:
+            lg._BEATS.clear()
+    for pc in (JPC, PPC):
+        pc._VERIFIED.clear()
+
+
 def _clear(o, jc, rc, cal):
     o.reset()
     jc.CACHE.clear(reset_stats=True)
@@ -56,6 +92,7 @@ def _clear(o, jc, rc, cal):
 
 def isolate(monkeypatch, tmp_path):
     stop_stray_monitors()
+    stop_stray_servers()
     monkeypatch.setenv("SPARK_RAPIDS_TPU_STATS_STORE",
                        str(tmp_path / "stats_store.json"))
     monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
@@ -83,5 +120,6 @@ def isolate(monkeypatch, tmp_path):
         _clear(o, jc, rc, cal)
     yield
     stop_stray_monitors()
+    stop_stray_servers()
     for o, _fr, jc, rc, cal in PACKAGES:
         _clear(o, jc, rc, cal)
