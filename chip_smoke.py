@@ -201,9 +201,9 @@
 12. The string casts and parse_url (ops/cast_string.py with its device
    engines ops/stod_device.py and ops/ftos_device.py, ops/strings_misc.py,
    ops/parse_uri.py, ops/parse_uri_device.py, columns/strbuild.py), every
-   column drawn on the card from a seed.  Casts over 2^23 rows of step 8's
+   column drawn on the card from a seed.  Casts over 2^22 rows of step 8's
    store_sales values (2^24, one executor batch, until step 20 needed the
-   time): ss_net_paid FLOAT64 (about 4%
+   time, 2^23 until step 21): ss_net_paid FLOAT64 (about 4%
    null) and its FLOAT32 rendered by float_to_string on the card, and
    ss_quantity or ss_ticket_number (1 to 24,000,000) rendered by digit
    arithmetic; a seeded 1/16 of each column replaced by an edge
@@ -251,24 +251,25 @@
    keys, non-ASCII, invalid JSON).  get_json_object through the router
    (its verdict file fresh under build/) for `$.event`, `$.user.id`,
    `$.user.name` and `$.ctx.a.b.c` over all 2^18 rows, and for
-   `$.items[0]` and `$.items[*].sku` over the first 2^14 (most of their
-   rows go to the host parser: a fractional price in every item, several
-   items); the multi-path entry over the six paths on those 2^14; each
+   `$.items[0]` and `$.items[*].sku` over the first 2^13 (2^14 until
+   step 21 needed the time; most of their rows go to the host parser: a
+   fractional price in every item, several items); the multi-path entry
+   over the six paths on those 2^13; each
    engine pinned (SPARK_RAPIDS_TPU_PATH_JSON_GET_OBJECT) on `$.user.id`,
    the device scan and the tokenizer over 2^17 rows, the host engine
-   over 2^14.  Each engine over the six paths on the first 2^14 rows
+   over 2^13.  Each engine over the six paths on the first 2^13 rows
    must equal its CPU run byte for byte, with as many rows sent to the
    host, and the three engines each other; every router result's first
-   2^14 rows must equal the host engine's.  2^18 flat objects of
+   2^13 rows must equal the host engine's.  2^18 flat objects of
    4-40 pairs (a seeded 1/256 of 65-70, past the tokenizer's 64; the
    device scan takes 32): from_json_to_raw_map and from_json_to_structs
    (INT64, INT32, FLOAT64, BOOL8, STRING, STRING) through the router,
-   the first 2^14 rows under each engine equal to each other, to the
+   the first 2^13 rows under each engine equal to each other, to the
    router's rows and, for the tokenizer, to its CPU run;
    from_json_to_structs_nested (user struct, items list of structs) on
-   2^13 events, the host and device engines equal and the host engine
+   2^12 events, the host and device engines equal and the host engine
    equal to its CPU run; sort_map_column and map_from_entries on the
-   raw map of the first 2^14 rows against the CPU.  Prints a `json`
+   raw map of the first 2^13 rows against the CPU.  Prints a `json`
    line: each call's lower median ms of 2 synchronized calls (one for
    the multi-path entry and the nested structs) and first call's ms, rows,
    MB/s of chars, rows sent to the host, the router's engine, verdict
@@ -494,6 +495,38 @@
    wait ms, q5 through the server over its direct call, rejects,
    requeues, watchdog actions, quarantine events, the drain report,
    the socket round trip and the phase's seconds.
+21. The offline tools and the op layer's sidecars (utils/profiler.py,
+   utils/fault_injection.py, utils/tracing.py, tools/).  (a) The
+   flagship step (2^22 rows), median of 5, four ways: every sidecar
+   off, the full bracket with nothing recording (as under an attached
+   NVTX tool), the profiler streaming through the JNI door's profiler_*
+   entries (alloc capture on, the step's task reserving its rows' bytes
+   under an adaptor), and tracing on.  Every step's outputs must equal the
+   first step's, the to-rows kernel must launch once a step, the stream
+   must hold one op range each for murmur3_32, xxhash64 and
+   convert_to_rows a step and an alloc and a free a step, tracing one op
+   span each a step, and profile_converter's --summary calls and
+   --chrome ranges must equal the op calls.  (b) A seeded GpuRetryOOM
+   rule on convert_to_rows inside with_retry around the step (3
+   attempts, a task holding the rows' bytes) must exhaust the retries
+   and freeze exactly one retry_exhausted bundle whose fault_rules.json
+   holds the rule; doctor --json must rank the fault_injection finding
+   first (severity 95, naming the rule) and name the task holding device
+   memory.  After uninstall the step runs byte-equal, and a
+   CudfException rule on murmur3_32 raises typed at jni_api's
+   murmur_hash3_32.  (c) The tools over files earlier phases wrote
+   (copied under build/tools before those phases remove theirs):
+   doctor on step 20's query_hang and admission_stall bundles, whose
+   trigger each must be among its findings; metrics_report --json on
+   the drain's journal (the server table present); trace_export on the
+   drain's spans (no orphan); srt_explain merging launch A's per-rank q5
+   profiles; srt_top --once --json twice over step 19's timeseries
+   snapshot (the two frames byte-identical); srt_check clean on the
+   port's tree and --plan verifying the seven catalog plans.  The tools
+   run in this process through their main(argv).  Prints a `tools`
+   line: the step's ms in the three modes beside the main path's, the
+   launches a step, the op ranges, the bundles, doctor's first finding
+   for each bundle, each tool's seconds and the phase's seconds.
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -733,15 +766,15 @@ MEM_Q5_PARTS = 4
 MEM_THREAD_TIMEOUT_S = 300
 MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
 # the string casts and parse_url (step 12), drawn on the card: the casts
-# over 2^23 rows of the operators' store_sales values (2^24, one
+# over 2^22 rows of the operators' store_sales values (2^24, one
 # executor batch of about 300 MB of rendered chars, until step 20 needed
-# the time), a seeded 1/16 of the rows
+# the time; 2^23 until step 21), a seeded 1/16 of the rows
 # replaced by an edge vocabulary; parse_url over 2^21 URLs of at most
 # 199 bytes (about 195 MB; 2^22 before step 19 needed the time), and QUERY with a key over BASELINE.json's
 # 1e6-row column (2^20 rows), since the key is matched per row on the
 # host; each checked against a CPU run of a slice and against the host
 # engine on a sample
-STR_CAST_ROWS = 1 << 23
+STR_CAST_ROWS = 1 << 22
 STR_EDGE_EVERY = 16
 STR_CPU_ROWS = 1 << 18
 STR_HOST_ROWS = 1 << 16
@@ -785,7 +818,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "distributed": (),
                 "observability": ("to_rows",),
                 "observability_plane": ("to_rows",),
-                "server": ("to_rows",)}
+                "server": ("to_rows",),
+                "tools": ("to_rows",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -3237,9 +3271,12 @@ def run_strings(device="cuda", cast_kw=None, url_kw=None):
 # before step 19 needed the time, 2^19 before step 20)
 JSON_ROWS = 1 << 18
 JSON_CHUNK_ROWS = 1 << 17    # one device-scan chunk (DEVICE_ROW_CHUNK)
-JSON_CPU_ROWS = 1 << 14      # the CPU run's rows, and the host engine's
-JSON_SMALL_ROWS = 1 << 14    # the host-bound calls: one calibration sample
-JSON_MAP_ROWS = 1 << 14      # the map ops (host loops over the entries)
+# the CPU checks and the map ops: 2^13 rows (2^14 until step 21 needed
+# the time); the host-bound calls keep one calibration sample, 2^14 rows
+# (JP.JSON_CALIBRATE_MIN_ROWS: below it the router takes its default)
+JSON_CPU_ROWS = 1 << 13      # the CPU run's rows, and the host engine's
+JSON_SMALL_ROWS = 1 << 14    # the host-bound calls
+JSON_MAP_ROWS = 1 << 13      # the map ops (host loops over the entries)
 JSON_NULL_SHARE = 0.04
 JSON_EDGE_EVERY = 32
 JSON_PATHS = ("$.event", "$.user.id", "$.user.name", "$.items[0]",
@@ -3647,6 +3684,9 @@ def json_on_device(col, device):
 
 def run_json(device="cuda", **kw):
     """The JSON family on the card (see the module docstring)."""
+    check(kw.get("small_rows", JSON_SMALL_ROWS)
+          >= JP.JSON_CALIBRATE_MIN_ROWS,
+          "json: the host-bound calls calibrate their route")
     RA.reset_launches()
     clock = time.perf_counter()
     res = json_phase(device, **kw)
@@ -5099,9 +5139,10 @@ def dist_profiles(res, ops):
     for op in ops:
         profiles = []
         for r in range(world):
-            with open(os.path.join(res["outdir"],
-                                   f"profile_{op}_rank{r}.json")) as f:
+            path = os.path.join(res["outdir"], f"profile_{op}_rank{r}.json")
+            with open(path) as f:
                 profiles.append(json.load(f))
+            keep_for_tools(path, "dist", os.path.basename(path))
         merged = merge_profiles(profiles)
         stages = [s["stage"] for s in merged["stages"]]
         check(merged["ranks"] == list(range(world))
@@ -5614,6 +5655,8 @@ def plane_profiled(device, flag_inputs, d5, p5, fusion=None):
         finally:
             mon.stop()
         obs.TIMESERIES.tick()              # close the last window
+        keep_json_for_tools(obs.timeseries_snapshot(rank=0, epoch=0),
+                            "plane", "timeseries_rank0.json")
     for name, a, b in zip(("murmur3_32", "xxhash64", "rows",
                            "bucket sums"), flag_on, off[0]):
         check(torch.equal(a, b), f"observability_plane: flagship {name} "
@@ -6292,6 +6335,7 @@ def server_lifeguard(device, q5, q9_rows):
               f"server: query_hang and admission_stall bundles ({kinds})")
         res["incidents"] = kinds
         res["watchdog_actions"] = len(obs.JOURNAL.records("server_watchdog"))
+        keep_for_tools(inc_dir, "server", "incidents")
     finally:
         release.set()
         s.stop()
@@ -6411,6 +6455,7 @@ def server_socket_and_drain(device, mix, want, q9_rows):
     for fn in ("journal.jsonl", "spans.jsonl", "metrics.json"):
         check(os.path.isfile(os.path.join(rep["flush"]["dir"], fn)),
               f"server: the drain wrote {fn}")
+    keep_for_tools(rep["flush"]["dir"], "server", "drain")
     check(srv.get_server() is None and not os.path.exists(path),
           "server: the drain cleared the singleton and its door")
     res["drain"] = {k: rep[k] for k in ("in_flight", "completed",
@@ -6551,6 +6596,375 @@ def run_server(device="cuda", **kw):
     return read_launches("server"), res
 
 
+# ------------------------------------------------------- step 21: tools
+
+TOOLS_ITERS = 5
+TOOLS_RETRY_ATTEMPTS = 3
+TOOLS_TASK = 2101
+TOOLS_FAULT_SEED = 21
+TOOLS_OPS = ("murmur3_32", "xxhash64", "convert_to_rows")
+
+
+def tools_dir():
+    return os.path.join(_BUILD, "tools")
+
+
+def keep_for_tools(src, *rel):
+    """Copy a file or directory an earlier phase writes (and removes at
+    its end) to build/tools/<rel>, for step 21's tools to read."""
+    dst = os.path.join(tools_dir(), *rel)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    if os.path.isdir(src):
+        shutil.copytree(src, dst, dirs_exist_ok=True)
+    else:
+        shutil.copyfile(src, dst)
+    return dst
+
+
+def keep_json_for_tools(obj, *rel):
+    dst = os.path.join(tools_dir(), *rel)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        f.write(json.dumps(obj, sort_keys=True))
+    return dst
+
+
+def run_tool(tool, argv):
+    """(exit code, stdout, seconds) of the port's tool's main(argv), as
+    ``python -m spark_rapids_tpu_torch.tools.<tool>`` runs it, in this
+    process (no interpreter start-up per tool)."""
+    import importlib
+    mod = importlib.import_module(f"spark_rapids_tpu_torch.tools.{tool}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = mod.main(list(argv))
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def same_flagship(out, want):
+    for name, got, w in zip(("murmur3_32", "xxhash64", "rows",
+                             "bucket sums"), out, want):
+        check(torch.equal(got, w), f"tools: flagship {name} unchanged "
+              "with the sidecars on")
+
+
+def tools_mode(device, inputs, want, adaptor=None):
+    """The flagship step's median wall ms over TOOLS_ITERS steps (each
+    synchronized; its outputs held to `want` outside the timed span)
+    and the to-rows kernel's launches over them.  Under `adaptor` each
+    step's task reserves its rows' bytes first and frees them after,
+    as an executor task does."""
+    held = nbytes(want[2]) if adaptor is not None else 0
+    before = RA.LAUNCHES["to_rows"]
+    times = []
+    for _ in range(TOOLS_ITERS):
+        t0 = time.perf_counter()
+        if held:
+            adaptor.allocate(held)
+        out = F.flagship_step(*inputs)
+        sync(device)
+        if held:
+            adaptor.deallocate(held)
+        times.append((time.perf_counter() - t0) * 1e3)
+        same_flagship(out, want)
+    launches = RA.LAUNCHES["to_rows"] - before
+    if torch.device(device).type == "cuda":
+        check(launches == TOOLS_ITERS, f"tools: the to-rows kernel "
+              f"launched once a step ({launches} in {TOOLS_ITERS})")
+    return sorted(times)[len(times) // 2], TOOLS_ITERS, launches
+
+
+def tools_sidecars(device, rows):
+    """(a): the flagship step with every sidecar off, with the profiler
+    streaming (alloc capture on, a task's reservation under an adaptor)
+    and with tracing on; then the profile converter over the stream."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.tools import profile_converter as PCV
+    from spark_rapids_tpu_torch.utils import fault_injection as FI
+    from spark_rapids_tpu_torch.utils import profiler as PROF
+    from spark_rapids_tpu_torch.utils import tracing as TRC
+    inputs = F.example_inputs(rows, device=device)
+    want = F.flagship_step(*inputs)
+    sync(device)
+    res = {"ms": {}, "launches": {}}
+    check(FI.installed() is None and PROF.Profiler.get() is None
+          and TRC.sidecars_off(), "tools: every sidecar off")
+    res["ms"]["off"], _, res["launches"]["off"] = tools_mode(
+        device, inputs, want)
+    # the full bracket with nothing recording, as under an attached
+    # NVTX tool: what the sidecars-off shortcut saves
+    tool, PROF.NVTX_TOOL = PROF.NVTX_TOOL, True
+    try:
+        check(not TRC.sidecars_off(), "tools: the bracket forced open")
+        res["ms"]["bracket"], _, res["launches"]["bracket"] = tools_mode(
+            device, inputs, want)
+    finally:
+        PROF.NVTX_TOOL = tool
+    # the profiler, streaming to a file through the JNI door
+    stream = os.path.join(tools_dir(), "sidecars.bin")
+    adaptor = rmm_spark.set_event_handler(1 << 60)
+    rmm_spark.current_thread_is_dedicated_to_task(TOOLS_TASK)
+    JE.profiler_init(stream, 0, True)
+    try:
+        JE.profiler_start()
+        res["ms"]["profiler"], psteps, res["launches"]["profiler"] = \
+            tools_mode(device, inputs, want, adaptor)
+        JE.profiler_stop()
+    finally:
+        JE.profiler_shutdown()
+        rmm_spark.remove_current_thread_association()
+        rmm_spark.clear_event_handler()
+    with open(stream, "rb") as f:
+        records = list(PROF.iter_records(f.read()))
+    ops = {}
+    for r in records:
+        if r["kind"] == "op_range":
+            ops[r["name"]] = ops.get(r["name"], 0) + 1
+    check(ops == {name: psteps for name in TOOLS_OPS},
+          f"tools: one op range each a step ({ops} in {psteps} steps)")
+    allocs = {k: sum(1 for r in records if r["kind"] == k)
+              for k in ("alloc", "free")}
+    check(allocs == {"alloc": psteps, "free": psteps},
+          f"tools: the task's reservations recorded ({allocs})")
+    # the converter over the stream: its calls equal the op calls
+    rows_ = PCV.summarize(PCV.load_records([stream]))
+    check({r["op"]: r["calls"] for r in rows_} == ops,
+          f"tools: profile_converter's calls == the op calls ({rows_})")
+    chrome = os.path.join(tools_dir(), "sidecars_chrome.json")
+    rc, text, secs = run_tool("profile_converter",
+                              [stream, "--chrome", chrome, "--summary"])
+    with open(chrome) as f:
+        xs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    check(rc == 0 and len(xs) == sum(ops.values())
+          and f"allocs: {psteps}" in text,
+          f"tools: profile_converter --chrome --summary ({rc}, "
+          f"{len(xs)} ranges)")
+    res["profile_converter_s"] = secs
+    # tracing on: one op span each a step
+    obs.reset()
+    obs.enable_tracing()
+    try:
+        res["ms"]["tracing"], tsteps, res["launches"]["tracing"] = \
+            tools_mode(device, inputs, want)
+        spans = [r for r in obs.TRACER.records() if r["span_kind"] == "op"]
+    finally:
+        obs.disable_tracing()
+        obs.reset()
+    names = sorted(r["name"] for r in spans)
+    check(names == sorted(list(TOOLS_OPS) * tsteps),
+          f"tools: one op span each a step ({len(names)} in {tsteps})")
+    check(TRC.sidecars_off(), "tools: every sidecar off again")
+    res["ms"]["off_after"] = tools_mode(device, inputs, want)[0]
+    res["op_ranges"] = ops
+    res["allocs"] = allocs
+    return res, inputs, want
+
+
+def tools_faults(device, inputs, want):
+    """(b): a seeded GpuRetryOOM rule on convert_to_rows exhausts the
+    retried flagship step and freezes one retry_exhausted bundle the
+    doctor ranks; after uninstall the step runs; a CudfException rule on
+    a door export raises typed at the door."""
+    from spark_rapids_tpu_torch import observability as obs
+    from spark_rapids_tpu_torch.memory import exceptions as EXC
+    from spark_rapids_tpu_torch.utils import fault_injection as FI
+    res = {}
+    rules = keep_json_for_tools({"seed": TOOLS_FAULT_SEED, "faults": [
+        {"match": "convert_to_rows", "exception": "GpuRetryOOM"}]},
+        "faults_retry.json")
+    inc = os.path.join(tools_dir(), "incidents")
+    held = nbytes(want[2])
+    obs.enable()
+    obs.enable_flight_recorder(out_dir=inc, min_interval_s=0.0)
+    adaptor = rmm_spark.set_event_handler(1 << 60)
+    rmm_spark.current_thread_is_dedicated_to_task(TOOLS_TASK)
+    adaptor.allocate(held)
+    FI.install(rules, watch=False)
+    try:
+        try:
+            RT.with_retry(lambda: F.flagship_step(*inputs),
+                          name="flagship_step", policy=RT.RetryPolicy(
+                              max_attempts=TOOLS_RETRY_ATTEMPTS,
+                              base_backoff_s=0.0, jitter=False))
+            check(False, "tools: the injected rule exhausted the retries")
+        except RT.RetryExhausted as e:
+            check(e.reason == "attempts" and isinstance(
+                e.last, EXC.GpuRetryOOM),
+                f"tools: exhausted by the injected GpuRetryOOM ({e})")
+    finally:
+        FI.uninstall()
+        adaptor.deallocate(held)
+        rmm_spark.remove_current_thread_association()
+        rmm_spark.clear_event_handler()
+        obs.disable_flight_recorder()
+        obs.disable()
+        obs.reset()
+    bundles = sorted(os.path.join(inc, n) for n in os.listdir(inc)
+                     if n.startswith("incident-"))
+    check(len(bundles) == 1, f"tools: one bundle ({bundles})")
+    with open(os.path.join(bundles[0], "trigger.json")) as f:
+        kind = json.load(f)["kind"]
+    with open(os.path.join(bundles[0], "fault_rules.json")) as f:
+        frozen = json.load(f)
+    check(kind == "retry_exhausted" and frozen == [
+        {"match": "convert_to_rows", "probability": 1.0, "remaining": -1,
+         "exception": "GpuRetryOOM"}],
+        f"tools: a retry_exhausted bundle holding the rule ({kind}, "
+        f"{frozen})")
+    rc, text, secs = run_tool("doctor", [bundles[0], "--json"])
+    findings = json.loads(text)["findings"]
+    top = findings[0]
+    check(rc == 0 and top["kind"] == "fault_injection"
+          and top["severity"] == 95
+          and "match='convert_to_rows'" in top["message"],
+          f"tools: doctor ranks the injected rule first ({top})")
+    exhausted = [f for f in findings if f["kind"] == "retry_exhausted"]
+    check(exhausted and f"task {TOOLS_TASK}" in exhausted[0]["message"]
+          and "held" in exhausted[0]["message"],
+          f"tools: doctor names the task holding device memory "
+          f"({exhausted})")
+    res.update(bundles=1, doctor_first=top, doctor_s=secs,
+               exhausted=exhausted[0]["message"])
+    # uninstalled: the same step runs, byte-equal
+    same_flagship(F.flagship_step(*inputs), want)
+    # a CudfException rule on a door export raises typed at the door
+    door = keep_json_for_tools({"faults": [
+        {"match": "murmur3_32", "repeat": 1,
+         "exception": "CudfException"}]}, "faults_door.json")
+    col = Column(dtypes.INT64, int(inputs[0].shape[0]), data=inputs[0])
+    h = REGISTRY.register(col)
+    FI.install(door, watch=False)
+    try:
+        try:
+            jni_api.murmur_hash3_32(42, [h])
+            check(False, "tools: the door raised the injected fault")
+        except EXC.CudfException as e:
+            check("injected fault in murmur3_32" in str(e),
+                  f"tools: the door's typed exception ({e})")
+        out = jni_api.murmur_hash3_32(42, [h])
+        check(torch.equal(REGISTRY.get(out).data,
+                          H.murmur3_32([col], 42).data),
+              "tools: the door's next call ran (the rule spent)")
+        jni_api.release_column(out)
+    finally:
+        FI.uninstall()
+        jni_api.release_column(h)
+    return res
+
+
+def tools_files(inputs):
+    """(c): the tools over the files the earlier phases wrote."""
+    from spark_rapids_tpu_torch.tools import trace_export as TE
+    res = {"s": {}, "doctor_first": {}}
+    for bundle in inputs["bundles"]:
+        with open(os.path.join(bundle, "trigger.json")) as f:
+            kind = json.load(f)["kind"]
+        rc, text, secs = run_tool("doctor", [bundle, "--json"])
+        findings = json.loads(text)["findings"]
+        check(rc == 0 and kind in [f["kind"] for f in findings],
+              f"tools: doctor on the {kind} bundle ({findings[:2]})")
+        res["doctor_first"][kind] = findings[0]
+        res["s"][f"doctor_{kind}"] = secs
+    rc, text, res["s"]["metrics_report"] = run_tool(
+        "metrics_report", [inputs["journal"], "--json"])
+    report = json.loads(text)
+    check(rc == 0 and report["server"],
+          "tools: metrics_report's server table over the drain's journal")
+    res["server_rows"] = len(report["server"])
+    trace = os.path.join(tools_dir(), "drain_trace.json")
+    rc, text, res["s"]["trace_export"] = run_tool(
+        "trace_export", [inputs["spans"], "-o", trace, "--stats"])
+    spans = [r for _, recs in TE.load_files([inputs["spans"]])
+             for r in TE.spans_of(recs)]
+    check(rc == 0 and spans and TE.find_orphans(spans) == [],
+          f"tools: trace_export over the drain's spans, no orphans "
+          f"({len(spans)} spans)")
+    res["spans"] = len(spans)
+    rc, text, res["s"]["srt_explain"] = run_tool(
+        "srt_explain", list(inputs["profiles"]) + ["--json"])
+    merged = json.loads(text)
+    check(rc == 0 and merged["fleet"]
+          and merged["ranks"] == list(range(len(inputs["profiles"]))),
+          f"tools: srt_explain merged the rank profiles "
+          f"({merged.get('ranks')})")
+    frames = []
+    for _ in range(2):
+        rc, text, secs = run_tool("srt_top", [inputs["timeseries"],
+                                              "--once", "--json"])
+        check(rc == 0, "tools: srt_top --once")
+        frames.append(text)
+    check(frames[0] == frames[1] and json.loads(frames[0])["ranks"],
+          "tools: srt_top's two frames are byte-identical")
+    res["s"]["srt_top"] = secs
+    rc, text, res["s"]["srt_check"] = run_tool("srt_check", [])
+    check(rc == 0 and "0 finding(s)" in text,
+          f"tools: srt_check clean on the port's tree ({text[-200:]})")
+    rc, text, res["s"]["srt_check_plan"] = run_tool(
+        "srt_check", ["--plan", "--json"])
+    plans = json.loads(text)["plans"]
+    check(rc == 0 and len(plans) == 7 and all(p["ok"] for p in plans),
+          f"tools: srt_check --plan verified every catalog plan "
+          f"({plans})")
+    return res
+
+
+def tools_inputs():
+    """The files the earlier phases kept for step 21."""
+    d = tools_dir()
+    inc = os.path.join(d, "server", "incidents")
+    drain = os.path.join(d, "server", "drain")
+    return {
+        "bundles": sorted(os.path.join(inc, n) for n in os.listdir(inc)
+                          if n.startswith("incident-")),
+        "journal": os.path.join(drain, "journal.jsonl"),
+        "spans": os.path.join(drain, "spans.jsonl"),
+        "profiles": sorted(os.path.join(d, "dist", n)
+                           for n in os.listdir(os.path.join(d, "dist"))
+                           if n.startswith("profile_q5_rank")),
+        "timeseries": os.path.join(d, "plane", "timeseries_rank0.json")}
+
+
+def tools_phase(device="cuda", flagship_rows=None, inputs=None):
+    """Step 21 (see the module docstring)."""
+    clock = time.perf_counter()
+    os.makedirs(tools_dir(), exist_ok=True)
+    res = {}
+    try:
+        res["sidecars"], flag_inputs, want = tools_sidecars(
+            device, flagship_rows or FLAGSHIP_ROWS)
+        res["faults"] = tools_faults(device, flag_inputs, want)
+        res["files"] = tools_files(inputs or tools_inputs())
+    finally:
+        shutil.rmtree(tools_dir(), ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - clock
+    return res
+
+
+def run_tools(device="cuda", flagship_ms=None, **kw):
+    """Step 21 on the card (see the module docstring)."""
+    RA.reset_launches()
+    res = tools_phase(device, **kw)
+    sc, fl = res["sidecars"], res["files"]
+    seconds = dict(fl["s"], doctor_retry_exhausted=res["faults"][
+        "doctor_s"], profile_converter=sc["profile_converter_s"])
+    line = {
+        "flagship_step_ms": dict(sc["ms"], main_path=flagship_ms),
+        "launches_a_step": {k: v / TOOLS_ITERS
+                            for k, v in sc["launches"].items()},
+        "op_ranges": sc["op_ranges"], "allocs": sc["allocs"],
+        "bundles": {"retry_exhausted": res["faults"]["bundles"],
+                    "server": len(fl["doctor_first"])},
+        "doctor_first": dict(fl["doctor_first"], retry_exhausted=res[
+            "faults"]["doctor_first"]),
+        "tool_s": seconds, "phase_s": res["phase_s"]}
+    print(json.dumps({"tools": line}, default=str), flush=True)
+    return read_launches("tools"), res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -6579,6 +6993,8 @@ def main() -> int:
         phase_s[name] = now - clock[0]
         clock[0] = now
 
+    # step 21 reads what earlier phases keep under build/tools
+    shutil.rmtree(tools_dir(), ignore_errors=True)
     t0 = time.perf_counter()
     cuda_build.build("row_assembly")
     build_s = time.perf_counter() - t0
@@ -6677,6 +7093,8 @@ def main() -> int:
     phase("observability_plane")
     by_path["server"], _ = run_server(verify_calls=verify_calls)
     phase("server")
+    by_path["tools"], _ = run_tools(flagship_ms=flagship_steady)
+    phase("tools")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -598,11 +598,12 @@ def main(argv=None) -> int:
                             _obs.METRICS.snapshot_json()))
         if _obs.TIMESERIES.enabled:
             # close the final window NOW and dump the same-moment pair
-            # (ring + registry): the ring's summed counter deltas equal
-            # the registry's cumulative values at this instant exactly
-            # (the post-barrier metrics_rank dump also counts barrier
-            # traffic, so it cannot be the comparison point)
-            _obs.TIMESERIES.tick()
+            # (ring + the registry fold the window was cut from): the
+            # ring's summed counter deltas equal that fold exactly.  A
+            # second registry read would also count a peer's frame
+            # landing between the two (its publish, a gossip beat), and
+            # the post-barrier metrics_rank dump counts barrier traffic
+            _, reg_snap = _obs.TIMESERIES.tick_with_registry()
             ts_snap = _obs.timeseries_snapshot(
                 rank=rank, epoch=(service.fleet.epoch
                                   if service.fleet is not None else 0))
@@ -612,7 +613,8 @@ def main(argv=None) -> int:
                                                   sort_keys=True)))
             dump_via(os.path.join(outdir,
                                   f"metrics_ts_rank{rank}.json"),
-                     lambda f: f.write(_obs.METRICS.snapshot_json()))
+                     lambda f: f.write(json.dumps(reg_snap,
+                                                  sort_keys=True)))
             # publish to rank 0 while the links are still up: the send
             # blocks for the ACK, so after the barrier below rank 0
             # holds every rank's windows

@@ -146,6 +146,12 @@ class ShuffleService:
         self._op_t0_lock = make_lock("dist.service.op_t0")
         self.events: List[dict] = []
         self._events_lock = make_lock("dist.service.events")
+        # this process's incarnation, sent in its joins, and the last
+        # incarnation each peer joined with: a join resent after a lost
+        # ACK carries the same one and changes nothing
+        self.incarnation = os.urandom(8).hex()
+        self._joined: Dict[int, str] = {}
+        self._join_lock = make_lock("dist.service.join")
         # fallback trace context for control/replay daemon threads
         # (they have no ambient span: without this every replayed
         # shuffle_send would root a fresh orphan trace and break the
@@ -364,7 +370,25 @@ class ShuffleService:
                 self.parts.wake()
         elif typ == "join":
             joiner = int(obj.get("rank", src))
-            fleet.note_join(joiner)
+            inc = obj.get("inc")
+            with self._join_lock:
+                if (inc is not None and self._joined.get(joiner) != inc
+                        and joiner != self.rank
+                        and joiner in fleet.view().live):
+                    # only a respawned worker joins: a NEW incarnation
+                    # of a rank we still count live means the old one
+                    # died unseen (it came back before a link to it
+                    # failed, its part speculated or still awaited).
+                    # Fold the death in first, so the membership
+                    # records it, its shards move as after a seen
+                    # death, and the view we answer carries the new
+                    # epoch the joiner waits for.  A resent copy of
+                    # the same join (lost ACK) finds its incarnation
+                    # recorded and only re-notes the join
+                    fleet.note_death([joiner])
+                if inc is not None:
+                    self._joined[joiner] = inc
+                fleet.note_join(joiner)
             self.parts.wake()
             # answer the joiner with our view so it fast-forwards its
             # epoch + departed set without waiting to be fenced
@@ -851,7 +875,8 @@ class ShuffleService:
                 continue
             try:
                 self._send_ctrl(peer, {"type": "join",
-                                       "rank": self.rank})
+                                       "rank": self.rank,
+                                       "inc": self.incarnation})
             except (PeerDiedException, OSError):
                 continue
         t0 = time.monotonic()

@@ -33,9 +33,10 @@ RMM adaptor sees them.
 
 OOM events, device-memory samples and task leaks go to the
 observability spine (``record_oom_event``, ``record_device_memory``,
-``record_task_leak``); each is one switch read while it is off.
-ROADMAP step 6: the profiler's alloc/free counters, marked below.  The
-ctypes binding to the C++ port (``native_adaptor.py``) is A12's rest.
+``record_task_leak``); each is one switch read while it is off.  Every
+reservation and release is also an ``alloc``/``free`` record for a
+running profiler that asked for alloc capture
+(``utils.profiler.record_alloc``).  The ctypes binding to the C++ port (``native_adaptor.py``) is A12's rest.
 """
 
 from __future__ import annotations
@@ -1029,7 +1030,9 @@ class SparkResourceAdaptor:
                 with self._lock:
                     self._post_alloc_success_core(tid, False, likely_spill,
                                                   num_bytes)
-                # ROADMAP step 6: utils.profiler.record_alloc("alloc")
+                from spark_rapids_tpu_torch.utils.profiler import \
+                    record_alloc
+                record_alloc("alloc", num_bytes)
                 return num_bytes
             except AllocationFailed:
                 # synchronous spill BEFORE escalation: free registered
@@ -1064,7 +1067,8 @@ class SparkResourceAdaptor:
         self.resource.deallocate(num_bytes)
         with self._lock:
             self._dealloc_core(False, num_bytes)
-        # ROADMAP step 6: utils.profiler.record_alloc("free")
+        from spark_rapids_tpu_torch.utils.profiler import record_alloc
+        record_alloc("free", num_bytes)
 
     # ------------------------------------------------------ cpu alloc hooks
 

@@ -952,6 +952,12 @@ def set_heartbeat_hook(fn: Optional[Callable[[str], None]]) -> None:
     _HEARTBEAT_HOOK = fn
 
 
+def op_hooks_idle() -> bool:
+    """True when `record_op` would do nothing: no heartbeat hook and
+    the metrics switch off."""
+    return _HEARTBEAT_HOOK is None and not _SWITCH.enabled
+
+
 def record_op(op: str, dur_ns: int) -> None:
     """utils/profiler.op_range close hook."""
     hook = _HEARTBEAT_HOOK

@@ -363,10 +363,15 @@ class FlightRecorder:
         except Exception:
             files["jit_cache.json"] = "{}"
 
-        # ROADMAP step 6: utils/fault_injection's active rules freeze
-        # here once the port has the injector; until then no rule can
-        # be active, which is what the file says
-        files["fault_rules.json"] = "[]"
+        # the live fault-injection rules (srt-doctor's root-cause
+        # rule names the one that fired)
+        try:
+            from spark_rapids_tpu_torch.utils import fault_injection as fi
+            inj = fi.installed()
+            files["fault_rules.json"] = json.dumps(
+                inj.active_rules() if inj is not None else [])
+        except Exception:
+            files["fault_rules.json"] = "[]"
 
         # the most recent per-query profile rides every
         # bundle so srt-doctor can name the slowest plan node, not

@@ -171,8 +171,26 @@ class TimeseriesSampler:
         if not self.enabled:
             return None
         t0 = time.perf_counter_ns()
+        return self._tick_from(self._take(), now, t0)
+
+    def tick_with_registry(self, now: Optional[float] = None
+                           ) -> Optional[Tuple[dict, dict]]:
+        """Append one window and return it with the whole-registry fold
+        it was cut from (None when disabled).  The ring's summed
+        counter deltas equal that fold exactly, whatever other threads
+        count meanwhile; a second ``snapshot()`` after ``tick()`` would
+        also hold what a peer's frame counted between the two."""
+        if not self.enabled:
+            return None
+        t0 = time.perf_counter_ns()
+        full = self.registry.snapshot()
+        snap = full if self.families is None else {
+            n: full[n] for n in self.families if n in full}
+        return self._tick_from(snap, now, t0), full
+
+    def _tick_from(self, snap: Dict[str, dict], now: Optional[float],
+                   t0: int) -> dict:
         now = self._clock() if now is None else now
-        snap = self._take()
         with self._lock:
             last = self._last_tick
             dur = (now - last) if last is not None else self.window_s

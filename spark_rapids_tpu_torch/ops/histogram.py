@@ -16,7 +16,7 @@ import torch
 
 from spark_rapids_tpu_torch.columns import dtypes
 from spark_rapids_tpu_torch.columns.column import Column
-from spark_rapids_tpu_torch.ops.copying import gather
+from spark_rapids_tpu_torch.ops import copying as _copying
 from spark_rapids_tpu_torch.ops.exceptions import ExceptionWithRowIndex
 
 
@@ -49,7 +49,9 @@ def create_histogram_if_valid(values: Column, frequencies: Column,
     # lists mode: the element stream keeps only valid pairs; each input
     # row's list holds 0 or 1 element
     keep_idx = torch.nonzero(keep).squeeze(1)
-    kept_vals = gather(values, keep_idx)
+    # through the module: the op layer's traced gather brackets this
+    # inner call, as the JAX package's call-time import does
+    kept_vals = _copying.gather(values, keep_idx)
     kept_freqs = Column(dtypes.INT64, kept_vals.length, data=freqs[keep])
     st = Column.make_struct(kept_vals.length, [kept_vals, kept_freqs])
     offsets = torch.zeros(rows + 1, dtype=torch.int32, device=freqs.device)

@@ -35,8 +35,10 @@ An exhausted budget freezes a ``retry_exhausted`` incident bundle
 when the flight recorder is armed.
 
 Every attempt start beats the lifeguard's heartbeat
-(``robustness/lifeguard.beat``).  Not ported, marked below: the fault
-injector's rules (``utils/fault_injection.maybe_inject``, ROADMAP A16).
+(``robustness/lifeguard.beat``) and polls the injection hooks (forced
+OOMs from ``RmmSpark.force_retry_oom`` and the fault injector's rules,
+``utils/fault_injection.maybe_inject``), so injected faults fire even
+for compute-only sections that never allocate.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import observability as _obs
 from spark_rapids_tpu_torch.memory import exceptions as exc
+from spark_rapids_tpu_torch.utils import fault_injection as _fi
 from spark_rapids_tpu_torch.robustness import lifeguard as _lifeguard
 
 # what the drivers recover from (reference catch set: RetryOOM,
@@ -199,16 +202,16 @@ def _installed_adaptor():
 def check_injected_oom(name: str) -> None:
     """Attempt-start hook: consume pending forced OOMs
     (``force_retry_oom``/``force_split_and_retry_oom``/
-    ``force_cudf_exception``) for the current thread — so injected
-    faults fire even for compute-only sections that never touch the
-    allocator (reference ``RmmSpark.forceRetryOOM`` semantics).
-    ROADMAP A16: the JAX package also runs the fault injector's rules
-    against ``name`` here."""
+    ``force_cudf_exception``) for the current thread and run the
+    fault-injector rules against ``name`` — so injected faults fire
+    even for compute-only sections that never touch the allocator
+    (reference ``RmmSpark.forceRetryOOM`` semantics)."""
     adaptor = _installed_adaptor()
     if adaptor is not None:
         poll = getattr(adaptor, "check_injected_oom", None)
         if poll is not None:
             poll()
+    _fi.maybe_inject(name)
 
 
 class _Episode:

@@ -24,6 +24,8 @@ from spark_rapids_tpu_torch.ops import joins as _joins
 from spark_rapids_tpu_torch.ops import row_conversion as _rc
 from spark_rapids_tpu_torch.shim.handles import REGISTRY
 from spark_rapids_tpu_torch.shuffle import kudo as _kudo
+from spark_rapids_tpu_torch.utils.fault_injection import maybe_inject
+from spark_rapids_tpu_torch.utils.profiler import op_range
 
 
 def _cols(handles: Sequence[int]) -> List[Column]:
@@ -43,48 +45,66 @@ def column_to_host(handle: int):
 
 
 # --------------------------------------------------------------- ops
-# ROADMAP step 6: the JAX package opens each export with a
-# fault-injection check (maybe_inject) and an NVTX-like op_range
+# (each export follows the reference JNI shape: inject-check, NVTX-like
+# range, unwrap handles, run, wrap result; the op layer's own traced
+# bracket sees the door's and is skipped, so one call records once)
 
 
 def murmur_hash3_32(seed: int, column_handles: Sequence[int]) -> int:
-    return REGISTRY.register(_hash.murmur3_32(_cols(column_handles), seed))
+    maybe_inject("murmur3_32")
+    with op_range("murmur3_32"):
+        return REGISTRY.register(
+            _hash.murmur3_32(_cols(column_handles), seed))
 
 
 def xx_hash_64(seed: int, column_handles: Sequence[int]) -> int:
-    return REGISTRY.register(_hash.xxhash64(_cols(column_handles), seed))
+    maybe_inject("xxhash64")
+    with op_range("xxhash64"):
+        return REGISTRY.register(
+            _hash.xxhash64(_cols(column_handles), seed))
 
 
 def hive_hash(column_handles: Sequence[int]) -> int:
-    return REGISTRY.register(_hash.hive_hash(_cols(column_handles)))
+    maybe_inject("hive_hash")
+    with op_range("hive_hash"):
+        return REGISTRY.register(_hash.hive_hash(_cols(column_handles)))
 
 
 def convert_to_rows(table_handles: Sequence[int]) -> int:
-    return REGISTRY.register(
-        _rc.convert_to_rows(Table(_cols(table_handles))))
+    maybe_inject("convert_to_rows")
+    with op_range("convert_to_rows"):
+        return REGISTRY.register(
+            _rc.convert_to_rows(Table(_cols(table_handles))))
 
 
 def convert_from_rows(rows_handle: int, type_ids: Sequence[str],
                       scales: Sequence[int]) -> List[int]:
-    schema = [DType(k, s) for k, s in zip(type_ids, scales)]
-    out = _rc.convert_from_rows(REGISTRY.get(rows_handle), schema)
-    return [REGISTRY.register(c) for c in out.columns]
+    maybe_inject("convert_from_rows")
+    with op_range("convert_from_rows"):
+        schema = [DType(k, s) for k, s in zip(type_ids, scales)]
+        out = _rc.convert_from_rows(REGISTRY.get(rows_handle), schema)
+        return [REGISTRY.register(c) for c in out.columns]
 
 
 def string_to_integer(column_handle: int, type_id: str,
                       ansi_mode: bool, strip: bool) -> int:
     """CAST(string AS integral) of a STRING column handle
     (CastStrings.toInteger)."""
-    return REGISTRY.register(_cast.string_to_integer(
-        REGISTRY.get(column_handle), DType(type_id), ansi_mode, strip))
+    maybe_inject("string_to_integer")
+    with op_range("string_to_integer"):
+        return REGISTRY.register(_cast.string_to_integer(
+            REGISTRY.get(column_handle), DType(type_id), ansi_mode,
+            strip))
 
 
 def get_json_object(column_handle: int, path: str) -> int:
     """Spark get_json_object over a STRING column handle
     (JSONUtils.getJsonObject)."""
-    from spark_rapids_tpu_torch.ops.json_path import get_json_object
-    return REGISTRY.register(get_json_object(REGISTRY.get(column_handle),
-                                             path))
+    maybe_inject("get_json_object")
+    with op_range("get_json_object"):
+        from spark_rapids_tpu_torch.ops import json_path
+        return REGISTRY.register(json_path.get_json_object(
+            REGISTRY.get(column_handle), path))
 
 
 def sort_merge_inner_join(left_handles: Sequence[int],
@@ -92,20 +112,21 @@ def sort_merge_inner_join(left_handles: Sequence[int],
                           compare_nulls_equal: bool) -> List[int]:
     """The inner join's gather maps as two INT32 column handles (left
     indices, right indices)."""
-    li, ri = _joins.sort_merge_inner_join(
-        Table(_cols(left_handles)), Table(_cols(right_handles)),
-        _joins.NULL_EQUAL if compare_nulls_equal else _joins.NULL_UNEQUAL)
-    return [REGISTRY.register(Column(dtypes.INT32, int(li.shape[0]),
-                                     data=li)),
-            REGISTRY.register(Column(dtypes.INT32, int(ri.shape[0]),
-                                     data=ri))]
+    maybe_inject("sort_merge_inner_join")
+    with op_range("sort_merge_inner_join"):
+        li, ri = _joins.sort_merge_inner_join(
+            Table(_cols(left_handles)), Table(_cols(right_handles)),
+            _joins.NULL_EQUAL if compare_nulls_equal
+            else _joins.NULL_UNEQUAL)
+        return [REGISTRY.register(Column(dtypes.INT32, int(li.shape[0]),
+                                         data=li)),
+                REGISTRY.register(Column(dtypes.INT32, int(ri.shape[0]),
+                                         data=ri))]
 
 
 # --------------------------------------------------------------- ingest
 # (the storage-side doors: zero-copy Arrow C-interface hand-off and the
 # columnar parquet reader — reference NativeParquetJni surface)
-# ROADMAP step 6: each opens with maybe_inject and an op_range in the
-# JAX package
 
 
 def arrow_ingest(batch, device="cuda") -> List[int]:
@@ -114,15 +135,18 @@ def arrow_ingest(batch, device="cuda") -> List[int]:
     with one upload per buffer on the card; returns one handle per
     column.  The registry entries keep the Arrow buffers alive — the
     caller may free its batch immediately."""
-    from spark_rapids_tpu_torch.io.arrow_cabi import ingest
-    cols, _names = ingest(batch, device)
-    handles = [REGISTRY.register(c) for c in cols]
-    # ingest-epoch door: an Arrow batch has no stable file identity, so
-    # every hand-off is new data — results keyed over the "arrow"
-    # source go stale unconditionally
-    from spark_rapids_tpu_torch.perf.result_cache import bump_ingest_epoch
-    bump_ingest_epoch("arrow")
-    return handles
+    maybe_inject("arrow_ingest")
+    with op_range("arrow_ingest"):
+        from spark_rapids_tpu_torch.io.arrow_cabi import ingest
+        cols, _names = ingest(batch, device)
+        handles = [REGISTRY.register(c) for c in cols]
+        # ingest-epoch door: an Arrow batch has no stable file
+        # identity, so every hand-off is new data — results keyed over
+        # the "arrow" source go stale unconditionally
+        from spark_rapids_tpu_torch.perf.result_cache import \
+            bump_ingest_epoch
+        bump_ingest_epoch("arrow")
+        return handles
 
 
 def parquet_read_table(path: str, columns=None,
@@ -130,10 +154,12 @@ def parquet_read_table(path: str, columns=None,
                        device="cuda") -> List[int]:
     """Columnar parquet read with footer-pruned projection pushdown;
     returns one handle per (kept) column, in file schema order."""
-    from spark_rapids_tpu_torch.io.parquet_reader import read_table
-    table = read_table(path, columns=columns,
-                       case_sensitive=case_sensitive, device=device)
-    return [REGISTRY.register(c) for c in table.columns]
+    maybe_inject("parquet_read_table")
+    with op_range("parquet_read_table"):
+        from spark_rapids_tpu_torch.io.parquet_reader import read_table
+        table = read_table(path, columns=columns,
+                           case_sensitive=case_sensitive, device=device)
+        return [REGISTRY.register(c) for c in table.columns]
 
 
 # ------------------------------------------------------------ kudo crc
@@ -502,6 +528,49 @@ def attribution_last_json() -> str:
     led = obs.attribution_last()
     return json.dumps(led, sort_keys=True, default=str) \
         if led is not None else ""
+
+
+# ------------------------------------------------------ fault injection
+# (reference: libcufaultinj loaded via CUDA_INJECTION64_PATH with a
+# FAULT_INJECTOR_CONFIG_PATH JSON; here the JVM drives the same
+# hot-reloadable injector through the shim)
+
+
+def fault_injection_install(config_path: str = "", watch: bool = True,
+                            interval_ms: int = 0) -> int:
+    """Install the process-global injector; an empty path falls back
+    to $FAULT_INJECTOR_CONFIG_PATH.  interval_ms <= 0 keeps the
+    default watch poll.  Returns the active rule count (a missing
+    config is tolerated: 0 rules, watcher retrying)."""
+    from spark_rapids_tpu_torch.utils import fault_injection as fi
+    interval_ms = int(interval_ms)
+    inj = fi.install(config_path or None, watch=bool(watch),
+                     interval_ms=interval_ms if interval_ms > 0
+                     else None)
+    return len(inj.active_rules())
+
+
+def fault_injection_uninstall() -> None:
+    from spark_rapids_tpu_torch.utils import fault_injection as fi
+    fi.uninstall()
+
+
+def fault_injection_config_path() -> str:
+    """The installed injector's config path ('' when no injector or no
+    path is installed)."""
+    from spark_rapids_tpu_torch.utils import fault_injection as fi
+    inj = fi.installed()
+    return (inj.config_path or "") if inj is not None else ""
+
+
+def fault_injection_rules_json() -> str:
+    """Live rule snapshot as JSON (match/probability/remaining/
+    exception per rule) — the JVM-side hot-reload assertion surface."""
+    import json
+
+    from spark_rapids_tpu_torch.utils import fault_injection as fi
+    inj = fi.installed()
+    return json.dumps(inj.active_rules() if inj is not None else [])
 
 
 # ----------------------------------------------------------- jit cache

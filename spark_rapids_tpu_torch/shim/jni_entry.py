@@ -16,14 +16,15 @@ device of the columns its handles name.
 The observability entries (``metrics_*``, ``tracing_*``, ``profile_*``,
 ``flight_recorder_*``, ``incident_*``, ``health_json``,
 ``timeseries_*``, ``slo_*``, ``attribution_*``, ``jit_cache_*``,
-``result_cache_*``, ``stats_*``), device telemetry (``telemetry_*``)
-and the query server's entries (``server_*``) are here.
+``result_cache_*``, ``stats_*``), device telemetry (``telemetry_*``),
+the op layer's sidecars (``profiler_*``, ``fault_injection_*``) and the
+query server's entries (``server_*``) are here.
 ROADMAP step 6 (A16's rest) brings the remainder of the JAX module to
 this one: initialize/shutdown (which configured JAX there), the bulk
 string ingest and readback, the kudo write memo that `free` purges and
 the host tables (guarded there by the lockdep locks
 ``shim.kudo_cache`` and ``shim.host_tables``, which come with them),
-the profiler and fault-injection entries, and the entries of the ops
+and the entries of the ops
 that earlier slices ported into jni_api (hashes, row conversion, the
 string casts, parse_url, JSON, joins, datetime, ingest).  The
 comments below mark where each group goes.
@@ -453,8 +454,27 @@ def attribution_last_json() -> str:
     return jni_api.attribution_last_json()
 
 
-# ROADMAP step 6: the fault_injection_* entries come with
-# utils/fault_injection.
+def fault_injection_install(config_path: str = "", watch: bool = True,
+                            interval_ms: int = 0) -> int:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.fault_injection_install(str(config_path),
+                                           bool(watch),
+                                           int(interval_ms))
+
+
+def fault_injection_uninstall() -> None:
+    from spark_rapids_tpu_torch.shim import jni_api
+    jni_api.fault_injection_uninstall()
+
+
+def fault_injection_config_path() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.fault_injection_config_path()
+
+
+def fault_injection_rules_json() -> str:
+    from spark_rapids_tpu_torch.shim import jni_api
+    return jni_api.fault_injection_rules_json()
 
 
 def jit_cache_stats() -> str:
@@ -544,9 +564,55 @@ def telemetry_device_name(index: int, device=None) -> str:
     return f"{info.platform}:{info.kind}"
 
 
-# ROADMAP step 6: device_attr_is_integrated, then the profiler, kudo
-# write/merge (with its memo) and host-table spill entries go here,
-# between the telemetry entries and the query server's.
+# ROADMAP step 6: device_attr_is_integrated goes here, before the
+# profiler's entries; kudo write/merge (with its memo) and the
+# host-table spill entries go after them, before the query server's.
+
+
+# ---------------------------------------------------------- Profiler
+
+
+def profiler_init(output_path: str, flush_period_millis: int,
+                  alloc_capture: bool) -> None:
+    """Profiler.init with a file sink (the reference's DataWriter
+    callback shape delivered to a path instead of a JVM method —
+    Profiler.java:36-120, profiler_serializer.hpp:30-65).  'wb': a
+    profile file holds ONE process's records (t_ns is per-process
+    monotonic; appended runs would interleave in the converter)."""
+    from spark_rapids_tpu_torch.utils.profiler import Config, Profiler
+    f = open(output_path, "wb")
+
+    def writer(blob: bytes):
+        f.write(blob)
+        f.flush()
+
+    cfg = Config(flush_period_millis=flush_period_millis,
+                 alloc_capture=alloc_capture)
+    try:
+        prof = Profiler.init(writer, cfg)
+    except Exception:
+        f.close()          # double-init must not leak the descriptor
+        raise
+    prof.sink_close = f.close  # Profiler.shutdown closes every path
+
+
+def profiler_start() -> None:
+    from spark_rapids_tpu_torch.utils.profiler import Profiler
+    inst = Profiler.get()
+    if inst is not None:
+        inst.start()
+
+
+def profiler_stop() -> None:
+    from spark_rapids_tpu_torch.utils.profiler import Profiler
+    inst = Profiler.get()
+    if inst is not None:
+        inst.stop()
+
+
+def profiler_shutdown() -> None:
+    from spark_rapids_tpu_torch.utils.profiler import Profiler
+    Profiler.shutdown()
 
 
 # --------------------------------------------------------- query server

@@ -1,1 +1,2 @@
-"""Bit helpers and the CUDA build/load machinery."""
+"""Bit helpers, the CUDA build/load machinery, telemetry and the op
+layer's sidecars (profiler, fault injector, op brackets)."""

@@ -12,6 +12,7 @@ report and doctor cases are A14 tools and stay there.
 """
 
 import io
+import json
 import os
 import struct
 import threading
@@ -551,6 +552,54 @@ class TestElasticExchange:
             t0 = time.monotonic()
             svcs[0].elastic_barrier(903, deadline_s=20)
             assert time.monotonic() - t0 < 5
+        finally:
+            for s in svcs:
+                s.stop()
+
+    def test_join_from_a_rank_counted_live_records_its_death(
+            self, tmp_path, crc_on):
+        """Only a respawned worker joins, so a join from a new
+        incarnation of a rank still counted live proves the previous
+        one died unseen (the launcher respawned it before any link to
+        it failed): the survivor records the death, then the join, and
+        answers the joiner a view at the new epoch.  The same join
+        delivered twice (a resend after a lost ACK) records one death;
+        a join after a seen death records the join alone."""
+        svcs = _services(tmp_path, 3)
+        try:
+            fleet = svcs[0].fleet
+            join = json.dumps({"type": "join", "rank": 2,
+                               "inc": "a1"}).encode()
+            svcs[0].on_ctrl(2, 0, join)
+            assert [(e["change"], e["dead"]) for e in fleet.events] == [
+                ("death", [2]), ("join", [])]
+            assert fleet.epoch == 2 and 2 in fleet.view().live
+            assert 2 in fleet.view().departed
+            svcs[0].on_ctrl(2, 0, join)
+            assert [e["change"] for e in fleet.events].count("death") == 1
+            assert fleet.epoch == 2 and 2 in fleet.view().live
+            svcs[1].fleet.note_death([2])
+            svcs[1].on_ctrl(2, 0, join)
+            assert [(e["change"], e["dead"]) for e in
+                    svcs[1].fleet.events] == [("death", [2]), ("join", [])]
+            assert svcs[1].fleet.epoch == 2
+        finally:
+            for s in svcs:
+                s.stop()
+
+    def test_join_without_an_incarnation_records_no_death(
+            self, tmp_path, crc_on):
+        """A join that names no incarnation (the JAX service's form)
+        cannot be told from a resend, so it records the join alone, as
+        the JAX service does."""
+        svcs = _services(tmp_path, 3)
+        try:
+            fleet = svcs[0].fleet
+            join = json.dumps({"type": "join", "rank": 2}).encode()
+            svcs[0].on_ctrl(2, 0, join)
+            svcs[0].on_ctrl(2, 0, join)
+            assert fleet.events == []
+            assert fleet.epoch == 0 and 2 in fleet.view().live
         finally:
             for s in svcs:
                 s.stop()

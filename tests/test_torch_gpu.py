@@ -46,7 +46,12 @@ the card served from pool threads against the main thread's rows, the
 flagship step registered as a query and launching the fixed-width
 to-rows kernel from two pool threads at once, a hung worker's task
 force-released so a card query queued behind it finishes, and
-chip_smoke.py's server phase at a small size.
+chip_smoke.py's server phase at a small size; and the op layer's
+sidecars: the profiler's op ranges around the flagship step on the card
+(one each for the two hashes and the to-rows kernel's call, whose
+launch count is unchanged), a seeded fault on convert_to_rows around
+the to-rows kernel (raised before it launches, the next call byte-equal
+to the plain version), and chip_smoke.py's tools phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1387,3 +1392,88 @@ def test_server_phase_on_card_small(cuda, tmp_path, monkeypatch):
     assert res["lifeguard"]["incidents"] == ["admission_stall",
                                              "query_hang"]
     assert res["dynamo_graphs_added"] == 0
+
+
+@pytest.mark.gpu
+def test_op_ranges_around_the_flagship_step_on_card(cuda):
+    from spark_rapids_tpu_torch.utils import profiler as PROF
+    inputs = F.example_inputs(1 << 16, device="cuda")
+    blobs = []
+    p = PROF.Profiler.init(blobs.append, PROF.Config(write_buffer_size=1))
+    try:
+        p.start()
+        RA.reset_launches()
+        out = F.flagship_step(*inputs)
+        torch.cuda.synchronize()
+        launches = dict(RA.LAUNCHES)["to_rows"]
+        p.stop()
+    finally:
+        PROF.Profiler.shutdown()
+    names = [r["name"] for b in blobs for r in PROF.iter_records(b)
+             if r["kind"] == "op_range"]
+    assert names == ["murmur3_32", "xxhash64", "convert_to_rows"]
+    assert launches == 1
+    ref = F.flagship_step(*F.example_inputs(1 << 16, device="cpu"))
+    for got, want in zip(out, ref):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_injected_fault_around_the_to_rows_kernel_on_card(cuda, tmp_path):
+    from spark_rapids_tpu_torch.memory import exceptions as EXC
+    from spark_rapids_tpu_torch.utils import fault_injection as FI
+    table = make_table(1000, 20, "cuda", seed=21, nullable_every=3)
+    cfg = tmp_path / "faults.json"
+    cfg.write_text(json.dumps({"seed": 21, "faults": [
+        {"match": "convert_to_rows", "repeat": 1,
+         "exception": "GpuRetryOOM"}]}))
+    FI.install(str(cfg), watch=False)
+    try:
+        RA.reset_launches()
+        with pytest.raises(EXC.GpuRetryOOM):
+            RC.convert_to_rows(table)
+        assert dict(RA.LAUNCHES)["to_rows"] == 0
+        rows = RC.convert_to_rows(table)
+        assert dict(RA.LAUNCHES)["to_rows"] == 1
+    finally:
+        FI.uninstall()
+    e_to, e_from = compare_kernels(table)
+    assert e_to == 0 and e_from == 0
+    back = RC.convert_from_rows(rows, [c.dtype for c in table.columns])
+    for a, b in zip(table.columns, back.columns):
+        assert torch.equal(a.data, b.data)
+
+
+@pytest.mark.gpu
+def test_tools_phase_on_card_small(cuda, tmp_path, monkeypatch):
+    import chip_smoke as C
+    monkeypatch.setattr(C, "_BUILD", str(tmp_path))
+    C.server_phase(
+        "cuda", params=C.SERVER_SMALL, flagship_rows=1 << 16,
+        q9_rows=1 << 12,
+        deadline_q5=dict(C.SERVER_SMALL_DEADLINE_Q5, rows=1 << 24))
+    for r in range(2):
+        C.keep_json_for_tools({
+            "profile_version": 1, "query_id": f"q5-rank{r}",
+            "query": "dist_q5", "tenant": "", "rank": r, "world": 2,
+            "trace_id": "t0", "t_unix_ms": 1000 + r,
+            "wall_ns": 1_000_000,
+            "stages": [{"stage": "q5_partials", "digest": "d",
+                        "engine": "fused", "compiled": r == 0,
+                        "wall_ns": 1_000_000, "calls": 1,
+                        "dispatches": 1, "nodes_total": 3, "nodes": [],
+                        "inputs": []}],
+            "hot_stage": "q5_partials", "ops": {}, "tasks": {},
+            "events": {}, "retries": {"episodes": 0, "attempts": 0},
+            "oom": {"retry": 0, "split_retry": 0, "blocked_ns": 0},
+            "kernel_paths": {}, "jit": {},
+            "shuffle_links": {"bytes": {}}, "spans": {}},
+            "dist", f"profile_q5_rank{r}.json")
+    C.keep_json_for_tools({"rank": 0, "epoch": 0, "windows": [
+        {"window": 0, "t_unix_ms": 0, "dur_s": 1.0,
+         "counters": {"srt_x_total": {"": 1}}, "gauges": {},
+         "histograms": {}}]}, "plane", "timeseries_rank0.json")
+    res = C.tools_phase("cuda", flagship_rows=1 << 16)
+    assert res["sidecars"]["launches"] == {
+        k: C.TOOLS_ITERS for k in ("off", "bracket", "profiler", "tracing")}
+    assert res["faults"]["doctor_first"]["kind"] == "fault_injection"

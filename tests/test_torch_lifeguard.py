@@ -759,3 +759,59 @@ def test_drain_server_leaves_a_newer_servers_door_alone(tmp_path):
                 old.stop()
     port, ref = both(seq)
     assert port == ref == ["drained", True, True]
+
+
+# --------------------------------------------------- the doctor's half
+
+
+def hung_worker_bundle(P, out_dir):
+    """A silent worker declared hung under an armed flight recorder; the
+    query_hang bundle's path."""
+    P.obs.enable()
+    P.obs.reset()
+    P.obs.enable_flight_recorder(out_dir=str(out_dir), min_interval_s=0.0)
+    release, entered = threading.Event(), threading.Event()
+
+    def runner(query, params, ctx):
+        if query == "wedge":
+            entered.set()
+            release.wait(30)        # silent: no beat, no poll
+            return ["late"]
+        return ["ok", query]
+
+    s = lifeguard_server(P, runner, hang_s=0.15)
+    try:
+        qid = s.submit("victim_tenant", "wedge", {"rows": 7})
+        assert entered.wait(10)
+        assert s.poll(qid, timeout_s=20)["state"] == "failed"
+        release.set()
+        assert wait_for(lambda: s.stats()["lifeguard"]
+                        ["orphaned_workers"] == 0)
+    finally:
+        release.set()
+        s.stop()
+        P.obs.disable_flight_recorder()
+    return str(out_dir)
+
+
+def test_doctor_reads_the_hung_worker_bundle(tmp_path):
+    """The doctor half of the reference's hung-worker case: each
+    package's query_hang bundle, read by both packages' doctors, names
+    the hung query and where its worker was stuck."""
+    from spark_rapids_tpu.tools import doctor as JD
+    from spark_rapids_tpu_torch.tools import doctor as PD
+    for P in (PORT, JAX):
+        out = hung_worker_bundle(P, tmp_path / P.name)
+        bundles = PD.find_bundles(out)
+        assert bundles and bundles == JD.find_bundles(out)
+        b = PD.Bundle(bundles[-1])
+        assert b.trigger["kind"] == "query_hang"
+        detail = b.trigger["detail"]
+        assert detail["query"] == "wedge"
+        assert detail["tenant"] == "victim_tenant"
+        assert detail["silent_ms"] >= 100
+        findings = PD.analyze(b)
+        assert findings == JD.analyze(JD.Bundle(bundles[-1]))
+        hang = [f for f in findings if f["kind"] == "query_hang"]
+        assert hang and "'wedge'" in hang[0]["message"]
+        assert any(f["kind"] == "hung_stack" for f in findings)

@@ -11,12 +11,12 @@ tracing on, then compares:
   * the span trees: (name, kind, parent's name, attributes without the
     time-valued ones, link count), never ids or times.
 
-What only the JAX package records is left out of the comparison and
-named here: the op brackets its ops layer opens around every public op
-(``span_kind="op"`` spans and ``srt_op_latency_ns``; ROADMAP step 6 in
-the port) and the compile-cache events of the programs it compiles per
-row bucket (off here through ``SPARK_RAPIDS_TPU_JIT_CACHE=0``; the
-port runs those ops eagerly and takes no cache entry for them).
+The op brackets both ops layers open around every public op
+(``span_kind="op"`` spans and ``srt_op_latency_ns``) are compared like
+any other record.  What only the JAX package records is left out and
+named here: the compile-cache events of the programs it compiles per
+row bucket (off here through ``SPARK_RAPIDS_TPU_JIT_CACHE=0``; the port
+runs those ops eagerly and takes no cache entry for them).
 
 Every test starts with the Monitor's liveness stamp cleared in both
 packages and no Monitor thread left running (``both_on``), and the
@@ -46,13 +46,10 @@ TIME_FAMILIES = {
     "srt_shuffle_wire_ns_total", "srt_shuffle_wait_ns_total",
     "srt_monitor_last_sample_age_s", "srt_profile_assembly_ns",
     "srt_attribution_ns_total", "srt_jit_compile_ns",
-    "srt_stats_sketch_ns", "srt_timeseries_tick_ns",
+    "srt_stats_sketch_ns", "srt_timeseries_tick_ns", "srt_op_latency_ns",
 }
 # span attributes holding times
 TIME_ATTRS = {"lost_ns", "wall_ns"}
-# what only the JAX package records (see the module docstring)
-JAX_ONLY_SPAN_KINDS = {"op"}
-JAX_ONLY_FAMILIES = {"srt_op_latency_ns"}
 
 
 def stop_stray_monitors():
@@ -106,19 +103,11 @@ def exposition(o):
     """(exact lines, time-valued series -> value) of one package."""
     exact, timed = [], {}
     for ln in o.expose_text().splitlines():
-        if 'span_kind="op"' in ln:
-            continue
         if ln.startswith("#"):
-            fam = ln.split()[2]
-            if fam not in JAX_ONLY_FAMILIES:
-                exact.append(ln)
+            exact.append(ln)
             continue
         key, value = ln.rsplit(" ", 1)
         fam, suffix = _family(key)
-        if fam in JAX_ONLY_FAMILIES or \
-                fam[:-len("_bucket")] in JAX_ONLY_FAMILIES or \
-                fam.rsplit("_", 1)[0] in JAX_ONLY_FAMILIES:
-            continue
         if fam in TIME_FAMILIES and suffix != "_count":
             timed[key] = float(value)
         else:
@@ -126,16 +115,10 @@ def exposition(o):
     return exact, timed
 
 
-def kept(rec):
-    return not (rec.get("kind") == "span"
-                and rec.get("span_kind") in JAX_ONLY_SPAN_KINDS)
-
-
 def journal_kinds(o):
     out = {}
     for r in o.JOURNAL.records():
-        if kept(r):
-            out[r["kind"]] = out.get(r["kind"], 0) + 1
+        out[r["kind"]] = out.get(r["kind"], 0) + 1
     return out
 
 
@@ -145,16 +128,12 @@ def span_tree(o):
 
     def parent_name(r):
         p = by_id.get(r["parent_id"])
-        while p is not None and p["span_kind"] in JAX_ONLY_SPAN_KINDS:
-            p = by_id.get(p["parent_id"])
         if p is not None:
             return p["name"]
         return "<outside>" if r["parent_id"] else None
 
     tree = []
     for r in recs:
-        if r["span_kind"] in JAX_ONLY_SPAN_KINDS:
-            continue
         attrs = {k: v for k, v in (r.get("attrs") or {}).items()
                  if k not in TIME_ATTRS}
         tree.append((r["name"], r["span_kind"], parent_name(r),
@@ -876,3 +855,72 @@ def test_scripted_server_run_records_like_the_reference(monkeypatch):
          "server_complete", "server_cancel"))
     # blocker, and oom's two attempts (the victim was cancelled queued)
     assert sum(1 for t in tree if t[0].startswith("server_query:")) == 3
+
+
+# ------------------------------------------------------------- op layer
+
+
+def test_op_brackets_record_like_the_reference():
+    """The op layer's brackets: the same public ops called directly, on
+    a task thread, and through the JVM door give the same op spans (name
+    and parent), the same ``srt_op_latency_ns`` sample counts per op and
+    the same per-task op counts in both packages."""
+    from spark_rapids_tpu.shim import jni_api as JAPI
+    from spark_rapids_tpu_torch.shim import jni_api as PAPI
+    rng = np.random.default_rng(19)
+    specs = [host_column(rng, k, 200, nullable=True)
+             for k in ("int64", "int32", "float64")]
+
+    def run(o, ops, rc, api, table, dtype):
+        with o.TRACER.span("op_query", kind="query"):
+            t = table(specs)
+            ops.murmur3_32(t, 42)
+            ops.xxhash64(t)
+            ops.hive_hash(t)
+            rows = rc.convert_to_rows(t)
+            rc.convert_from_rows(rows, [c.dtype for c in t.columns])
+        o.TASKS.bind_thread(threading.get_ident(), [5])
+        try:
+            ops.murmur3_32(table(specs), 7)
+        finally:
+            o.TASKS.unbind_thread(threading.get_ident())
+        h = api.make_column_from_host([1, 2, 3], dtype)
+        api.murmur_hash3_32(42, [h])
+        api.release_column(h)
+
+    from spark_rapids_tpu import ops as jops
+    from spark_rapids_tpu.columns import dtypes as JD
+    from spark_rapids_tpu.ops import row_conversion as jrc
+    from spark_rapids_tpu_torch import ops as pops
+    from spark_rapids_tpu_torch.columns import dtypes as PD
+    from spark_rapids_tpu_torch.ops import row_conversion as prc
+
+    def port_api_column(values, dtype):
+        return PAPI.make_column_from_host(values, dtype, device="cpu")
+
+    run(obs, pops, prc, type("A", (), {
+        "make_column_from_host": staticmethod(port_api_column),
+        "murmur_hash3_32": staticmethod(PAPI.murmur_hash3_32),
+        "release_column": staticmethod(PAPI.release_column)}),
+        port_table, PD.INT32)
+    run(jobs, jops, jrc, JAPI, jax_table, JD.INT32)
+
+    def observed(o):
+        recs = o.TRACER.records()
+        by_id = {r["span_id"]: r for r in recs}
+        spans = sorted(
+            (r["name"], (by_id.get(r["parent_id"]) or {}).get("name", "-"))
+            for r in recs if r["span_kind"] == "op")
+        counts = sorted(ln for ln in o.expose_text().splitlines()
+                        if ln.startswith("srt_op_latency_ns_count"))
+        ops_by_task = {t: {op: v["calls"] for op, v in
+                               (row.get("ops") or {}).items()}
+                       for t, row in o.TASKS.rollup().items()}
+        return spans, counts, ops_by_task
+
+    port, ref = observed(obs), observed(jobs)
+    assert port == ref
+    spans, counts, _ = port
+    assert ("convert_to_rows", "op_query") in spans
+    assert spans.count(("murmur3_32", "-")) == 2
+    assert 'srt_op_latency_ns_count{op="murmur3_32"} 3' in counts

@@ -21,7 +21,7 @@ LATER = {
     "plan": {"fused_pipeline_fn": "A10(b), step 3(b)"},
 }
 # JAX packages the port does not have yet
-LATER_PACKAGES = {"tools": "A14 step 5(d)"}
+LATER_PACKAGES = {}
 
 
 def bound_names(path):

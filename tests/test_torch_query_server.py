@@ -1007,3 +1007,106 @@ def test_server_phase_rehearsal_on_cpu(monkeypatch, tmp_path):
     assert res["socket_drain"]["drain"]["abandoned"] == 0
     assert res["dynamo_graphs_added"] == 0
     assert TS.get_server() is None
+
+
+# ----------------------------------------------------- the tools' half
+
+
+def test_metrics_report_server_table(tmp_path):
+    """The reference's server-table case: each package's journal dump,
+    read by both packages' metrics_report, gives the same report and
+    the same rendered server table."""
+    from spark_rapids_tpu.tools import metrics_report as JMR
+    from spark_rapids_tpu_torch.tools import metrics_report as PMR
+
+    def dump(P):
+        P.obs.enable()
+        P.obs.reset()
+        run, gate, started = gated()
+
+        def runner(query, params, ctx):
+            if query == "q_ok":
+                return [1]
+            return run(query, params, ctx)
+
+        s = make_server(P, runner, concurrency=1, max_queue=1)
+        try:
+            qid = s.submit("acme", "q_ok")
+            assert s.poll(qid, timeout_s=20)["state"] == "done"
+            s.submit("acme", "blocker")
+            assert wait_for(lambda: started == ["blocker"])
+            s.submit("acme", "queued")      # queue full from here on
+            with pytest.raises(P.server.ServerOverloaded):
+                s.submit("acme", "flood")
+            gate.set()
+        finally:
+            gate.set()
+            s.stop()
+        path = str(tmp_path / f"{P.name}.jsonl")
+        P.obs.dump_journal_jsonl(path)
+        P.obs.reset()
+        P.obs.disable()
+        return path
+
+    for path in both(dump):
+        report = PMR.build_report(PMR.load_jsonl([path]))
+        assert report == JMR.build_report(JMR.load_jsonl([path]))
+        rows = {(r["tenant"], r["query"]): r for r in report["server"]}
+        assert rows[("acme", "*")]["admitted"] >= 1
+        assert rows[("acme", "*")]["rejected"] >= 1
+        assert rows[("acme", "q_ok")]["success"] == 1
+        _rollup, registry, events = PMR.split_records(
+            PMR.load_jsonl([path]))
+        lines = "\n".join(PMR.render_server_table(events, registry))
+        assert "acme:*" in lines and "acme:q_ok" in lines
+        _r, jreg, jev = JMR.split_records(JMR.load_jsonl([path]))
+        assert lines == "\n".join(JMR.render_server_table(jev, jreg))
+
+
+def test_admission_stall_doctor_names_the_memory_holder(tmp_path):
+    """The doctor half of the reference's admission-stall case: each
+    package's admission_stall bundle, read by both doctors, carries the
+    stall and names the tenant holding device memory."""
+    from spark_rapids_tpu.tools import doctor as JD
+    from spark_rapids_tpu_torch.tools import doctor as PD
+
+    def bundle(P):
+        P.obs.enable()
+        P.obs.reset()
+        out_dir = tmp_path / P.name
+        P.obs.enable_flight_recorder(out_dir=str(out_dir),
+                                     min_interval_s=0.0)
+        run, gate, started = gated()
+        held = {"hog": 123 << 20, "victim": 0}
+        cfg = P.server.ServerConfig(max_concurrency=1, max_queue=8,
+                                    stall_ms=1)
+        s = P.server.QueryServer(cfg, runner=run,
+                                 device_bytes_fn=held.get).start()
+        try:
+            blocker = s.submit("hog", "blocker")
+            assert wait_for(lambda: started == ["blocker"])
+            victim = s.submit("victim", "stalled")
+            time.sleep(0.05)   # queue wait must cross the 1ms stall bar
+            gate.set()
+            assert s.poll(victim, timeout_s=20)["state"] == "done"
+            assert s.poll(blocker, timeout_s=20)["state"] == "done"
+        finally:
+            gate.set()
+            s.stop()
+            P.obs.disable_flight_recorder()
+        P.obs.reset()
+        P.obs.disable()
+        return str(out_dir)
+
+    for out in both(bundle):
+        bundles = PD.find_bundles(out)
+        assert bundles, "admission stall produced no incident bundle"
+        b = PD.Bundle(bundles[-1])
+        assert b.trigger["kind"] == "admission_stall"
+        findings = PD.analyze(b)
+        assert findings == JD.analyze(JD.Bundle(bundles[-1]))
+        kinds = {f["kind"] for f in findings}
+        assert "admission_stall" in kinds
+        memory = [f for f in findings if f["kind"] == "tenant_memory"]
+        assert memory and "'hog'" in memory[0]["message"]
+        assert "123.0 MiB" in memory[0]["message"]

@@ -507,3 +507,152 @@ def test_q3_runs_through_the_gate_like_the_reference(monkeypatch):
                               for k, v in host.items()})
         outs.append([np.asarray(o).tolist() for o in out])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------- CLI
+# (the reference suite's TestCli over the port's srt-check, each output
+# held against the JAX CLI's where both lint the same file)
+
+
+def cli(pkg, argv, capsys):
+    import importlib
+    mod = importlib.import_module(f"{pkg}.tools.srt_check")
+    rc = mod.main(argv)
+    return rc, capsys.readouterr().out
+
+
+class TestCli:
+    def test_list_rules(self, capsys):
+        rc, out = cli("spark_rapids_tpu_torch", ["--list-rules"], capsys)
+        assert rc == 0
+        for rid in ("SRT000", "SRT003", "SRT005", "SRT006", "SRT008",
+                    "SRT009"):
+            assert rid in out
+        assert (rc, out) == cli("spark_rapids_tpu", ["--list-rules"],
+                                capsys)
+
+    def test_lint_single_file_json_golden(self, tmp_path, capsys):
+        import json
+        bad = tmp_path / "spark_rapids_tpu_torch" / "plan"
+        bad.mkdir(parents=True)
+        (bad / "ir.py").write_text("import time\nt = time.time()\n")
+        rc, out = cli("spark_rapids_tpu_torch",
+                      ["--root", str(tmp_path), "--no-docs-check",
+                       "--json", "spark_rapids_tpu_torch/plan/ir.py"],
+                      capsys)
+        assert rc == 1
+        got = json.loads(out)
+        assert got["version"] == 1 and got["files"] == 1
+        assert [f["rule"] for f in got["findings"]] == ["SRT005"]
+        assert got["findings"][0]["path"] == \
+            "spark_rapids_tpu_torch/plan/ir.py"
+        assert got["findings"][0]["line"] == 2
+
+    def test_plan_mode_json(self, capsys):
+        import json
+        rc, out = cli("spark_rapids_tpu_torch", ["--plan", "--json"],
+                      capsys)
+        assert rc == 0
+        got = json.loads(out)
+        assert len(got["plans"]) == 7
+        assert all(p["ok"] for p in got["plans"])
+        names = {p["plan"] for p in got["plans"]}
+        assert {"q3", "q9", "q67", "cube", "q89", "q5_pipeline",
+                "q72_pipeline"} == names
+        # each package builds its own plans: the same digests
+        assert (rc, out) == cli("spark_rapids_tpu", ["--plan", "--json"],
+                                capsys)
+
+    def test_repo_tree_clean_via_cli(self, capsys):
+        rc, out = cli("spark_rapids_tpu_torch", [], capsys)
+        assert rc == 0
+        assert "0 finding(s)" in out
+
+
+# ------------------------------------------------------ doctor triage
+
+
+class TestDoctorLockdep:
+    def _bundle(self, tmp_path, trigger, journal_records):
+        import json
+        b = tmp_path / "incident-1-lockdep_cycle-1"
+        b.mkdir()
+        (b / "trigger.json").write_text(json.dumps(trigger))
+        (b / "journal.jsonl").write_text(
+            "\n".join(json.dumps(r) for r in journal_records))
+        (b / "MANIFEST.json").write_text(json.dumps({"version": 1}))
+        return str(b)
+
+    @staticmethod
+    def analyze(path):
+        """The port doctor's findings, equal to the JAX doctor's."""
+        from spark_rapids_tpu.tools import doctor as JD
+        from spark_rapids_tpu_torch.tools import doctor
+        findings = doctor.analyze(doctor.Bundle(path))
+        assert findings == JD.analyze(JD.Bundle(path))
+        return findings
+
+    def test_doctor_ranks_lockdep_cycle_trigger(self, tmp_path):
+        path = self._bundle(
+            tmp_path,
+            {"kind": "lockdep_cycle", "severity": "warn",
+             "detail": {
+                 "cycle": ["server.query_server", "shim.handles",
+                           "server.query_server"],
+                 "evidence": {"forward": {
+                     "edge": ["shim.handles", "server.query_server"],
+                     "stack": ["  File x.py, line 3, in f"]}}}},
+            [{"kind": "lockdep", "event": "cycle", "t_ns": 1,
+              "cycle": ["server.query_server", "shim.handles",
+                        "server.query_server"]}])
+        top = self.analyze(path)[0]
+        assert top["kind"] == "lockdep_cycle"
+        assert "server.query_server -> shim.handles" in top["message"]
+        assert "ABBA" in top["message"]
+
+    def test_doctor_surfaces_journal_lockdep_history(self, tmp_path):
+        path = self._bundle(
+            tmp_path,
+            {"kind": "retry_exhausted", "severity": "error",
+             "detail": {"name": "s", "errors": []}},
+            [{"kind": "lockdep", "event": "blocking", "t_ns": 1,
+              "op": "fileio.read_range", "held": ["perf.jit_cache"]},
+             {"kind": "lockdep", "event": "cycle", "t_ns": 2,
+              "cycle": ["a", "b", "a"]}])
+        findings = self.analyze(path)
+        kinds = [f["kind"] for f in findings]
+        assert "lockdep_cycle" in kinds
+        assert "lockdep_blocking" in kinds
+        blocking = next(f for f in findings
+                        if f["kind"] == "lockdep_blocking")
+        assert "fileio.read_range" in blocking["message"]
+        assert "perf.jit_cache" in blocking["message"]
+
+    def test_doctor_reads_a_port_lockdep_cycle_bundle(self, tmp_path,
+                                                      monkeypatch):
+        """A real ABBA cycle in the port's lockdep freezes a
+        lockdep_cycle bundle the doctor ranks first."""
+        from spark_rapids_tpu_torch import observability as obs
+        from spark_rapids_tpu_torch.analysis import lockdep
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_LOCKDEP", "1")
+        lockdep.reset()
+        obs.enable_flight_recorder(out_dir=str(tmp_path / "inc"),
+                                   min_interval_s=0.0)
+        try:
+            a, b = lockdep.make_lock("t.A"), lockdep.make_lock("t.B")
+            with a:
+                with b:
+                    pass
+            with b:
+                with a:
+                    pass
+        finally:
+            obs.disable_flight_recorder()
+            lockdep.reset()
+        inc = tmp_path / "inc"
+        bundles = sorted(n for n in os.listdir(inc)
+                         if n.startswith("incident-"))
+        assert bundles
+        top = self.analyze(str(inc / bundles[-1]))[0]
+        assert top["kind"] == "lockdep_cycle"
+        assert "t.A" in top["message"] and "t.B" in top["message"]

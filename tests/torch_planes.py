@@ -8,7 +8,10 @@ sampler, the SLO monitor, the result cache with its ingest epochs, the
 compile cache, the calibration verdicts and the Monitor's liveness
 stamp; and the query server's: the server singleton with its socket
 door, the lifeguard's heartbeat table and hook count, and the stage
-compiler's plan-verify memo.  ``isolate(monkeypatch, tmp_path)`` gives a test a clean copy of
+compiler's plan-verify memo; and the op layer's sidecars: the installed
+fault injector (with its watcher thread), the in-process profiler and
+``FAULT_INJECTOR_CONFIG_PATH``, which both injectors read.
+``isolate(monkeypatch, tmp_path)`` gives a test a clean copy of
 all of them in both packages, points every file they write at
 ``tmp_path``, and puts the switches back afterwards.  Test files use it
 as an autouse fixture:
@@ -82,6 +85,19 @@ def stop_stray_servers():
         pc._VERIFIED.clear()
 
 
+def stop_sidecars():
+    """Uninstall both packages' fault injectors (stopping their watcher
+    threads) and shut both in-process profilers down."""
+    from spark_rapids_tpu.utils import fault_injection as JFI
+    from spark_rapids_tpu.utils import profiler as JPROF
+    from spark_rapids_tpu_torch.utils import fault_injection as PFI
+    from spark_rapids_tpu_torch.utils import profiler as PPROF
+    for fi in (JFI, PFI):
+        fi.uninstall()
+    for prof in (JPROF, PPROF):
+        prof.Profiler.shutdown()
+
+
 def _clear(o, jc, rc, cal):
     o.reset()
     jc.CACHE.clear(reset_stats=True)
@@ -93,6 +109,8 @@ def _clear(o, jc, rc, cal):
 def isolate(monkeypatch, tmp_path):
     stop_stray_monitors()
     stop_stray_servers()
+    stop_sidecars()
+    monkeypatch.delenv("FAULT_INJECTOR_CONFIG_PATH", raising=False)
     monkeypatch.setenv("SPARK_RAPIDS_TPU_STATS_STORE",
                        str(tmp_path / "stats_store.json"))
     monkeypatch.setenv("SPARK_RAPIDS_TPU_CALIB_CACHE",
@@ -121,5 +139,6 @@ def isolate(monkeypatch, tmp_path):
     yield
     stop_stray_monitors()
     stop_stray_servers()
+    stop_sidecars()
     for o, _fr, jc, rc, cal in PACKAGES:
         _clear(o, jc, rc, cal)
