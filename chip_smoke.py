@@ -527,6 +527,35 @@
    line: the step's ms in the three modes beside the main path's, the
    launches a step, the op ranges, the bundles, doctor's first finding
    for each bundle, each tool's seconds and the phase's seconds.
+22. The rest of the JVM door (shim/jni_entry.py), driven as the JNI
+   library would drive it, end to end on the card.  The three host
+   libraries (native/*.cpp: the kudo engine, the OOM state machine, the
+   string rank) are built with g++ under build/native at once and must
+   load.  initialize() puts the entries on the card.  The JNI-door table
+   of step 4 (155 columns x 2^20 rows, drawn anew from seed 22) comes in
+   through the entries: its fixed-width columns as one Arrow batch
+   (arrow_ingest), each STRING column as its whole buffers
+   (from_strings_bulk).  convert_to_rows runs the variable-width kernel
+   (B3), convert_from_rows gives the table back, and the strings read
+   back through string_column_chars / string_column_offsets must equal
+   the bytes that went in.  The fixed-width bench table (212 x 2^19)
+   goes through both entries (B1, B2).  Each launch's bytes must equal
+   its kernel's plain version on the same inputs and the same entries'
+   run on the CPU (the string table's first 2^15 rows: the CPU's plain
+   paste takes seconds per 2^15 rows; the fixed-width table whole).
+   kudo_write of the fixed-width table into 200 partitions twice, the
+   memo's miss and then its hit, must give the spec engine's bytes;
+   kudo_merge of every partition and export_kudo_host /
+   columns_from_kudo_host must give the table back on the card; a host
+   table round trip; under an RmmSpark limit a task meets one forced
+   retry and one forced split through the rmm_* entries.  shutdown()
+   with a server running must leave no live handle, memo entry, host
+   table or server.  Each kernel must have launched once in the drive,
+   and nothing after the row entries launched one.  Prints a `jvm_door`
+   line: each entry's ms, the launches, the memo's miss and hit ms, the
+   native and spec kudo ms, the host table's bytes, each library's build
+   seconds, the peak device MiB after the row entries and over the phase
+   (the checks' plain versions included) and the phase's seconds.
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -819,7 +848,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "observability": ("to_rows",),
                 "observability_plane": ("to_rows",),
                 "server": ("to_rows",),
-                "tools": ("to_rows",)}
+                "tools": ("to_rows",),
+                "jvm_door": ("to_rows", "from_rows", "to_rows_var")}
 
 
 def check(ok: bool, what: str) -> None:
@@ -6965,6 +6995,421 @@ def run_tools(device="cuda", flagship_ms=None, **kw):
     return read_launches("tools"), res
 
 
+# --------------------------------------------------- step 22: jvm door
+
+JVM_DOOR_PARTITIONS = 200
+# the CPU run of the variable-width door: the rows of this prefix (the
+# CPU's plain string paste takes seconds per 2^15 rows of the 155-column
+# table)
+JVM_DOOR_CPU_ROWS = 1 << 15
+JVM_DOOR_TASK = 2201
+NATIVE_LIBRARIES = ("kudo_native", "sra_native", "columnar_native")
+
+
+def build_native_libraries():
+    """Build the three host libraries at once (one g++ a library);
+    returns the seconds each took to become available."""
+    from spark_rapids_tpu_torch.memory import native_adaptor
+    from spark_rapids_tpu_torch.shuffle import kudo_native
+    from spark_rapids_tpu_torch.utils import native
+    mods = dict(zip(NATIVE_LIBRARIES, (kudo_native, native_adaptor,
+                                       native)))
+    took = {}
+
+    def build(name):
+        t0 = time.perf_counter()
+        ok = mods[name].available()
+        took[name] = (time.perf_counter() - t0) if ok else None
+
+    threads = [threading.Thread(target=build, args=(n,))
+               for n in NATIVE_LIBRARIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in NATIVE_LIBRARIES:
+        check(took.get(name) is not None,
+              f"jvm door: the {name} library built and loaded")
+    return took
+
+
+def arrow_array(spec):
+    import pyarrow as pa
+    kind, data, valid = spec[:3]
+    mask = None if valid is None else valid == 0
+    if kind == "bool8":
+        return pa.array(data != 0, pa.bool_(), mask=mask)
+    return pa.array(data, mask=mask)
+
+
+def bulk_strings(spec, rows=None):
+    """A STRING host column as from_strings_bulk's three buffers, cut to
+    its first `rows` rows."""
+    _kind, chars, valid, offs = spec
+    rows = len(offs) - 1 if rows is None else rows
+    offs = offs[:rows + 1]
+    packed = (None if valid is None
+              else np.packbits(valid[:rows] != 0,
+                               bitorder="little").tobytes())
+    return (chars[:int(offs[-1])].tobytes(), offs.astype("<i4").tobytes(),
+            packed)
+
+
+def door_batch(specs, rows=None):
+    """The table's fixed-width columns as one Arrow batch (what a JVM
+    caller hands over through its Arrow FFI), cut to `rows` rows."""
+    import pyarrow as pa
+    fixed = [i for i, s in enumerate(specs) if s[0] != "string"]
+    batch = pa.RecordBatch.from_arrays(
+        [arrow_array(specs[i]) for i in fixed],
+        names=[f"c{i}" for i in fixed])
+    return batch if rows is None else batch.slice(0, rows)
+
+
+def door_ingest(specs, batch, rows=None, device=None, ms=None):
+    """The table's columns through the door's entries: the fixed-width
+    ones as `batch` (arrow_ingest), each STRING column as its whole
+    buffers (from_strings_bulk); returns the handles in column order."""
+    from spark_rapids_tpu_torch.utils import platform
+    ms = {} if ms is None else ms
+    dev = platform.entry_device() if device is None else device
+    fixed = [i for i, s in enumerate(specs) if s[0] != "string"]
+    handles = [None] * len(specs)
+    got = door_timed(ms, "arrow_ingest",
+                     lambda: JE.arrow_ingest(batch, device), dev)
+    for i, h in zip(fixed, got):
+        handles[i] = h
+    bulk = {i: bulk_strings(s, rows) for i, s in enumerate(specs)
+            if s[0] == "string"}
+    for i, payload in bulk.items():
+        handles[i] = door_timed(
+            ms, "from_strings_bulk",
+            lambda p=payload: JE.from_strings_bulk(*p, device=device), dev)
+    return handles
+
+
+def door_string_readback(handles, specs):
+    """{column: (chars, offsets)} of the STRING columns through the
+    door's bulk readback."""
+    return {i: (JE.string_column_chars(handles[i]),
+                JE.string_column_offsets(handles[i]))
+            for i, s in enumerate(specs) if s[0] == "string"}
+
+
+def rows_parts(handle, rows=None):
+    """(offsets, bytes) of a rows handle's first `rows` rows, on the
+    host."""
+    col = REGISTRY.get(handle)
+    offs = col.offsets.cpu()
+    rows = col.length if rows is None else rows
+    offs = offs[:rows + 1]
+    data = col.children[0].data[:int(offs[-1])].cpu()
+    return offs, data
+
+
+def same_rows(a, b):
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def door_timed(ms, name, fn, device):
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def jvm_door_rows(device, specs, fixed, ms):
+    """(b)-(c): the string table and the fixed-width table through the
+    row entries.  Returns what the checks read."""
+    type_ids = [s[0] for s in specs]
+    handles = door_ingest(specs, door_batch(specs), ms=ms)
+    rows = door_timed(ms, "convert_to_rows_var",
+                      lambda: JE.convert_to_rows(handles), device)
+    back = door_timed(ms, "convert_from_rows_var",
+                      lambda: JE.convert_from_rows(
+                          rows, type_ids, [0] * len(specs)), device)
+    strings = door_timed(ms, "string_readback",
+                         lambda: door_string_readback(back, specs), device)
+    fhandles = [REGISTRY.register(c) for c in fixed.columns]
+    fids = [c.dtype.kind for c in fixed.columns]
+    fscales = [c.dtype.scale for c in fixed.columns]
+    frows = door_timed(ms, "convert_to_rows_fixed",
+                       lambda: JE.convert_to_rows(fhandles), device)
+    fback = door_timed(ms, "convert_from_rows_fixed",
+                       lambda: JE.convert_from_rows(frows, fids, fscales),
+                       device)
+    return dict(handles=handles, rows=rows, back=back, strings=strings,
+                fhandles=fhandles, frows=frows, fback=fback, fids=fids,
+                fscales=fscales)
+
+
+def jvm_door_check_rows(device, specs, fixed, r, cpu_rows):
+    """(d): each launch's bytes against the kernel's plain version on
+    the same inputs and against the same entries' run on the CPU."""
+    cols = [REGISTRY.get(h) for h in r["handles"]]
+    for ci, (c, s) in enumerate(zip(cols, specs)):
+        check(c.device.type == torch.device(device).type,
+              f"jvm door: column {ci} on {device}")
+    starts, voff, fixedw = RC.compute_layout([c.dtype for c in cols])
+    rows_col = REGISTRY.get(r["rows"])
+    plain = RA.assemble_var_rows_plain(cols, starts, voff, fixedw,
+                                       rows_col.offsets)
+    err_var = byte_err(rows_col.children[0].data, plain)
+    check(err_var == 0, "jvm door: to-rows (strings) == plain version")
+    del plain
+    for ci, s in enumerate(specs):
+        b = REGISTRY.get(r["back"][ci])
+        if s[0] == "string":
+            chars, offs, _valid = bulk_strings(s)
+            got = r["strings"][ci]
+            check(got == (chars, offs),
+                  f"jvm door: string column {ci} read back == its input")
+        else:
+            want = cols[ci]
+            check(byte_err(b.data, want.data) == 0,
+                  f"jvm door: column {ci} back from rows")
+        want_v = (np.ones(b.length, bool) if s[2] is None
+                  else s[2] != 0)
+        check(np.array_equal(b.validity.cpu().numpy() != 0, want_v),
+              f"jvm door: column {ci}'s validity back from rows")
+
+    fcols = fixed.columns
+    fstarts, fvoff, row_size = layout_of(fixed)
+    frows = REGISTRY.get(r["frows"])
+    fplain = RA.assemble_rows_plain(fcols, fstarts, fvoff, row_size)
+    err_to = byte_err(frows.children[0].data, fplain)
+    check(err_to == 0, "jvm door: to-rows (fixed) == plain version")
+    schema = [c.dtype for c in fcols]
+    pd, pv = RA.disassemble_rows_plain(frows.children[0].data, schema,
+                                       fstarts, fvoff, row_size)
+    err_from = 0
+    for ci, h in enumerate(r["fback"]):
+        b = REGISTRY.get(h)
+        err_from = max(err_from, byte_err(b.data, pd[ci]),
+                       byte_err(b.validity, pv[ci]))
+        check(byte_err(b.data, fcols[ci].data) == 0,
+              f"jvm door: fixed column {ci} back from rows")
+    check(err_from == 0, "jvm door: from-rows == plain version")
+    del fplain, pd, pv
+
+    # the same entries on the CPU: the string table's first cpu_rows
+    # rows, the fixed-width table whole
+    cpu = door_ingest(specs, door_batch(specs, cpu_rows), cpu_rows,
+                      device="cpu")
+    crows = JE.convert_to_rows(cpu)
+    check(same_rows(rows_parts(crows), rows_parts(r["rows"], cpu_rows)),
+          f"jvm door: to-rows (strings) == the CPU run's "
+          f"({cpu_rows} rows)")
+    cback = JE.convert_from_rows(crows, [s[0] for s in specs],
+                                 [0] * len(specs))
+    for ci, s in enumerate(specs):
+        if s[0] != "string":
+            continue
+        chars, offs = (JE.string_column_chars(cback[ci]),
+                       JE.string_column_offsets(cback[ci]))
+        n = int(np.frombuffer(offs, "<i4")[-1])
+        card_chars, card_offs = r["strings"][ci]
+        check(card_chars[:n] == chars
+              and card_offs[:4 * (cpu_rows + 1)] == offs,
+              f"jvm door: string column {ci} == the CPU run's")
+    fcpu = [REGISTRY.register(Column(c.dtype, c.length, data=c.data.cpu(),
+                                     validity=None if c.validity is None
+                                     else c.validity.cpu()))
+            for c in fcols]
+    cfrows = JE.convert_to_rows(fcpu)
+    check(same_rows(rows_parts(cfrows), rows_parts(r["frows"])),
+          "jvm door: to-rows (fixed) == the CPU run's")
+    cfback = JE.convert_from_rows(cfrows, r["fids"], r["fscales"])
+    for ci, (h, ch) in enumerate(zip(r["fback"], cfback)):
+        a, b = REGISTRY.get(h), REGISTRY.get(ch)
+        check(torch.equal(raw_bytes(a.data).cpu(), raw_bytes(b.data))
+              and torch.equal(a.validity.cpu(), b.validity),
+              f"jvm door: from-rows (fixed) column {ci} == the CPU run's")
+    for h in cpu + [crows] + cback + fcpu + [cfrows] + cfback:
+        JE.free(h)
+    return {"to_rows_var": err_var, "to_rows": err_to,
+            "from_rows": err_from}
+
+
+def jvm_door_kudo(device, handles, ms, partitions):
+    """(e): kudo_write of the fixed-width table into `partitions` slices
+    twice (the memo's miss, then its hit), each byte-equal to the spec
+    engine's; kudo_merge of every slice; the host export and import."""
+    from spark_rapids_tpu_torch.shuffle import kudo_native
+    check(kudo_native.available() and not JE.kudo_crc_enabled(),
+          "jvm door: the native kudo engine takes the write")
+    cols = [REGISTRY.get(h) for h in handles]
+    n = cols[0].length
+    bounds = [(p * n // partitions, (p + 1) * n // partitions
+               - p * n // partitions) for p in range(partitions)]
+    key = tuple(handles)
+    check(key not in JE._KUDO_WRITE_CACHE, "jvm door: the memo misses")
+    blobs = door_timed(ms, "kudo_write_miss", lambda: [
+        JE.kudo_write(handles, o, c) for o, c in bounds], device)
+    check(key in JE._KUDO_WRITE_CACHE, "jvm door: the memo holds the table")
+    again = door_timed(ms, "kudo_write_hit", lambda: [
+        JE.kudo_write(handles, o, c) for o, c in bounds], device)
+    check(again == blobs, "jvm door: the memo's hit writes the same bytes")
+
+    def spec():
+        views = K.prepare_host_columns(cols)
+        out = []
+        for o, c in bounds:
+            buf = io.BytesIO()
+            K.write_to_stream(views, buf, o, c)
+            out.append(buf.getvalue())
+        return out
+
+    specs = door_timed(ms, "kudo_write_spec", spec, device)
+    check(specs == blobs, "jvm door: native kudo bytes == the spec engine's")
+    del again, specs
+    blob = b"".join(blobs)
+    ids = [c.dtype.kind for c in cols]
+    scales = [c.dtype.scale for c in cols]
+    merged = door_timed(ms, "kudo_merge",
+                        lambda: JE.kudo_merge(blob, ids, scales), device)
+    for ci, (h, c) in enumerate(zip(merged, cols)):
+        m = REGISTRY.get(h)
+        check(m.device.type == torch.device(device).type
+              and byte_err(m.data, c.data) == 0,
+              f"jvm door: merged column {ci} == the table's")
+    flat = door_timed(ms, "export_kudo_host",
+                      lambda: JE.export_kudo_host(handles), device)
+    check(flat[0] == n and flat[1] == len(cols),
+          "jvm door: the export's shape")
+    imported = door_timed(
+        ms, "columns_from_kudo_host",
+        lambda: JE.columns_from_kudo_host(flat[0], flat[2:]), device)
+    for ci, (h, c) in enumerate(zip(imported, cols)):
+        check(byte_err(REGISTRY.get(h).data, c.data) == 0,
+              f"jvm door: imported column {ci} == the table's")
+    for h in merged + imported:
+        JE.free(h)
+    check(key in JE._KUDO_WRITE_CACHE, "jvm door: the memo still holds")
+    return {"partitions": partitions, "bytes": len(blob)}
+
+
+def jvm_door_host_table(device, handles, ms):
+    """(f): the fixed-width table to a host table and back."""
+    cols = [REGISTRY.get(h) for h in handles]
+    ht = door_timed(ms, "host_table_from_table",
+                    lambda: JE.host_table_from_table(handles), device)
+    size = JE.host_table_size_bytes(ht)
+    check(size >= sum(nbytes(c.data) for c in cols),
+          "jvm door: the host table holds every buffer")
+    back = door_timed(ms, "host_table_to_device",
+                      lambda: JE.host_table_to_device(ht), device)
+    for ci, (h, c) in enumerate(zip(back, cols)):
+        b = REGISTRY.get(h)
+        check(b.device.type == torch.device(device).type
+              and byte_err(b.data, c.data) == 0,
+              f"jvm door: host table column {ci} back on {device}")
+    JE.host_table_free(ht)
+    for h in back:
+        JE.free(h)
+    return size
+
+
+def jvm_door_rmm(nbytes_):
+    """(g): a task under a limit: one forced retry, then one forced
+    split whose halves fit."""
+    from spark_rapids_tpu_torch.memory import exceptions as MX
+    JE.rmm_set_event_handler(2 * nbytes_)
+    seen = []
+    try:
+        JE.rmm_register_current_thread(JVM_DOOR_TASK)
+        tid = JE.rmm_current_thread_id()
+        JE.rmm_force_retry_oom(tid, 1)
+        try:
+            JE.rmm_alloc(nbytes_)
+            check(False, "jvm door: the forced retry fired")
+        except MX.GpuRetryOOM:
+            seen.append("GpuRetryOOM")
+        JE.rmm_block_thread_until_ready()
+        JE.rmm_alloc(nbytes_)
+        JE.rmm_dealloc(nbytes_)
+        JE.rmm_force_split_and_retry_oom(tid, 1)
+        try:
+            JE.rmm_alloc(nbytes_)
+            check(False, "jvm door: the forced split fired")
+        except MX.GpuSplitAndRetryOOM:
+            seen.append("GpuSplitAndRetryOOM")
+        JE.rmm_block_thread_until_ready()
+        for _ in range(2):
+            JE.rmm_alloc(nbytes_ // 2)
+        for _ in range(2):
+            JE.rmm_dealloc(nbytes_ // 2)
+        seen.append(JE.rmm_get_state_of(tid))
+        JE.rmm_task_done(JVM_DOOR_TASK)
+    finally:
+        JE.rmm_clear_event_handler()
+    check(seen == ["GpuRetryOOM", "GpuSplitAndRetryOOM", "THREAD_RUNNING"],
+          f"jvm door: a retry, a split, then running ({seen})")
+    return seen
+
+
+def jvm_door_phase(device="cuda", rows=STRING_ROWS, ncols=STRING_COLS,
+                   fixed=None, cpu_rows=JVM_DOOR_CPU_ROWS,
+                   partitions=JVM_DOOR_PARTITIONS):
+    """Step 22 (see the module docstring).  `fixed` is the fixed-width
+    table (on `device`); returns the phase's numbers and the launch
+    counts of its drive."""
+    from spark_rapids_tpu_torch import server as srv
+    from spark_rapids_tpu_torch.utils import platform
+    clock = time.perf_counter()
+    so_s = build_native_libraries()
+    specs = string_host_specs(rows, ncols, seed=22)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    RA.reset_launches()
+    door_timed(ms, "initialize", JE.initialize, device)
+    check(platform.entry_device() == torch.device(device).type,
+          f"jvm door: initialize() put the entries on {device}")
+    r = jvm_door_rows(device, specs, fixed, ms)
+    launches = dict(RA.LAUNCHES)
+    # the row entries' own peak, before the checks' plain versions
+    rows_peak = torch.cuda.max_memory_allocated() / 2**20 if on_card \
+        else None
+    errs = jvm_door_check_rows(device, specs, fixed, r, cpu_rows)
+    kudo_res = jvm_door_kudo(device, r["fhandles"], ms, partitions)
+    ht_bytes = jvm_door_host_table(device, r["fhandles"], ms)
+    rmm = door_timed(ms, "rmm", lambda: jvm_door_rmm(
+        sum(nbytes(c.data) for c in fixed.columns)), device)
+    check(JE.server_start(1, 4), "jvm door: a server to stop")
+    door_timed(ms, "shutdown", JE.shutdown, device)
+    check(JE.live_handles() == 0 and srv.get_server() is None
+          and not JE._KUDO_WRITE_CACHE and not JE._HOST_TABLES,
+          "jvm door: shutdown left no handle, memo, host table or server")
+    check(dict(RA.LAUNCHES) == launches,
+          "jvm door: nothing after the row entries launched a kernel")
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+    return {"shape": f"{rows}x{ncols}",
+            "fixed_shape": f"{fixed.num_rows}x{fixed.num_columns}",
+            "cpu_rows": cpu_rows, "entry_ms": ms, "launches": launches,
+            "max_abs_err": errs, "kudo": kudo_res,
+            "memo_miss_ms": ms["kudo_write_miss"],
+            "memo_hit_ms": ms["kudo_write_hit"],
+            "native_kudo_ms": ms["kudo_write_hit"],
+            "spec_kudo_ms": ms["kudo_write_spec"],
+            "host_table_bytes": ht_bytes, "rmm": rmm, "so_build_s": so_s,
+            "rows_peak_mib": rows_peak, "peak_mib": peak,
+            "phase_s": time.perf_counter() - clock}
+
+
+def run_jvm_door(fixed):
+    """Step 22 on the card (see the module docstring)."""
+    res = jvm_door_phase("cuda", fixed=fixed)
+    print(f"main path jvm_door: launches {res['launches']}", flush=True)
+    for name in PATH_KERNELS["jvm_door"]:
+        check(res["launches"][name] == 1,
+              f"jvm_door launched the {name} kernel once")
+    print(json.dumps({"jvm_door": res}), flush=True)
+    return res["launches"], res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -7095,6 +7540,8 @@ def main() -> int:
     phase("server")
     by_path["tools"], _ = run_tools(flagship_ms=flagship_steady)
     phase("tools")
+    by_path["jvm_door"], _ = run_jvm_door(bench)
+    phase("jvm_door")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -238,10 +238,11 @@ KNOBS: Dict[str, str] = {
     "SPARK_RAPIDS_TPU_INGEST_COMPRESSION":
         "codec for seeded parquet datasets",
     "SPARK_RAPIDS_TPU_PLATFORM":
-        "platform pin applied in the shim's initialize() (the port's "
-        "entry points take a device argument instead)",
+        "the shim's initialize(): cpu puts the JNI door's columns on "
+        "the CPU; empty, cuda or gpu on the card",
     "SPARK_RAPIDS_TPU_CPU_DEVICES":
-        "virtual CPU device count for shim-driven mesh programs",
+        "virtual CPU device count for shim-driven mesh programs "
+        "(ROADMAP A10(b))",
     "SPARK_RAPIDS_TPU_DISABLE_NATIVE":
         "=1 skips the native C++ runtime (pure-python fallbacks)",
     "SPARK_RAPIDS_TPU_FORCE_DEVICE_SHUFFLE":

@@ -1,7 +1,7 @@
 """Memory runtime: reservation resources, the RmmSpark OOM retry/split
 state machine, host-spill table movement and the tiered spill store
-(reference SURVEY.md §2.1).  ``native_adaptor`` (the ctypes binding to
-the C++ state machine) is ROADMAP A12's rest."""
+(reference SURVEY.md §2.1), and ``native_adaptor``, the ctypes binding
+to the C++ state machine (native/spark_resource_adaptor.cpp)."""
 
 from spark_rapids_tpu_torch.memory.exceptions import (  # noqa: F401
     GpuRetryOOM, GpuSplitAndRetryOOM, CpuRetryOOM, CpuSplitAndRetryOOM,

@@ -36,7 +36,8 @@ observability spine (``record_oom_event``, ``record_device_memory``,
 ``record_task_leak``); each is one switch read while it is off.  Every
 reservation and release is also an ``alloc``/``free`` record for a
 running profiler that asked for alloc capture
-(``utils.profiler.record_alloc``).  The ctypes binding to the C++ port (``native_adaptor.py``) is A12's rest.
+(``utils.profiler.record_alloc``).  ``native_adaptor.py`` binds the C++
+port of this state machine (native/spark_resource_adaptor.cpp).
 """
 
 from __future__ import annotations

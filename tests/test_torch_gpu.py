@@ -51,7 +51,12 @@ sidecars: the profiler's op ranges around the flagship step on the card
 (one each for the two hashes and the to-rows kernel's call, whose
 launch count is unchanged), a seeded fault on convert_to_rows around
 the to-rows kernel (raised before it launches, the next call byte-equal
-to the plain version), and chip_smoke.py's tools phase at a small size.
+to the plain version), and chip_smoke.py's tools phase at a small size;
+and the rest of the JVM door (shim/jni_entry): convert_to_rows and
+convert_from_rows through the entries on the card, byte-equal to the
+same entries on the CPU with B1, B2 and B3 each launched once, the bulk
+string ingest and readback on the card, device_attr_is_integrated
+false on the card, and chip_smoke.py's jvm_door phase at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1477,3 +1482,90 @@ def test_tools_phase_on_card_small(cuda, tmp_path, monkeypatch):
     assert res["sidecars"]["launches"] == {
         k: C.TOOLS_ITERS for k in ("off", "bracket", "profiler", "tracing")}
     assert res["faults"]["doctor_first"]["kind"] == "fault_injection"
+
+
+@pytest.fixture
+def card_entries(cuda):
+    """shim/jni_entry initialized on the card, shut down after."""
+    from spark_rapids_tpu_torch.shim import jni_entry as JE
+    from spark_rapids_tpu_torch.utils import platform
+    JE._INITIALIZED = False
+    platform.set_entry_device("cuda")
+    JE.initialize()
+    yield JE
+    JE.shutdown()
+    JE._INITIALIZED = False
+
+
+@pytest.mark.gpu
+def test_jni_entry_row_entries_on_card_match_cpu(card_entries):
+    JE = card_entries
+    specs = string_host_specs(2049, 31, seed=9, dec128_every=7)
+    kinds = [s[0] for s in specs]
+    fixed = make_table(4099, 40, "cuda", seed=3, nullable_every=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        hs = [jni_api.REGISTRY.register(c) for c in
+              interop.table_from_host(specs, device=dev).columns]
+        fs = [jni_api.REGISTRY.register(Column(
+            c.dtype, c.length, data=c.data.to(dev),
+            validity=None if c.validity is None else c.validity.to(dev)))
+            for c in fixed.columns]
+        RA.reset_launches()
+        rows = JE.convert_to_rows(hs)
+        back = JE.convert_from_rows(rows, kinds, [0] * len(kinds))
+        frows = JE.convert_to_rows(fs)
+        fback = JE.convert_from_rows(
+            frows, [c.dtype.kind for c in fixed.columns],
+            [c.dtype.scale for c in fixed.columns])
+        torch.cuda.synchronize()
+        launched = dict(RA.LAUNCHES)
+        assert launched == ({"to_rows": 1, "from_rows": 1,
+                             "to_rows_var": 1} if dev == "cuda" else
+                            {"to_rows": 0, "from_rows": 0,
+                             "to_rows_var": 0})
+        assert all(jni_api.REGISTRY.get(h).device.type == dev
+                   for h in [rows, frows] + back + fback)
+        out[dev] = [(jni_api.REGISTRY.get(h).offsets.cpu(),
+                     jni_api.REGISTRY.get(h).children[0].data.cpu())
+                    for h in (rows, frows)]
+        out[dev + "_back"] = [JE.column_to_host(h) for h in back + fback]
+    for (ao, ad), (bo, bd) in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(ao, bo) and torch.equal(ad, bd)
+    assert out["cuda_back"] == out["cpu_back"]
+
+
+@pytest.mark.gpu
+def test_from_strings_bulk_round_trip_on_card(card_entries):
+    JE = card_entries
+    _kind, chars, valid, offs = string_host_specs(5000, 7, seed=4)[6]
+    packed = np.packbits(valid != 0, bitorder="little").tobytes() \
+        if valid is not None else None
+    h = JE.from_strings_bulk(chars.tobytes(), offs.tobytes(), packed)
+    col = jni_api.REGISTRY.get(h)
+    assert col.device.type == "cuda"
+    assert JE.string_column_chars(h) == chars.tobytes()
+    assert JE.string_column_offsets(h) == offs.astype("<i4").tobytes()
+    cpu = JE.from_strings_bulk(chars.tobytes(), offs.tobytes(), packed,
+                               device="cpu")
+    assert JE.column_to_host(h) == JE.column_to_host(cpu)
+
+
+@pytest.mark.gpu
+def test_device_attr_is_integrated_false_on_card(card_entries):
+    assert card_entries.device_attr_is_integrated() is False
+
+
+@pytest.mark.gpu
+def test_jvm_door_phase_on_card_small(cuda):
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.shim import jni_entry as JE
+    JE._INITIALIZED = False
+    fixed = make_table(1 << 14, 212, "cuda", seed=7)
+    res = C.jvm_door_phase("cuda", rows=1 << 14, ncols=155, fixed=fixed,
+                           cpu_rows=1 << 12, partitions=16)
+    assert res["launches"] == {"to_rows": 1, "from_rows": 1,
+                               "to_rows_var": 1}
+    assert res["max_abs_err"] == {"to_rows_var": 0, "to_rows": 0,
+                                  "from_rows": 0}
+    assert JE.live_handles() == 0

@@ -53,11 +53,16 @@ def test_constructors_helpers_and_free(_fresh):
 
 
 def test_constructors_default_to_the_card():
+    """A constructor called without a device uses the entries' device,
+    which is the card until initialize() reads
+    SPARK_RAPIDS_TPU_PLATFORM=cpu."""
     import inspect
+    from spark_rapids_tpu_torch.utils import platform
     for fn in (J.from_longs, J.from_ints, J.from_doubles, J.from_strings,
                J.from_decimals, J.random_uuids, J.bloom_filter_create,
                J.bloom_filter_deserialize):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert platform.entry_device() == "cuda"
 
 
 def test_casts_match_reference():

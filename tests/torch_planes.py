@@ -55,7 +55,11 @@ def stop_stray_servers():
     """Stop every query server, socket door and watchdog an earlier test
     left running (in either package), stop both singletons, and reset
     the lifeguard's heartbeat table and hook count and the compiler's
-    plan-verify memo."""
+    plan-verify memo.  The port's compiled-stage memo goes with its
+    verify memo: each stage in it was verified when it was compiled, and
+    the server phase checks that every stage in the memo is in the
+    verify memo, so clearing one alone breaks that check for stages an
+    earlier test compiled."""
     from spark_rapids_tpu import server as jsrv
     from spark_rapids_tpu.plan import compiler as JPC
     from spark_rapids_tpu.robustness import lifeguard as JLG
@@ -83,6 +87,7 @@ def stop_stray_servers():
             lg._BEATS.clear()
     for pc in (JPC, PPC):
         pc._VERIFIED.clear()
+    PPC._STAGE_MEMO.clear()
 
 
 def stop_sidecars():
