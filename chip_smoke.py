@@ -162,9 +162,9 @@
    side's bytes / 8, so 8 partitions, once on the host tier and once
    with every partition demoted to disk under build/spill: the pairs
    must equal the in-memory join on the card and the numpy oracle byte
-   for byte.  Step 8's group-by over a 2^25-row batch out of core at a
+   for byte.  Step 8's group-by over a 2^24-row batch out of core at a
    256 MiB budget (the keys and the six value columns it is given make
-   1.95 GB, so 8 partitions) against the in-memory call (float sums
+   0.97 GB, so 4 partitions) against the in-memory call (float sums
    within close_float_sums' bound).  A registered 2^25-row batch that
    nothing else references: spilling it must lower
    torch.cuda.memory_allocated() by at least 90% of its bytes, and
@@ -201,9 +201,9 @@
 12. The string casts and parse_url (ops/cast_string.py with its device
    engines ops/stod_device.py and ops/ftos_device.py, ops/strings_misc.py,
    ops/parse_uri.py, ops/parse_uri_device.py, columns/strbuild.py), every
-   column drawn on the card from a seed.  Casts over 2^22 rows of step 8's
+   column drawn on the card from a seed.  Casts over 2^21 rows of step 8's
    store_sales values (2^24, one executor batch, until step 20 needed the
-   time, 2^23 until step 21): ss_net_paid FLOAT64 (about 4%
+   time, 2^23 until step 21, 2^22 until step 23): ss_net_paid FLOAT64 (about 4%
    null) and its FLOAT32 rendered by float_to_string on the card, and
    ss_quantity or ss_ticket_number (1 to 24,000,000) rendered by digit
    arithmetic; a seeded 1/16 of each column replaced by an edge
@@ -220,8 +220,9 @@
    casts (string_to_decimal, both base conversions, conv, the literal
    range pattern, list_slice and the GBK decode) once at 2^16 rows, each
    returning a card column equal to its CPU run, and the JNI door's
-   string_to_integer on a card handle, released.  parse_url over 2^21
-   URLs (2^22 until step 19 needed the time) of at most 199 bytes drawn from a seeded vocabulary (schemes, userinfo,
+   string_to_integer on a card handle, released.  parse_url over 2^20
+   URLs (2^22 until step 19 needed the time, 2^21 until step 23) of at
+   most 199 bytes drawn from a seeded vocabulary (schemes, userinfo,
    hosts and IPv4 addresses, ports, paths, queries, fragments; about 1%
    IPv6 hosts and 1% non-ASCII paths, the host parser's rows, about 2%
    invalid paths and 4% nulls): PROTOCOL, HOST, QUERY and PATH over all
@@ -277,8 +278,8 @@
    scan steps of each chunk.
 14. Ingest and the read-side datetime ops (io/, models/filesource.py,
    the JNI door's parquet_read_table and arrow_ingest, ops/datetime_ops
-   and ops/orc_timezones).  The operator batch's generator at 2^23
-   store_sales rows (a share of 32: cut so steps 16 and 17 fit the
+   and ops/orc_timezones).  The operator batch's generator at 2^22
+   store_sales rows (a share of 64: cut so steps 16, 17 and 23 fit the
    script's time; 4% null) and the 2^22 STRING keys of 8-50 bytes go to parquet with
    pyarrow under build/ingest: uncompressed with pyarrow's default
    encodings (dictionary pages, v1, 2^20-row groups); the batch once
@@ -345,7 +346,7 @@
    18-bit hilbert_index of (ss_item_sk, ss_customer_sk); Iceberg bucket(16)
    of the INT64 prices and the STRING keys, truncate(10), and year,
    month, day and hour of a 2^24-row TIMESTAMP of 1500-2100;
-   substring_index over step 12's 2^21 URLs; 2^22 random UUIDs (format,
+   substring_index over step 12's 2^20 URLs; 2^22 random UUIDs (format,
    seed determinism, no repeat in 2^16); select_first_true_index over
    four BOOL8 columns of 2^25 rows.  Every other call equals the same
    call on a CPU copy over its first 2^16-2^20 rows byte for byte.
@@ -355,8 +356,8 @@
    call (launches torch.profiler records).
 16. The protobuf decoder (ops/protobuf.py's router and host oracle,
    ops/protobuf_device.py's field-step engine, jni_entry's entry):
-   2^22 clickstream events as Kafka values decoded by Spark's
-   from_protobuf, drawn on the card from a seed (`protobuf_events`):
+   2^21 clickstream events (2^22 until step 23 needed the time) as
+   Kafka values decoded by Spark's from_protobuf, drawn on the card from a seed (`protobuf_events`):
    event_id (required), user_id up to 2^40, a URL from step 12's
    vocabulary, a 2026 ts_us, a double price, an int32 quantity (default
    1), a sint64 ZIGZAG delta with negatives, a bool, a float score, a
@@ -382,10 +383,11 @@
 17. Distributed q5 and q72 (distributed/: the launcher, the runner, the
    shuffle service over unix sockets, kudo between the processes) as
    worker processes sharing the card, each regenerating step 6's seeded
-   data on the card and taking its shard, partials and finish through
+   data (at half its rows) on the card and taking its shard, partials
+   and finish through
    plan/catalog's fused stages (inductor's and Triton's caches under
-   build/ shared with step 6).  Launch A: two ranks, q5 (2^25 x 2^22,
-   402 stores) and q72 (2^22 x 2^21, 204,000 items); launch B: q72 with
+   build/ shared with step 6).  Launch A: two ranks, q5 (2^24 x 2^21,
+   402 stores) and q72 (2^21 x 2^20, 204,000 items); launch B: q72 with
    rank 1's first reduce-scatter send to rank 0 corrupted, NAKed and
    resent; launch C: the elastic protocol over three ranks, q5, rank 2
    killed after its partials and before broadcasting them, respawned
@@ -556,6 +558,38 @@
    native and spec kudo ms, the host table's bytes, each library's build
    seconds, the peak device MiB after the row entries and over the phase
    (the checks' plain versions included) and the phase's seconds.
+23. The mesh programs (distributed/mesh.py, distributed/pool.py,
+   parallel/exchange.exchange, models/distributed_join.py,
+   models/query.make_distributed_hash_aggregate, the models/tpcds and
+   plan/catalog mesh factories, shim/jni_mesh.py), run as SPMD over a
+   torch.distributed process group, one process a rank.  M1: the JVM
+   door's flagship_q5_mesh(1, 2^25, 402) and flagship_q72_mesh(1, 2^22,
+   204,000) start one rank over NCCL on the card (step 6's sizes), each
+   called twice (the second reuses the started rank and the join
+   capacity it learned from the JAX entries' 4096), each list equal to
+   the single-device make_q5 / make_q72 on the same q5_mesh_data /
+   q72_mesh_data; an entry asked for more ranks than the card count
+   must raise ShimStateError.  M1's rank boots while M2 runs.  M2: two
+   rank processes, started in this step, share the card over gloo
+   (NCCL refuses two ranks on one GPU; gloo moves the CUDA tensors
+   through the host itself), each rank drawing the data on the card
+   from one seed and taking its shard: the exchange of step 8's
+   store_sales (ss_item_sk, ss_sales_price) at 2^24 rows a rank, each
+   rank's
+   received rows equal to its partition of the whole batch in order;
+   the distributed join of 2^22 item keys a rank against SF100's
+   204,000 items from an exchange capacity of 2^20 (both ranks must
+   double it together), each rank's pairs equal to the single-process
+   join of its partition; the hash aggregate over 2^24 rows a rank
+   (counts equal to one process's, f32 sums within 2 n 2^-24 sum|v|);
+   q5 op by op and fused (one graph a rank, its all_reduces inside)
+   and q72 op by op at step 6's sizes, equal on both ranks and to the
+   single-process queries.  Prints a `mesh` line per launch: backend
+   and mode; per rank boot s, compile s and graphs, each part's ms,
+   all_to_all calls and bytes, all_reduce calls, doublings and peak
+   MiB; each query's ms beside the single-process one.  No row kernel
+   is on this path: its launch counts are the script's and every
+   rank's own (each rank zeroes its counts when it starts its work).
    Ends with the seconds each phase took.
 
 Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
@@ -639,6 +673,7 @@ from spark_rapids_tpu_torch.ops.substring_index import (  # noqa: E402
     substring_index as substring_index_op)
 from spark_rapids_tpu_torch.ops.exceptions import (  # noqa: E402
     CastException, ExceptionWithRowIndex)
+from spark_rapids_tpu_torch.parallel import exchange as EX  # noqa: E402
 from spark_rapids_tpu_torch.plan import catalog as TC  # noqa: E402
 from spark_rapids_tpu_torch.perf import calibrate as CAL  # noqa: E402
 from spark_rapids_tpu_torch.perf.jit_cache import bucket_rows  # noqa: E402
@@ -786,6 +821,9 @@ NESTED_NULL_SHARE = 0.05
 # under a limit of 3 B; q5 over 4 spilled partitions
 MEM_JOIN_PARTS = 8
 MEM_GROUPBY_BUDGET = 256 << 20
+# the out-of-core group-by's batch: half of OPS_ROWS since step 23
+# needed the time
+MEM_GROUPBY_ROWS = OPS_ROWS // 2
 MEM_CORRUPT_ROWS = 1 << 22
 MEM_TASKS = 4
 MEM_TASK_ROWS = 1 << 23
@@ -797,20 +835,21 @@ MEM_TASK_POLICY = RT.RetryPolicy(max_attempts=32)
 # the string casts and parse_url (step 12), drawn on the card: the casts
 # over 2^22 rows of the operators' store_sales values (2^24, one
 # executor batch of about 300 MB of rendered chars, until step 20 needed
-# the time; 2^23 until step 21), a seeded 1/16 of the rows
-# replaced by an edge vocabulary; parse_url over 2^21 URLs of at most
-# 199 bytes (about 195 MB; 2^22 before step 19 needed the time), and QUERY with a key over BASELINE.json's
+# the time; 2^23 until step 21, 2^22 until step 23), a seeded 1/16 of
+# the rows replaced by an edge vocabulary; parse_url over 2^20 URLs of
+# at most 199 bytes (about 98 MB; 2^22 before step 19 needed the time,
+# 2^21 before step 23), and QUERY with a key over BASELINE.json's
 # 1e6-row column (2^20 rows), since the key is matched per row on the
 # host; each checked against a CPU run of a slice and against the host
 # engine on a sample
-STR_CAST_ROWS = 1 << 22
+STR_CAST_ROWS = 1 << 21
 STR_EDGE_EVERY = 16
 STR_CPU_ROWS = 1 << 18
 STR_HOST_ROWS = 1 << 16
 # the strings and json phases' timed calls a cast or extractor: 2 (3
 # until the ops phase took the script past 950 s)
 STR_ITERS = 2
-URL_ROWS = 1 << 21
+URL_ROWS = 1 << 20
 URL_KEY_ROWS = 1 << 20
 URL_CPU_ROWS = 1 << 17      # one device chunk
 URL_HOST_ROWS = 1 << 14
@@ -849,7 +888,8 @@ PATH_KERNELS = {"flagship_step": ("to_rows",),
                 "observability_plane": ("to_rows",),
                 "server": ("to_rows",),
                 "tools": ("to_rows",),
-                "jvm_door": ("to_rows", "from_rows", "to_rows_var")}
+                "jvm_door": ("to_rows", "from_rows", "to_rows_var"),
+                "mesh": ()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1018,9 +1058,14 @@ def var_tiles(table):
     return tiles, RA.var_direct_tiles(offsets, log2_tile, buf), 1 << log2_tile
 
 
-def read_launches(path):
-    """The launch counts since the last reset: this path's own call."""
+def read_launches(path, elsewhere=()):
+    """The launch counts since the last reset: this path's own call,
+    plus the counts of the processes it ran in (`elsewhere`: the mesh
+    ranks' own, each zeroed at the rank's start)."""
     launches = dict(RA.LAUNCHES)
+    for counts in elsewhere:
+        for name, n in counts.items():
+            launches[name] += n
     print(f"main path {path}: launches {launches}", flush=True)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} launched the {name} kernel")
@@ -2423,7 +2468,7 @@ def group_inputs(cols):
                              cols[4]]
 
 
-def ooc_groupby_cell(device="cuda", rows=OPS_ROWS,
+def ooc_groupby_cell(device="cuda", rows=MEM_GROUPBY_ROWS,
                      budget=MEM_GROUPBY_BUDGET, iters=3):
     """Step 8's group-by out of core at a 256 MiB budget (4 partitions)
     against the in-memory call."""
@@ -3735,8 +3780,9 @@ def run_json(device="cuda", **kw):
 # the batch once uncompressed and once snappy, and a 2^21-row cut of
 # both once PLAIN v1 and once PLAIN v2
 INGEST_ROW_GROUP = 1 << 20
-INGEST_ROWS = 1 << 23      # the batch's rows (2^25, OPS_ROWS, before
-                           # steps 16 and 17 needed the script's time)
+INGEST_ROWS = 1 << 22      # the batch's rows (2^25, OPS_ROWS, before
+                           # steps 16 and 17 needed the script's time,
+                           # 2^23 before step 23)
 INGEST_CUT_ROWS = 1 << 21  # 2^22 before steps 16 and 17
 INGEST_PROJECTED = ("ss_item_sk", "ss_net_paid")   # 2 of the 5 columns
 INGEST_SEED = 14
@@ -4076,7 +4122,7 @@ def run_ingest(device="cuda", **kw):
 # needed the time), a of sums at scale -2
 # of magnitude up to about 10^20, b of prices at scale -2 from
 # ss_net_paid, each 4% null, a seeded 1/64 of the rows edge rows; the
-# operator batch (2^25 rows), the 2^22 STRING keys, the 2^21 URLs and a
+# operator batch (2^25 rows), the 2^22 STRING keys, the 2^20 URLs and a
 # 2^24-row TIMESTAMP like the ingest phase's for the rest
 OPS_ROWS_DEC = 1 << 24
 OPS_EDGE_EVERY = 64
@@ -4686,11 +4732,11 @@ def run_ops(device="cuda", **kw):
 
 # ------------------------------------------------------------ protobuf (16)
 
-# 2^22 clickstream events as Kafka values decoded by Spark's
-# from_protobuf (one executor batch), drawn from a seed on `device`:
-# 150-400 bytes each, about 0.8 GB of chars, 4% null rows, a seeded
-# 1/64 replaced by edge rows
-PB_ROWS = 1 << 22
+# 2^21 clickstream events as Kafka values decoded by Spark's
+# from_protobuf (half an executor batch: 2^22 before step 23 needed the
+# time), drawn from a seed on `device`: 150-400 bytes each, about 0.4 GB
+# of chars, 4% null rows, a seeded 1/64 replaced by edge rows
+PB_ROWS = 1 << 21
 PB_CHECK_ROWS = 1 << 18     # card result vs the host oracle on a CPU copy
 PB_FALLBACK_ROWS = 1 << 16  # one row of 40 item_ids: the host route
 PB_NULL_SHARE = 0.04
@@ -5037,9 +5083,12 @@ def run_protobuf(device="cuda", **kw):
 
 # step 6's q5 and q72 as worker processes sharing the card, their
 # tables moved by kudo over unix sockets (distributed/launcher.py)
-DIST_Q5 = dict(rows=Q5_DATA["rows"], stores=Q5_DATA["stores"],
+# step 6's q5 and q72 at half their rows (a quarter of q72's pairs)
+# since step 23 needed the time
+DIST_Q5 = dict(rows=Q5_DATA["rows"] // 2, stores=Q5_DATA["stores"],
                days=Q5_DATA["days"], join_capacity=Q5_CAPACITY)
-DIST_Q72 = dict(cs_rows=Q72_DATA["cs_rows"], inv_rows=Q72_DATA["inv_rows"],
+DIST_Q72 = dict(cs_rows=Q72_DATA["cs_rows"] // 2,
+                inv_rows=Q72_DATA["inv_rows"] // 2,
                 items=Q72_DATA["items"], days=Q72_DATA["days"],
                 join_capacity=Q72_CAPACITY, max_week=Q72_MAX_WEEK,
                 limit=Q72_LIMIT, week0=Q72_WEEK0)
@@ -7410,6 +7459,312 @@ def run_jvm_door(fixed):
     return res["launches"], res
 
 
+# ------------------------------------------------------------ step 23
+
+
+# M2's two ranks share the card over gloo at step 6's and step 8's
+# widths: store_sales rows per rank for the exchange and the aggregate
+# (a batch of 2^25 drawn on each rank's card from one seed, each rank
+# taking its half), q5 and q72 at step 6's sizes, the join's left side
+# 2^22 rows a rank against SF100's 204,000 items, from an exchange
+# capacity of a quarter of a rank's rows (the retry must double it)
+MESH_M2 = dict(exchange_rows=1 << 24, seed=23,
+               join_rows=1 << 22, join_items=204_000,
+               join_exch_cap=1 << 20, join_pair_cap=1 << 21,
+               agg_rows=1 << 24, agg_buckets=1024,
+               q5=Q5_DATA, q5_capacity=Q5_CAPACITY,
+               q72=Q72_DATA, q72_capacity=Q72_CAPACITY // 2,
+               fused=True, iters=3)
+# M1: one NCCL rank through the JVM door's mesh entries at step 6's
+# sizes (q72's entry draws its 64-row inventory itself)
+MESH_M1 = dict(q5_rows=1 << 25, stores=402, q72_rows=1 << 22,
+               items=204_000)
+MESH_TIMEOUT_S = 600
+# step 23 at a small size: the card's `gpu` tests and the CPU rehearsal
+MESH_M1_SMALL = dict(q5_rows=1 << 16, stores=40, q72_rows=1 << 14,
+                     items=2000)
+MESH_M2_SMALL = dict(exchange_rows=1 << 12, seed=23, join_rows=1 << 10,
+                     join_items=204_000, join_exch_cap=1 << 8,
+                     join_pair_cap=1 << 9, agg_rows=1 << 12,
+                     agg_buckets=64,
+                     q5=dict(rows=1 << 14, stores=40, days=60, seed=5),
+                     q5_capacity=1 << 12,
+                     q72=dict(cs_rows=1 << 12, inv_rows=1 << 11,
+                              items=2000, days=35, seed=72),
+                     q72_capacity=1 << 14, fused=True, iters=1)
+
+
+def mesh_rank(mesh, sizes):
+    """One rank of step 23's M2 (see the module docstring): every check
+    runs on the rank against the single-process result on its own card;
+    a failed one raises, which fails the call and the step.  Returns the
+    rank's numbers and its replicated query outputs."""
+    from spark_rapids_tpu_torch.models import distributed_join as DJ
+    from spark_rapids_tpu_torch.ops.device_join import inner_join_device
+    from spark_rapids_tpu_torch.utils.u64math import urem
+    dev, n, r = mesh.device, mesh.size, mesh.rank
+    res = {"rank": r, "device": str(dev), "backend": mesh.backend}
+    RA.reset_launches()   # this rank's own row-kernel launches
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def median_ms(fn, iters):
+        return sorted(timed(fn)[1] for _ in range(iters))[iters // 2]
+
+    # the exchange: (ss_item_sk, ss_sales_price) keyed by item mod n
+    batch = store_sales_batch(sizes["exchange_rows"] * n, sizes["seed"],
+                              device=dev)
+    key = batch.columns[1].data
+    price = batch.columns[3].data
+    cap = sizes["exchange_rows"]
+    part = torch.remainder(key, n).to(torch.int32)
+    mesh.stats.reset()
+    ((rk, rv), valid, total, sends), ms = timed(lambda: EX.exchange(
+        [mesh.shard(key), mesh.shard(price)], mesh.shard(part), mesh, n,
+        cap))
+    mine = part == r
+    check(bool((sends <= cap).all()), "mesh exchange: nothing dropped")
+    check(torch.equal(rk[valid], key[mine])
+          and torch.equal(rv[valid], price[mine]),
+          f"mesh exchange rank {r}: the rows of its partition, in order")
+    res["exchange"] = dict(ms=ms, rows=int(total), **mesh.stats.as_dict())
+    del rk, rv, valid, batch
+
+    # the join from a capacity that must double, on every rank alike
+    rows = sizes["join_rows"] * n
+    lk = key[:rows].to(torch.int64)
+    lv = torch.arange(rows, dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(sizes["seed"])
+    rkeys = torch.randperm(sizes["join_items"], generator=g, device=dev)
+    rvals = torch.remainder(rkeys, 1000)
+    run = DJ.make_distributed_join_auto(
+        mesh, sizes["join_exch_cap"], sizes["join_pair_cap"],
+        max_doublings=8)
+    mesh.stats.reset()
+    ((k, a, b, ok, _tot, of), caps), ms = timed(lambda: run(
+        mesh.shard(lk), mesh.shard(lv), mesh.shard(rkeys),
+        mesh.shard(rvals)))
+    check(not bool(of.any()), "mesh join: no overflow after the retry")
+    pl = torch.remainder(lk, n) == r
+    pr = torch.remainder(rkeys, n) == r
+    want = inner_join_device(lk[pl], rkeys[pr], caps[1])
+    li, ri = (want.left_indices.to(torch.int64),
+              want.right_indices.to(torch.int64))
+    ok1 = ok[0]
+    check(torch.equal(k[0][ok1], lk[pl][li][want.valid])
+          and torch.equal(a[0][ok1], lv[pl][li][want.valid])
+          and torch.equal(b[0][ok1], rvals[pr][ri][want.valid]),
+          f"mesh join rank {r}: the single-process join of its partition")
+    doublings = (caps[0] // sizes["join_exch_cap"]).bit_length() - 1
+    check(doublings >= 1, f"mesh join rank {r}: the capacity doubled")
+    res["join"] = dict(ms=ms, pairs=int(ok1.sum()), capacity=list(caps),
+                       doublings=doublings, **mesh.stats.as_dict())
+    del k, a, b, ok, want, lk, lv
+
+    # the hash aggregate: every row's key and its net paid
+    keys = key.to(torch.int64)[:sizes["agg_rows"] * n]
+    vals = torch.rand(keys.shape[0], generator=g, device=dev,
+                      dtype=torch.float32) * 1000
+    buckets = sizes["agg_buckets"]
+    step, shard = Q.make_distributed_hash_aggregate(
+        mesh, n, buckets, sizes["agg_rows"])
+    mesh.stats.reset()
+    (sums, counts, sends), ms = timed(lambda: step(shard(keys),
+                                                   shard(vals)))
+    check(bool((sends <= sizes["agg_rows"]).all()),
+          "mesh aggregate: nothing dropped")
+    h = H.murmur3_32([Column(dtypes.INT64, keys.shape[0], data=keys)],
+                     42).data
+    mine = torch.remainder(h.to(torch.int64) & 0xFFFFFFFF, n) == r
+    bucket = urem(keys[mine], buckets)
+    want_counts = torch.bincount(bucket, minlength=buckets).to(torch.int32)
+    want_sums = torch.zeros(buckets, dtype=torch.float64,
+                            device=dev).index_add_(
+        0, bucket, vals[mine].to(torch.float64))
+    check(torch.equal(counts, want_counts),
+          f"mesh aggregate rank {r}: counts equal one process's")
+    tol = 2 * want_counts.to(torch.float64) * 2.0 ** -24 * want_sums
+    check(bool(((sums.to(torch.float64) - want_sums).abs() <= tol).all()),
+          f"mesh aggregate rank {r}: f32 sums within 2 n 2^-24 sum|v|")
+    res["aggregate"] = dict(ms=ms, rows=int(counts.sum()),
+                            **mesh.stats.as_dict())
+    del keys, vals, h, mine, bucket, key, price, part
+
+    # q5 op by op and fused, q72 op by op: replicated outputs
+    outs = {}
+    q5 = sizes["q5"]
+    d, args = mesh_q5_args(mesh, sizes)
+    step5 = TT.make_q5_multichip(mesh, q5["stores"], sizes["q5_capacity"])
+    mesh.stats.reset()
+    outs["q5"], first = timed(lambda: step5(*args))
+    check(not bool(outs["q5"][4]), "mesh q5: no overflow")
+    res["q5"] = dict(first_ms=first, all_reduce=mesh.stats.all_reduce,
+                     ms=median_ms(lambda: step5(*args), sizes["iters"]))
+    if sizes["fused"]:
+        fused = TC.make_q5_multichip_fused(mesh, q5["stores"],
+                                           sizes["q5_capacity"])
+        got = fused(*args)
+        same_bytes(got, outs["q5"], f"mesh q5 fused rank {r} == op by op")
+        res["q5_fused"] = dict(
+            compile_s=fused.program.compile_s,
+            graphs=fused.program.compiles,
+            ms=median_ms(lambda: fused(*args), sizes["iters"]))
+        check(fused.program.compiles == 1,
+              f"mesh q5 fused rank {r}: one graph")
+    if r == 0:
+        single = TT.make_q5(q5["stores"], sizes["q5_capacity"])
+        same_bytes(outs["q5"], single(d),
+                   "mesh q5 == the single-process q5")
+        res["q5"]["single_ms"] = median_ms(lambda: single(d),
+                                           sizes["iters"])
+    del d, args
+    q72 = sizes["q72"]
+    d = TT.gen_q72(device=dev, **q72)
+    args = [mesh.shard(x) for x in d[:3]] + list(d[3:])
+    mesh.stats.reset()
+    (outs["q72"], cap72), first = timed(lambda: TT.run_with_capacity_retry(
+        lambda c: TT.make_q72_multichip(mesh, q72["items"], Q72_MAX_WEEK,
+                                        c, Q72_LIMIT, Q72_WEEK0),
+        args, sizes["q72_capacity"], mesh=mesh))
+    res["q72"] = dict(first_ms=first, capacity=cap72,
+                      all_reduce=mesh.stats.all_reduce)
+    step72 = TT.make_q72_multichip(mesh, q72["items"], Q72_MAX_WEEK, cap72,
+                                   Q72_LIMIT, Q72_WEEK0)
+    res["q72"]["ms"] = median_ms(lambda: step72(*args), sizes["iters"])
+    if r == 0:
+        single = TT.make_q72(q72["items"], Q72_MAX_WEEK, cap72 * n,
+                             Q72_LIMIT, Q72_WEEK0)
+        same_bytes(outs["q72"], single(d),
+                   "mesh q72 == the single-process q72")
+        res["q72"]["single_ms"] = median_ms(lambda: single(d),
+                                            sizes["iters"])
+    if dev.type == "cuda":
+        res["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    res["launches"] = dict(RA.LAUNCHES)
+    return res, outs
+
+
+def mesh_q5_args(mesh, sizes):
+    """This rank's q5 inputs: its shard of the facts, the dims whole."""
+    q5 = sizes["q5"]
+    d = TT.q5_mesh_data(q5["rows"], q5["stores"], mesh.size,
+                        days=q5["days"], device=mesh.device)
+    return d, [mesh.shard(x) for x in d[:8]] + [d.d_date, d.st_id]
+
+
+def mesh_m2(device="cuda", sizes=MESH_M2, timeout_s=MESH_TIMEOUT_S):
+    """Step 23's M2: two rank processes sharing `device` over gloo,
+    booted, then each running mesh_rank (its fused q5 compiled there)."""
+    from spark_rapids_tpu_torch.distributed.pool import RankPool
+    t0 = time.perf_counter()
+    with RankPool(2, device=device, backend="gloo",
+                  timeout_s=timeout_s) as pool:
+        got = pool.run(mesh_rank, sizes, timeout_s=timeout_s)
+    for name in got[0][1]:
+        same_bytes(got[1][1][name], got[0][1][name],
+                   f"mesh {name}: both ranks hold the replicated result")
+    out = [dict(res, boot_s=b["boot_s"])
+           for (res, _), b in zip(got, pool.ranks)]
+    return {"launch": "M2", "backend": "gloo", "mode": "mesh",
+            "ranks": out, "boot_wall_s": pool.boot_wall_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def mesh_m1(device="cuda", sizes=MESH_M1):
+    """Step 23's M1: one rank through the JVM door's mesh entries (over
+    NCCL on the card; the entries' device is what initialize() set),
+    each result equal to the single-device query on the same data."""
+    from spark_rapids_tpu_torch.shim import jni_mesh
+    from spark_rapids_tpu_torch.shim.errors import ShimStateError
+    from spark_rapids_tpu_torch.utils import platform
+    JE.initialize()
+    t0 = time.perf_counter()
+    res = {"launch": "M1", "mode": "mesh"}
+    try:
+        for name, call in (
+                ("q5", lambda: JE.flagship_q5_mesh(1, sizes["q5_rows"],
+                                                   sizes["stores"])),
+                ("q72", lambda: JE.flagship_q72_mesh(1, sizes["q72_rows"],
+                                                     sizes["items"]))):
+            t = time.perf_counter()
+            flat = call()
+            first_s = time.perf_counter() - t
+            info = dict(jni_mesh.LAST_CALL)
+            t = time.perf_counter()
+            check(call() == flat, f"mesh entry {name}: a second call agrees")
+            res[name] = dict(first_call_s=first_s,
+                             second_call_s=time.perf_counter() - t,
+                             boot=info["boot"], ranks=info["ranks"],
+                             warm_ranks=jni_mesh.LAST_CALL["ranks"],
+                             rows=len(flat))
+            res.setdefault("launches", []).extend(
+                rank["launches"] for rank in
+                info["ranks"] + jni_mesh.LAST_CALL["ranks"])
+            res["backend"] = info["backend"]
+            cap = info["ranks"][0]["capacity"]
+            if name == "q5":
+                d = TT.q5_mesh_data(sizes["q5_rows"], sizes["stores"], 1,
+                                    device=device)
+                single = TT.make_q5(sizes["stores"], cap)
+                width = 4
+            else:
+                d = TT.q72_mesh_data(sizes["q72_rows"], sizes["items"], 1,
+                                     device=device)
+                single = TT.make_q72(sizes["items"], jni_mesh.Q72_MAX_WEEK,
+                                     cap, week0=jni_mesh.Q72_WEEK0)
+                width = 3
+            outs = [o.cpu().numpy() for o in single(d)]
+            live = (outs[0] != 2**31 - 1) if name == "q5" else outs[2] > 0
+            want = [int(x) for row in zip(*(o[live] for o in outs[:width]))
+                    for x in row]
+            check(flat == want,
+                  f"mesh entry {name} == the single-device {name}")
+            res[name]["single_ms"] = wall_ms(lambda: single(d), STEP_ITERS,
+                                             device)
+            del d
+        want = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        check(res["backend"] == want, f"M1 runs over {want}")
+        try:
+            JE.flagship_q5_mesh(platform.mesh_ranks_allowed() + 1,
+                                1 << 10, 8)
+            refused = False
+        except ShimStateError:
+            refused = True
+        check(refused, "a mesh entry past the allowed ranks raises "
+                       "ShimStateError")
+    finally:
+        jni_mesh.stop_pools()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def run_mesh():
+    """Step 23 on the card (see the module docstring): M2, M1's rank
+    booting meanwhile, then M1.  The launch counts are the parent's and
+    every rank's own."""
+    from spark_rapids_tpu_torch.shim import jni_mesh
+    RA.reset_launches()
+    JE.initialize()
+    boot = threading.Thread(target=jni_mesh.pool_for, args=(1,),
+                            daemon=True)
+    boot.start()
+    try:
+        m2 = mesh_m2()
+    finally:
+        boot.join(MESH_TIMEOUT_S)
+    print(json.dumps({"mesh": m2}), flush=True)
+    m1 = mesh_m1()
+    print(json.dumps({"mesh": m1}), flush=True)
+    launches = read_launches("mesh", [r["launches"] for r in m2["ranks"]]
+                             + m1["launches"])
+    return launches, {"M1": m1, "M2": m2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -7542,6 +7897,8 @@ def main() -> int:
     phase("tools")
     by_path["jvm_door"], _ = run_jvm_door(bench)
     phase("jvm_door")
+    by_path["mesh"], _ = run_mesh()
+    phase("mesh")
     print(f"kernel vs plain: rows={STRING_ROWS} cols={STRING_COLS} with "
           f"strings (JNI door) to_rows_var max_abs_err={err}", flush=True)
     errs["to_rows_var"] = max(errs["to_rows_var"], err)

@@ -241,8 +241,8 @@ KNOBS: Dict[str, str] = {
         "the shim's initialize(): cpu puts the JNI door's columns on "
         "the CPU; empty, cuda or gpu on the card",
     "SPARK_RAPIDS_TPU_CPU_DEVICES":
-        "virtual CPU device count for shim-driven mesh programs "
-        "(ROADMAP A10(b))",
+        "the shim's initialize(): how many CPU ranks the mesh entries "
+        "(flagship_q5_mesh, flagship_q72_mesh) may run (default 1)",
     "SPARK_RAPIDS_TPU_DISABLE_NATIVE":
         "=1 skips the native C++ runtime (pure-python fallbacks)",
     "SPARK_RAPIDS_TPU_FORCE_DEVICE_SHUFFLE":

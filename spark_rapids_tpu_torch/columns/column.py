@@ -68,6 +68,17 @@ class Column:
         return f"Column({self.dtype!r}, length={self.length})"
 
     @property
+    def has_validity(self) -> bool:
+        return self.validity is not None
+
+    def null_count(self) -> int:
+        """Rows that are null (one host sync)."""
+        if self.validity is None:
+            return 0
+        return int(self.length
+                   - int((self.validity[:self.length] != 0).sum()))
+
+    @property
     def device(self) -> torch.device:
         for t in (self.data, self.offsets, self.validity):
             if t is not None:
@@ -111,6 +122,23 @@ class Column:
                       children=tuple(children))
 
     # ---------------------------------------------------------- constructors
+
+    @staticmethod
+    def from_numpy(arr: np.ndarray, validity: Optional[np.ndarray] = None,
+                   dtype: Optional[DType] = None,
+                   device="cuda") -> "Column":
+        """Fixed-width column from a numpy array, in `dtype` (by default
+        the one `dtypes.from_numpy` names for the array's dtype), with an
+        optional (rows,) validity (nonzero = valid)."""
+        arr = np.asarray(arr)
+        dt = dtype if dtype is not None else dtypes.from_numpy(arr.dtype)
+        host = np.ascontiguousarray(arr.astype(dt.np_dtype, copy=False))
+        return Column(dt, arr.shape[0],
+                      data=torch.from_numpy(host).to(device),
+                      validity=_as_validity(
+                          None if validity is None
+                          else np.asarray(validity).astype(np.uint8),
+                          device))
 
     @staticmethod
     def from_pylist(values: Sequence, dtype: DType,
@@ -185,6 +213,14 @@ class Column:
         return self.validity.to(torch.bool)
 
     # ------------------------------------------------------------- host view
+
+    def to_numpy(self) -> np.ndarray:
+        """The data buffer on the host in the kind's dtype, nulls not
+        masked.  FLOAT64 comes back as float64 values (the buffer is
+        native float64; the JAX package views its raw bits)."""
+        if self.data is None:
+            raise ValueError(f"{self.dtype} column has no data buffer")
+        return self.data.cpu().numpy()
 
     def to_pylist(self) -> list:
         """Host values with None for nulls: python ints, floats and bools,

@@ -178,3 +178,19 @@ def decimal64(scale: int) -> DType:
 
 def decimal128(scale: int) -> DType:
     return DType(Kind.DECIMAL128, scale)
+
+
+def from_numpy(dt: np.dtype) -> DType:
+    """The column dtype of a numpy dtype: the first fixed-width kind
+    with that buffer dtype, past the ones a numpy dtype cannot name
+    (BOOL8, the timestamps, the decimals); numpy bool is BOOL8."""
+    dt = np.dtype(dt)
+    for kind, nd in _FIXED_WIDTH_NP.items():
+        if kind in (Kind.BOOL8, Kind.TIMESTAMP_DAYS, Kind.TIMESTAMP_MICROS,
+                    Kind.DECIMAL32, Kind.DECIMAL64):
+            continue
+        if nd == dt:
+            return DType(kind)
+    if dt == np.dtype(np.bool_):
+        return BOOL8
+    raise ValueError(f"no column dtype for numpy {dt}")

@@ -166,6 +166,7 @@ def launch(world: int, outdir: str, *,
            respawn_delay_s: float = 0.0,
            device: str = "cuda",
            worker_env: Optional[Dict[str, str]] = None,
+           mesh: str = "0",
            timeout_s: float = 300.0) -> Dict:
     """Run ``world`` worker processes on ``device`` to completion.
     Returns ``{"summaries": [...], "addresses": [...], "outdir": ...,
@@ -184,12 +185,19 @@ def launch(world: int, outdir: str, *,
     remaining ranks and raises :class:`WorkerFailed` with its exit code
     immediately.  The workers inherit this process's environment
     (inductor's and Triton's cache directories included) plus
-    ``worker_env``.  The result also names the fleet's ``trace_id``."""
+    ``worker_env``.  The result also names the fleet's ``trace_id``.
+
+    ``mesh`` is the workers' SPARK_RAPIDS_TPU_DIST_MESH: ``"0"`` keeps
+    the harness; ``"1"``/``"auto"`` has each worker also form the
+    process group at a ``file://`` store in ``outdir`` (the summary's
+    ``mesh`` reports the mode, the backend, or why it fell back)."""
     from spark_rapids_tpu_torch import observability as obs
 
     t_launch = time.perf_counter()
     os.makedirs(outdir, exist_ok=True)
     addrs = make_addresses(world, outdir, transport)
+    if mesh != "0" and os.path.exists(os.path.join(outdir, "mesh_store")):
+        os.remove(os.path.join(outdir, "mesh_store"))
 
     # one trace for the whole fleet: the launcher owns the root span;
     # workers parent their process spans under it via the env context
@@ -210,6 +218,9 @@ def launch(world: int, outdir: str, *,
                "--outdir", outdir,
                "--params", json.dumps(params or {}),
                "--device", device]
+        if mesh != "0":
+            cmd += ["--coordinator",
+                    "file://" + os.path.join(outdir, "mesh_store")]
         if elastic:
             cmd.append("--elastic")
         return cmd
@@ -219,6 +230,7 @@ def launch(world: int, outdir: str, *,
         env.update({
             "SPARK_RAPIDS_TPU_KUDO_CRC": "1",
             "SPARK_RAPIDS_TPU_DIST_TRACE_CTX": trace_ctx,
+            "SPARK_RAPIDS_TPU_DIST_MESH": mesh,
             "PYTHONPATH": _REPO_ROOT + os.pathsep
             + env.get("PYTHONPATH", ""),
         })

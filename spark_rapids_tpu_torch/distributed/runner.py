@@ -512,13 +512,17 @@ def main(argv=None) -> int:
                          "skew re-split")
     ap.add_argument("--device", default="cuda",
                     help="device of the worker's data and stages")
+    ap.add_argument("--coordinator", default=None,
+                    help="init_method of the process group (the mesh "
+                         "attempt under SPARK_RAPIDS_TPU_DIST_MESH)")
     args = ap.parse_args(argv)
     _maybe_die("boot")
 
     import torch
 
     from spark_rapids_tpu_torch.distributed import transport as TR
-    from spark_rapids_tpu_torch.distributed.mesh import try_form_mesh
+    from spark_rapids_tpu_torch.distributed.mesh import (leave_group,
+                                                         try_form_mesh)
     from spark_rapids_tpu_torch.distributed.service import ShuffleService
     from spark_rapids_tpu_torch.observability.dumpio import dump_via
     from spark_rapids_tpu_torch.robustness import links
@@ -539,7 +543,8 @@ def main(argv=None) -> int:
     _obs.enable()
     _obs.enable_tracing()
 
-    mesh_info = try_form_mesh(rank, world)
+    mesh_info = try_form_mesh(rank, world, coordinator=args.coordinator,
+                              device=device)
     service = ShuffleService(
         rank, world, args.addresses.split(","),
         elastic=args.elastic).start().install()
@@ -675,6 +680,7 @@ def main(argv=None) -> int:
             f.write(json.dumps(summary, indent=1, default=str))
         service.uninstall()
         service.stop()
+        leave_group()
     return rc
 
 

@@ -40,7 +40,8 @@ The generators make the JAX package's draws (`models/tpcds.py` there)
 from the same `np.random.default_rng(seed)` in the same order, so both
 packages see the same data, and hand it over on ``device``.  Each
 pipeline runs under the task-level retry driver inside a query-root
-span (``_retried_query``).  The q3, q5, q9 and q72 generators note each
+span (``_retried_query``; over a process group ``_mesh_query``, whose
+retry every rank takes together).  The q3, q5, q9 and q72 generators note each
 regeneration to the result cache's ingest-epoch registry (the device
 is not part of the note: the data is the same on every device).
 """
@@ -86,6 +87,22 @@ def _retried_query(name: str, fn):
         with _obs.TRACER.span(name, kind="query"):
             return _retry.with_retry(lambda: fn(*args, **kwargs),
                                      name=name)
+
+    return run
+
+
+def _mesh_query(name: str, mesh, fn):
+    """_retried_query for a step over a process group: the same span,
+    and the retry driver made collective (robustness/retry.
+    with_collective_retry over ``mesh.agree``), so every rank retries
+    or returns together; a failure inside the step fails the rank's
+    call instead of re-running its collectives alone."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _obs.TRACER.span(name, kind="query"):
+            return _retry.with_collective_retry(
+                lambda: fn(*args, **kwargs), mesh.agree, name=name)
 
     return run
 
@@ -288,6 +305,29 @@ def _run_q9(quantity: torch.Tensor, price: torch.Tensor,
 
 
 run_q9 = _retried_query("tpcds_q9", _run_q9)
+
+
+def make_q9_multichip(mesh):
+    """q9-shape over a process group (distributed/mesh.Mesh): rows
+    sharded, the five buckets' counts and sums all-reduced (one psum of
+    the stacked int64 partials: exact, so the same totals as the JAX
+    package's fifteen), the avg divide on the global sums (a mean of
+    shard means would be wrong).  Each rank passes its shard of the
+    three columns; every rank gets the replicated outputs."""
+
+    def shard_fn(quantity, price, profit):
+        parts = []
+        for lo, hi in _Q9_BUCKETS:
+            m = (quantity >= lo) & (quantity <= hi)
+            parts.append(torch.stack([m.to(torch.int64).sum(),
+                                      torch.where(m, price, 0).sum(),
+                                      torch.where(m, profit, 0).sum()]))
+        c, sp, sn = mesh.psum(torch.stack(parts, 1))
+        denom = c.clamp(min=1).to(torch.float64)
+        return (c, sp.to(torch.float64) / denom,
+                sn.to(torch.float64) / denom)
+
+    return _mesh_query("tpcds_q9_multichip", mesh, shard_fn)
 
 
 def oracle_q9(quantity, price, profit):
@@ -740,14 +780,114 @@ def oracle_q89(d: Q89Data, stores: int, items: int):
                                     cnt[g])]
 
 
+# ----------------------------------------------------------- multichip
+#
+# Each factory takes a process group's Mesh (distributed/mesh.py): every
+# rank calls the step with its own contiguous shard of the fact columns
+# (the JAX package's P(axis) inputs) and the dimension columns whole
+# (P()), and every rank gets the replicated outputs.  The bodies are the
+# single-device kernels with the reduces set to the group's all_reduce.
+
+
+def make_q5_multichip(mesh, stores: int, join_capacity: int):
+    """q5-shape over the group: facts sharded (row-parallel scan), the
+    date window and store dim replicated (broadcast join: dims fit the
+    card, the plan GpuBroadcastHashJoin picks), per-shard partial
+    group-by via the shared _q5_kernel, one all_reduce per partial for
+    the global group table, order-by replicated."""
+    kernel = _q5_kernel(stores, join_capacity, mesh.psum, mesh.pany)
+    return _mesh_query("tpcds_q5_multichip", mesh, kernel)
+
+
+def make_q72_multichip(mesh, items: int, max_week: int,
+                       join_capacity: int, limit: int = 100,
+                       week0: int = 0):
+    """q72-shape over the group: catalog_sales sharded, inventory and
+    the item dim replicated, per-shard join + filters + partial (item,
+    week) counts via the shared _q72_kernel, all_reduce for the global
+    group table, top-k replicated."""
+    kernel = _q72_kernel(items, max_week, join_capacity, limit, week0,
+                         mesh.psum, mesh.pany)
+    return _mesh_query("tpcds_q72_multichip", mesh, kernel)
+
+
+def make_q3_multichip(mesh, base: int, years: int, brands: int,
+                      manufact: int, month: int = 11, limit: int = 100):
+    """q3-shape over the group: fact sharded, the dense date and item
+    dims replicated, partial group tables all-reduced."""
+    kernel = _q3_kernel(base, years, brands, manufact, month, limit,
+                        mesh.psum)
+    return _mesh_query("tpcds_q3_multichip", mesh, kernel)
+
+
+def make_q7_multichip(mesh, items: int, limit: int = 100):
+    """q7-shape over the group: facts sharded, the filter and
+    dictionary dims replicated, partial counts and sums all-reduced
+    BEFORE the avg divide (a mean of shard means would be wrong)."""
+    kernel = _q7_kernel(items, limit, mesh.psum)
+    return _mesh_query("tpcds_q7_multichip", mesh, kernel)
+
+
 # --------------------------------------------------- capacity retry
 
 
 def run_with_capacity_retry(build, args, capacity: int,
-                            max_doublings: int = 16):
+                            max_doublings: int = 16, *, mesh=None):
     """Run a fixed-capacity pipeline under the centralized overflow
-    retry (parallel/exchange.with_capacity_retry).  The
-    pipelines report overflow as their LAST output.  Returns (outputs,
-    capacity_used)."""
+    retry (parallel/exchange.with_capacity_retry; collective over
+    ``mesh`` when given).  The pipelines report overflow as their LAST
+    output.  Returns (outputs, capacity_used)."""
     return with_capacity_retry(build, capacity,
-                               max_doublings=max_doublings)(*args)
+                               max_doublings=max_doublings,
+                               mesh=mesh)(*args)
+
+
+def q5_mesh_data(rows: int, stores: int, n_devices: int,
+                 days: int = 60, device="cuda") -> Q5Data:
+    """Seeded q5 data shaped for an n-rank mesh (row counts rounded to
+    shard evenly): shared by the JVM-driven mesh entry and its oracle
+    so the two cannot drift."""
+    rows = max(int(rows) // n_devices, 1) * n_devices
+    d = gen_q5(rows=rows, stores=stores, days=days, device=device)
+    rrows = max(len(d.r_date) // n_devices, 1) * n_devices
+    return d._replace(r_date=d.r_date[:rrows],
+                      r_store=d.r_store[:rrows],
+                      r_amt=d.r_amt[:rrows], r_loss=d.r_loss[:rrows])
+
+
+def q72_mesh_data(cs_rows: int, items: int, n_devices: int,
+                  days: int = 35, device="cuda") -> Q72Data:
+    """Seeded q72 data shaped for an n-rank mesh (cs rows rounded to
+    shard evenly; inventory replicated)."""
+    cs_rows = max(int(cs_rows) // n_devices, 1) * n_devices
+    return gen_q72(cs_rows=cs_rows, inv_rows=64, items=items,
+                   days=days, device=device)
+
+
+# ----------------------------------------------------- presentation
+
+
+def present_q5(outs, store_ids):
+    """Decode q5 outputs at the presentation boundary: dictionary ids
+    map back to store id STRINGS here (strings never entered the
+    pipeline).  Returns [(store_id_str, sales, returns, profit), ...]
+    for live rows."""
+    key_s, sales, rets, profit, _overflow = (np.asarray(_as_host(x))
+                                             for x in outs)
+    live = key_s != 2**31 - 1
+    return [(store_ids[int(k)], int(a), int(b), int(c))
+            for k, a, b, c in zip(key_s[live], sales[live], rets[live],
+                                  profit[live])]
+
+
+def present_q72(outs, item_ids):
+    """Decode q72 outputs: item dictionary ids -> item id strings."""
+    items, weeks, cnts, _overflow = (np.asarray(_as_host(x))
+                                     for x in outs)
+    live = cnts > 0
+    return [(item_ids[int(i)], int(w), int(c))
+            for i, w, c in zip(items[live], weeks[live], cnts[live])]
+
+
+def _as_host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x

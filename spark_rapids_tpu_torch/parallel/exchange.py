@@ -1,11 +1,24 @@
-"""Centralized overflow retry for fixed-capacity programs.
+"""The fixed-capacity exchange over a process group, and the
+centralized overflow retry for fixed-capacity programs.
 
-Device joins (`ops/device_join`) and fixed-capacity exchanges work in
-budgeted slots and report their TRUE sizes alongside, so overflow is
-detectable, never silent.  `with_capacity_retry` wraps a
-capacity-parameterized program factory and re-runs it at double the
-budget whenever the program reports overflow, under the same
-RetryPolicy the task-level retry drivers use (robustness/retry.py).
+The JAX package moves columns between the chips of a mesh with
+``jax.lax.all_to_all`` inside ``shard_map``.  The port runs the same
+SPMD program over a ``torch.distributed`` group (distributed/mesh.py):
+columns stay tensors on each rank's device and move with
+``all_to_all_single``.  Partitions travel in fixed-capacity slots, as
+XLA's static shapes need there: each rank sends an
+``(n_parts, capacity, ...)`` padded block per column plus its true
+per-destination counts, and receives ``(n_parts * capacity, ...)``
+padded rows and a validity mask.  Rows past the capacity are dropped
+from the slots, but the true sizes travel alongside, so overflow is
+detectable, never silent.
+
+`with_capacity_retry` wraps a capacity-parameterized program factory
+and re-runs it at double the budget whenever the program reports
+overflow, under the same RetryPolicy the task-level retry drivers use
+(robustness/retry.py).  Given a mesh, the decision is collective: the
+overflow indicator is all-reduced (MAX) first, so every rank doubles
+in lockstep and the next collective pairs up the same calls.
 
 Table-granularity exchanges (the kudo shuffle) go through a pluggable
 TRANSPORT: by default an in-process loopback that still round-trips
@@ -17,13 +30,11 @@ know which side of a process boundary their peers live on.
 
 Each capacity-retry run opens an ``exchange_capacity_retry`` span and
 records every doubling (``srt_exchange_capacity_doublings_total``) and
-an episode that saw an overflow in the retry journal.  The fixed-
-capacity exchange over `torch.distributed` comes with ROADMAP A10(b),
-the process compile cache's step memo with A14 step 5(b).
+an episode that saw an overflow in the retry journal; its steps live
+in the process compile cache (perf/jit_cache.py).
 """
-
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +65,89 @@ class CapacityExceeded(RuntimeError):
         self.send_counts = send_counts
 
 
+# counting-sort rank working-set cap: the (rows, n_parts) int32 cumsum
+# beyond this falls back to the stable-argsort layout
+_COUNTING_SORT_MAX_BYTES = 64 << 20
+
+
+def build_padded_sends(arrays: Sequence[torch.Tensor], part: torch.Tensor,
+                       n_parts: int, capacity: int):
+    """Pack rows into per-destination padded slots.
+
+    arrays: per-column arrays (rows, ...) sharing axis 0.
+    part:   (rows,) destination partition per row.
+    Returns (sends, counts): sends[i] has shape (n_parts, capacity, ...);
+    counts is (n_parts,) int32 true row counts (may exceed capacity: the
+    caller checks).
+
+    A row's slot is its stable rank within its partition.  Under
+    ``_COUNTING_SORT_MAX_BYTES`` the rank is one (rows, n_parts) one-hot
+    cumsum; past it, the stable-argsort layout, which gives the same
+    (partition, rank) slots.  Rows past the capacity, and rows whose
+    partition is out of range, are dropped."""
+    pi = part.to(torch.int64)
+    rows = int(pi.shape[0])
+    dev = pi.device
+    if rows * max(n_parts, 1) * 4 <= _COUNTING_SORT_MAX_BYTES:
+        onehot = pi[:, None] == torch.arange(n_parts, device=dev)[None, :]
+        rank = torch.cumsum(onehot.to(torch.int32), 0).gather(
+            1, pi.clamp(0, n_parts - 1)[:, None])[:, 0] - 1
+        counts = onehot.sum(0, dtype=torch.int32)
+    else:
+        order = torch.sort(pi, stable=True).indices
+        inside = (pi >= 0) & (pi < n_parts)
+        counts = torch.bincount(torch.where(inside, pi, n_parts),
+                                minlength=n_parts + 1)[:n_parts]
+        starts = torch.cumsum(counts, 0) - counts
+        rank_sorted = (torch.arange(rows, device=dev)
+                       - starts[pi[order].clamp(0, n_parts - 1)])
+        rank = torch.empty(rows, dtype=torch.int64, device=dev)
+        rank[order] = rank_sorted
+        counts = counts.to(torch.int32)
+    keep = (rank < capacity) & (pi >= 0) & (pi < n_parts)
+    # dropped rows land in one spare slot past the block, cut off after
+    slot = torch.where(keep, pi * capacity + rank, n_parts * capacity)
+    sends = []
+    for a in arrays:
+        buf = a.new_zeros((n_parts * capacity + 1,) + tuple(a.shape[1:]))
+        buf.index_put_((slot,), a)
+        sends.append(buf[:-1].reshape((n_parts, capacity)
+                                      + tuple(a.shape[1:])))
+    return sends, counts
+
+
+def exchange(arrays: Sequence[torch.Tensor], part: torch.Tensor, mesh,
+             n_parts: int, capacity: int):
+    """All-to-all hash exchange over ``mesh`` (distributed/mesh.Mesh),
+    run by every rank at once.
+
+    Each rank keeps the rows with part == its own rank after the
+    exchange.  Returns (received arrays each (n_parts*capacity, ...),
+    valid mask (n_parts*capacity,), total_received (int32 scalar),
+    send_counts (n_parts,) int32: the TRUE outbound sizes; an entry
+    over the capacity means rows were dropped and the caller must retry
+    with a larger budget).  Received rows come in (source rank, slot)
+    order."""
+    if n_parts != mesh.size:
+        raise ValueError(f"{n_parts} partitions over {mesh.size} ranks")
+    sends, send_counts = build_padded_sends(arrays, part, n_parts,
+                                            capacity)
+    recv_counts = mesh.all_to_all(
+        send_counts.reshape(n_parts, 1)).reshape(n_parts)
+    recv_counts = torch.minimum(recv_counts,
+                                torch.tensor(capacity, dtype=torch.int32,
+                                             device=recv_counts.device))
+    received = []
+    for s in sends:
+        r = mesh.all_to_all(s)
+        received.append(r.reshape((n_parts * capacity,)
+                                  + tuple(s.shape[2:])))
+    idx = torch.arange(n_parts * capacity, device=recv_counts.device)
+    valid = (idx % capacity) < recv_counts[idx // capacity]
+    return (received, valid, recv_counts.sum().to(torch.int32),
+            send_counts)
+
+
 def _host(x) -> np.ndarray:
     """An overflow indicator on the host (one device sync)."""
     if isinstance(x, torch.Tensor):
@@ -74,7 +168,8 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
                         overflow_index: int = -1,
                         policy: Optional[RetryPolicy] = None,
                         counts_indicator: bool = False,
-                        check: Optional[Callable[[], None]] = None):
+                        check: Optional[Callable[[], None]] = None,
+                        mesh=None):
     """Overflow retry for a fixed-capacity program.
 
     make_step(capacity) must return a callable whose output tuple
@@ -95,6 +190,14 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
 
     ``check`` (optional) runs at the top of every capacity attempt, so
     a caller can cancel between attempts by raising from it.
+
+    With a ``mesh`` (distributed/mesh.Mesh) every rank runs this loop
+    over its own shard, and the indicator is all-reduced (MAX) before
+    the decision, so all ranks retry or return together (a rank that
+    doubled alone would pair its next collective with a peer's
+    different one).  The program's own output keeps the rank's flag;
+    the counts a terminal CapacityExceeded carries are the largest
+    over the ranks.
 
     Returns run(*args) -> (outputs, capacity_used)."""
     steps = {}
@@ -134,6 +237,10 @@ def with_capacity_retry(make_step: Callable[[int], Callable],
                 attempt_t0 = time.monotonic_ns()
                 out = _step_for(cap)(*args)
                 indicator = _host(out[overflow_index])
+                if mesh is not None:
+                    indicator = _host(mesh.pmax(torch.as_tensor(
+                        indicator.astype(np.int64),
+                        device=mesh.device)))
                 if counts_indicator:
                     overflowed = bool(np.any(indicator > cap))
                 else:

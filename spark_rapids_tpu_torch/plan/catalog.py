@@ -27,12 +27,16 @@ left, -2 right) so bucket-pad rows can never match each other.
 
 The q3, q5 and q72 runners register their inputs' generator-size row
 estimates with the stats plane (one attribute read while it is off).
-The multi-process fused stage factories come with A10.
+For a process group, make_q5_multichip_fused and make_q72_multichip_fused
+compile the whole q5 and q72 pipelines as one program per rank, the
+Reduce seam's all_reduces inside it.
 """
 
 from spark_rapids_tpu_torch.parallel.exchange import with_capacity_retry
-from spark_rapids_tpu_torch.plan.compiler import (compile_pipeline,
-                                                  compile_stage)
+from spark_rapids_tpu_torch.plan.compiler import (FusedProgram,
+                                                  compile_pipeline,
+                                                  compile_stage,
+                                                  fused_pipeline_fn)
 from spark_rapids_tpu_torch.plan.ir import (Arange, Bin, Col, ColSpec, Idx,
                                             JoinProbe, Lit, Mask, Pipeline,
                                             Project, Reduce, Rollup,
@@ -553,3 +557,45 @@ def q89_plan(stores: int, items: int) -> StagePlan:
 def run_q89(d, stores: int, items: int):
     st = compile_stage(q89_plan(stores, items))
     return st.run({"f": (d.store, d.item, d.sales)})
+
+
+# ------------------------------------------------ mesh (process group)
+
+
+def _mesh_program(pipeline: Pipeline, mesh, n_args: int):
+    """``pipeline`` as one compiled program on this rank of ``mesh``
+    (distributed/mesh.Mesh): fused_pipeline_fn with the Reduce nodes
+    all-reducing over the group.  The returned run(*args) adds the
+    program's all_reduces to ``mesh.stats`` (the graph cannot count
+    them itself) and carries the FusedProgram as ``run.program``."""
+    fn, got = fused_pipeline_fn(pipeline, reduce_group=mesh)
+    if got != n_args:
+        raise ValueError(f"{pipeline.name}: {got} inputs, want {n_args}")
+    program = FusedProgram(fn, f"mesh_{pipeline.name}_rank{mesh.rank}")
+    reduces = sum(isinstance(node, Reduce) for stage in pipeline.stages
+                  for node in stage.nodes)
+
+    def run(*args):
+        out = program(*args)
+        mesh.stats.all_reduce += reduces
+        return out
+
+    run.program = program
+    return run
+
+
+def make_q5_multichip_fused(mesh, stores: int, join_capacity: int):
+    """The WHOLE q5 pipeline as ONE compiled program per rank (facts
+    row-sharded, date window and store dim replicated, all_reduce at the
+    Reduce seam): the fused twin of models.tpcds.make_q5_multichip, with
+    its arguments and outputs."""
+    return _mesh_program(q5_pipeline(stores, join_capacity), mesh, 10)
+
+
+def make_q72_multichip_fused(mesh, items: int, max_week: int,
+                             join_capacity: int, limit: int = 100,
+                             week0: int = 0):
+    """Fused twin of make_q72_multichip: one program per rank."""
+    return _mesh_program(
+        q72_pipeline(items, max_week, join_capacity, limit, week0), mesh,
+        7)

@@ -42,9 +42,11 @@ span.  With the stats plane on, a run taps its data-dependent row
 counts (join totals, predicate popcounts) into ``observability.STATS``;
 while a query is profiled, each run adds one stage record to its
 profile.  A pipeline consults the semantic result cache per stage when
-it is armed (perf/result_cache).  Left out until their queue items
-land: plan verification (A8) and the whole-pipeline function for
-multi-process runs (A10).
+it is armed (perf/result_cache).  Every plan is verified once before
+it first compiles or runs (analysis/plan_verify).  For a rank of a mesh
+program, :func:`fused_pipeline_fn` gives the whole pipeline as one
+function whose ``Reduce`` nodes all-reduce over the rank's process
+group, and :class:`FusedProgram` compiles it as one graph.
 """
 
 import os
@@ -400,10 +402,11 @@ def _eval(e, env):
     raise TypeError(f"unknown expr {type(e).__name__}")
 
 
-def _eval_node(node, env) -> None:
+def _eval_node(node, env, reduce_group=None) -> None:
     """Evaluate one node into ``env`` (shared by the fused program and
     the op-by-op walk — one evaluator, so the two engines cannot
-    drift)."""
+    drift).  ``Reduce`` nodes reduce across ``reduce_group`` (a
+    distributed/mesh.Mesh) when one is given, else pass through."""
     dev = env["__device__"]
     if isinstance(node, ir.Project):
         env[node.out] = _eval(node.expr, env)
@@ -431,8 +434,13 @@ def _eval_node(node, env) -> None:
         for name, arr in zip(node.names, res):
             env[name] = arr
     elif isinstance(node, ir.Reduce):
-        # identity in one process; ROADMAP A10 reduces across ranks here
-        env[node.out] = _eval(node.value, env)
+        v = _eval(node.value, env)
+        if reduce_group is None:
+            env[node.out] = v
+        elif node.kind == "any":
+            env[node.out] = reduce_group.pany(v)
+        else:
+            env[node.out] = reduce_group.psum(v)
     elif isinstance(node, ir.WindowSum):
         part = _eval(node.part, env)
         sums = segment_sum(_eval(node.value, env), part,
@@ -658,6 +666,27 @@ class CompiledStage:
                     0, dtype=torch.int32, device=args[0].device))
                 return outs + (counts,)
             return outs
+
+        return fn
+
+    def fused_fn(self, reduce_group=None):
+        """Unpadded evaluator for a rank of a mesh program: args are the
+        raw input columns (flattened in input order, no n_valid
+        scalars); ``Reduce`` nodes all-reduce over ``reduce_group``."""
+        plan = self.plan
+
+        def fn(*args):
+            env: Dict[str, object] = {"__device__": args[0].device}
+            pos = 0
+            for inp in plan.inputs:
+                for spec in inp.columns:
+                    env[spec.name] = args[pos]
+                    pos += 1
+                env[f"__mask__{inp.name}"] = _all_true_mask(
+                    env[inp.columns[0].name])
+            for node in plan.nodes:
+                _eval_node(node, env, reduce_group)
+            return tuple(env[o] for o in plan.outputs)
 
         return fn
 
@@ -1043,8 +1072,8 @@ def _first_device(inputs, plan) -> torch.device:
 # PlanVerifyError naming the offending node instead of a dtype error
 # from inside a compiled graph.  Memoized by digest so the hot path
 # pays a dict hit; SPARK_RAPIDS_TPU_PLAN_VERIFY=0 is the escape hatch.
-# (The JAX package's third caller, fused_pipeline_fn, comes with
-# ROADMAP A10(b).)
+# Its callers: stage compilation, pipeline compilation and
+# fused_pipeline_fn.
 _VERIFIED: Dict[str, bool] = {}
 _VERIFIED_CAP = 4096
 
@@ -1126,3 +1155,78 @@ class CompiledPipeline:
 
 def compile_pipeline(pipeline: ir.Pipeline) -> CompiledPipeline:
     return CompiledPipeline(pipeline)
+
+
+def fused_pipeline_fn(pipeline: ir.Pipeline, reduce_group=None):
+    """The WHOLE pipeline as one function (boundaries elided, ``Reduce``
+    -> all_reduce over ``reduce_group``, a distributed/mesh.Mesh) for a
+    rank of a mesh program: :class:`FusedProgram` compiles it as one
+    graph per rank, the collectives inside.  Args are the external
+    inputs' columns flattened in declaration order; boundary-fed
+    ScanBinds (every column already defined upstream) consume no args.
+    Returns (fn, n_args)."""
+    _verify_once(pipeline)
+    defined = set()
+    external = []
+    for stage in pipeline.stages:
+        for inp in stage.inputs:
+            if not all(c.name in defined for c in inp.columns):
+                external.append(inp)
+                defined.update(c.name for c in inp.columns)
+        for node in stage.nodes:
+            defined.update(node.outs())
+    n_args = sum(len(i.columns) for i in external)
+    last = pipeline.stages[-1]
+
+    def fn(*args):
+        env: Dict[str, object] = {"__device__": args[0].device}
+        pos = 0
+        for inp in external:
+            for spec in inp.columns:
+                env[spec.name] = args[pos]
+                pos += 1
+        for stage in pipeline.stages:
+            for inp in stage.inputs:
+                env[f"__mask__{inp.name}"] = _all_true_mask(
+                    env[inp.columns[0].name])
+            for node in stage.nodes:
+                _eval_node(node, env, reduce_group)
+        return tuple(env[o] for o in last.outputs)
+
+    return fn, n_args
+
+
+class FusedProgram:
+    """``fn`` as one ``torch.compile(fullgraph=True, dynamic=False)``
+    program, with its code object renamed to ``name`` (dynamo keeps
+    graphs per code object).  ``compiles`` counts the graphs the
+    backend compiled, ``compile_s`` the first call's wall (tracing and
+    compiling), ``calls`` the calls.  The collectives of a mesh program
+    (functional all_reduce) trace into the graph, so a rank runs one
+    graph between its inputs and its outputs."""
+
+    def __init__(self, fn, name: str):
+        fn = types.FunctionType(fn.__code__.replace(co_name=name),
+                                fn.__globals__, name, None,
+                                fn.__closure__)
+        self.name = name
+        self.compiles = 0
+        self.compile_s = None
+        self.calls = 0
+
+        def backend(gm, example_inputs):
+            from torch._inductor.compile_fx import compile_fx
+            self.compiles += 1
+            return compile_fx(gm, example_inputs)
+
+        self._compiled = torch.compile(fn, backend=backend,
+                                       fullgraph=True, dynamic=False)
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self._compiled(*args)
+        if self.compile_s is None:
+            _sync(out)
+            self.compile_s = time.perf_counter() - t0
+        self.calls += 1
+        return out

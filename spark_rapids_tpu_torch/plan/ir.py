@@ -26,8 +26,9 @@ Design rules:
     (`ops/device_join.inner_join_device`), filters are masks, group
     tables are sized by the query's domain;
   * `Reduce` marks the cross-shard reduction point: identity in one
-    process, and the place a multi-process runner reduces across ranks
-    (ROADMAP A10);
+    process; on a rank of a mesh program (compiler.fused_pipeline_fn
+    or CompiledStage.fused_fn given a process group) an all_reduce
+    across the group's ranks;
   * `ShuffleBoundary` is the typed seam between stages of a
     `Pipeline`: the compiler fuses everything between boundaries into
     one program.
@@ -251,10 +252,10 @@ class Sort(Node):
 
 @dataclass(frozen=True)
 class Reduce(Node):
-    """Cross-shard reduction point: identity in one process; a
-    multi-process runner reduces across ranks here (ROADMAP A10).
-    kind 'sum' (exact int64 partials — any reduction order is
-    byte-identical) or 'any' (overflow flags)."""
+    """Cross-shard reduction point: identity in one process; given a
+    process group, an all_reduce across its ranks (an int32 sum then
+    ``> 0`` for 'any').  kind 'sum' (exact int64 partials — any
+    reduction order is byte-identical) or 'any' (overflow flags)."""
     out: str
     value: Expr
     kind: str = "sum"
@@ -365,9 +366,10 @@ class ScanBind(Node):
 @dataclass(frozen=True)
 class ShuffleBoundary:
     """Typed seam between two stages of a Pipeline: ``carry`` names the
-    columns that cross (one process: direct handoff; a multi-process
-    runner ships them over the shuffle, ROADMAP A10).  Everything on
-    either side fuses into its own single program."""
+    columns that cross (one process: direct handoff; the distributed
+    runner ships them over the kudo shuffle; a mesh program's fused
+    pipeline elides the seam).  Everything on either side fuses into
+    its own single program."""
     carry: Tuple[str, ...]
 
     def key(self):

@@ -2,7 +2,7 @@
 ``RmmRapidsRetryIterator`` — ``withRetry`` / ``withRetryNoSplit`` /
 ``withRestoreOnRetry`` over ``RmmSpark.blockThreadUntilReady``).
 
-Three drivers, one shared episode bookkeeping:
+Four drivers, one shared episode bookkeeping:
 
   * :func:`with_retry`        — re-run a recomputable section on
     ``GpuRetryOOM``/``CpuRetryOOM``/``CudfException`` (and, because a
@@ -16,6 +16,9 @@ Three drivers, one shared episode bookkeeping:
     processed depth-first (each may split again) down to a
     one-element floor, then :class:`RetryExhausted` carries the
     attempt history.
+  * :func:`with_collective_retry` — :func:`with_retry` for a section
+    every rank of a process group runs in lockstep: the ranks agree at
+    each attempt's start, so they retry or return together.
 
 Every attempt starts by cooperating with the OOM state machine
 (``SparkResourceAdaptor.block_thread_until_ready`` — a BUFN'd thread
@@ -77,6 +80,12 @@ def register_non_retryable(*exc_types: type) -> None:
 
 def _is_non_retryable(e: BaseException) -> bool:
     return isinstance(e, NON_RETRYABLE)
+
+
+def is_retryable(e: BaseException) -> bool:
+    """Whether the drivers re-run a section that raised ``e``."""
+    return (isinstance(e, RETRYABLE + SPLITTABLE)
+            and not _is_non_retryable(e))
 
 
 @dataclass
@@ -383,6 +392,58 @@ def with_retry(fn: Callable, *args, name: Optional[str] = None,
         if len(ep.history) >= ep.policy.max_attempts:
             raise ep.exhausted("attempts", last) from last
         ep.pause()
+
+
+def with_collective_retry(fn: Callable, agree: Callable[[bool], bool], *,
+                          name: Optional[str] = None,
+                          policy: Optional[RetryPolicy] = None):
+    """:func:`with_retry` for a section that every rank of a process
+    group runs in lockstep (the mesh steps of models/tpcds and
+    models/query).  ``agree(flag)`` returns True on every rank when
+    ``flag`` is True on any (an all-reduce MAX over the group).
+
+    Each attempt starts as :func:`with_retry`'s does (the adaptor's
+    block, the injection hooks) on this rank; then the ranks agree, so
+    when any rank failed its start every rank records the attempt and
+    retries, before ``fn`` issued a collective: no rank re-runs a
+    collective alone.  The budget (attempts, deadline) is agreed the
+    same way.  A failure inside ``fn()`` propagates: a rank that stops
+    between two collectives cannot re-enter them alone (its peers wait
+    in the next one), so the group's owner re-runs the whole call on
+    fresh ranks (shim/jni_mesh.run_entry)."""
+    ep = _Episode(name or getattr(fn, "__name__", "section"), policy)
+    pol = ep.policy
+    while True:
+        failed: Optional[BaseException] = None
+        try:
+            ep.before_attempt()
+        except RETRYABLE + SPLITTABLE as e:
+            if _is_non_retryable(e):
+                raise
+            failed = e
+        if not agree(failed is not None):
+            try:
+                out = fn()
+            except BaseException as e:
+                if ep.history:
+                    ep.note_failure(e, "escalate")
+                    ep.finish("error")
+                raise
+            ep.finish("success")
+            return out
+        last = failed or exc.GpuRetryOOM(
+            f"{ep.name}: a peer rank's attempt failed at its start")
+        ep.note_failure(last, "retry")
+        spent = len(ep.history) >= pol.max_attempts
+        late = (pol.deadline_s is not None
+                and pol.clock() - ep.t0 >= pol.deadline_s)
+        if agree(spent or late):
+            raise ep.exhausted("attempts" if spent else "deadline",
+                               last) from last
+        backoff = pol.backoff_for(len(ep.history), ep.last_backoff)
+        ep.last_backoff = backoff
+        if backoff > 0:
+            pol.sleep(backoff)
 
 
 def with_retry_no_split(fn: Callable, *args, **kwargs):

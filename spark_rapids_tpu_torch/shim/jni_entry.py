@@ -19,8 +19,9 @@ columns its handles name.  The op entries open with maybe_inject and an
 op_range, through jni_api or the op layer's brackets (ops/__init__),
 as the JAX package's do.
 
-The JAX module's flagship_q5_mesh and flagship_q72_mesh (a q5 and a q72
-over a device mesh) are not here: ROADMAP A10(b).
+flagship_q5_mesh and flagship_q72_mesh run q5 and q72 as mesh programs
+over a process group of rank processes that the door starts at first
+use and keeps (shim/jni_mesh.py); shutdown() stops them.
 """
 
 from __future__ import annotations
@@ -70,8 +71,10 @@ def initialize() -> None:
     then a process without a usable card raises ShimStateError (it
     does not carry on on the CPU).  Any other value raises
     ShimArgumentError.  SPARK_RAPIDS_TPU_CPU_DEVICES (the JAX package's
-    virtual CPU device count) serves only the mesh programs, which come
-    with ROADMAP A10(b): it is not read here."""
+    virtual CPU device count) sets how many CPU ranks the mesh entries
+    may run (default 1); a value that is not an integer raises
+    ValueError, one below 1 ShimArgumentError.  On the card the mesh
+    entries may run one rank per card."""
     global _INITIALIZED
     if _INITIALIZED:
         return
@@ -88,6 +91,13 @@ def initialize() -> None:
         raise ShimArgumentError(
             f"SPARK_RAPIDS_TPU_PLATFORM={platform!r}: expected cpu, "
             f"cuda or gpu (empty: the card)")
+    ndev = os.environ.get("SPARK_RAPIDS_TPU_CPU_DEVICES", "")
+    if ndev:
+        n = int(ndev)              # malformed values must FAIL loudly
+        if n < 1:
+            raise ShimArgumentError(
+                f"SPARK_RAPIDS_TPU_CPU_DEVICES={ndev!r}: at least 1")
+        _platform.set_mesh_cpu_ranks(n)
     _platform.set_entry_device(device)
     _INITIALIZED = True
 
@@ -95,9 +105,10 @@ def initialize() -> None:
 def shutdown() -> None:
     """Stop the query server (only when spark_rapids_tpu_torch.server is
     already loaded: its pool threads hold handles, and shutdown must
-    not import the server into a process that never used it), clear
-    the kudo write memo, the handle registry and the host tables, then
-    shut the profiler down (stops its flusher, closes file sinks)."""
+    not import the server into a process that never used it) and the
+    mesh entries' rank pools (likewise), clear the kudo write memo, the
+    handle registry and the host tables, then shut the profiler down
+    (stops its flusher, closes file sinks)."""
     from spark_rapids_tpu_torch.utils.profiler import Profiler
     srv = sys.modules.get("spark_rapids_tpu_torch.server")
     if srv is not None:
@@ -105,6 +116,9 @@ def shutdown() -> None:
             srv.stop_server(timeout_s=5)
         except Exception:
             pass
+    mesh = sys.modules.get("spark_rapids_tpu_torch.shim.jni_mesh")
+    if mesh is not None:
+        mesh.stop_pools()
     with _KUDO_CACHE_LOCK:
         _KUDO_WRITE_CACHE.clear()
     REGISTRY.clear()
@@ -1159,8 +1173,27 @@ def kudo_merge(blob: bytes, type_ids: Sequence[str],
     return [REGISTRY.register(c) for c in table.columns]
 
 
-# ROADMAP A10(b): flagship_q5_mesh and flagship_q72_mesh (q5 and q72
-# over a device mesh, from the JVM) go here.
+def flagship_q5_mesh(n_devices: int, rows: int,
+                     stores: int) -> List[int]:
+    """Run the q5-shape flagship as ONE SPMD program over an n-rank
+    process group and return the live group rows flattened as
+    [store_id, sales, returns, profit, ...]: the multi-rank path driven
+    end to end from the JVM.  Raises ShimStateError when fewer ranks
+    are allowed than requested (platform.mesh_ranks_allowed): a silent
+    single-device run would fake the distribution being proven.  The
+    ranks are processes the door keeps (shim/jni_mesh.py)."""
+    from spark_rapids_tpu_torch.shim import jni_mesh
+    return jni_mesh.run_entry(int(n_devices), jni_mesh.q5_rank,
+                              int(rows), int(stores))
+
+
+def flagship_q72_mesh(n_devices: int, cs_rows: int,
+                      items: int) -> List[int]:
+    """q72-shape (fact-fact join chain) over an n-rank process group
+    from the JVM; returns live (item, week, count) triples flattened."""
+    from spark_rapids_tpu_torch.shim import jni_mesh
+    return jni_mesh.run_entry(int(n_devices), jni_mesh.q72_rank,
+                              int(cs_rows), int(items))
 
 
 # ---------------------------------------------------------- RmmSpark

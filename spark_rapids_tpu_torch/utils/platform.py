@@ -5,7 +5,8 @@ fileio/RapidsFileIO.java).
 The device the JNI door's entries make columns on lives here:
 ``entry_device()`` is ``"cuda"`` unless ``shim.jni_entry.initialize``
 read ``SPARK_RAPIDS_TPU_PLATFORM=cpu``, and ``is_integrated_gpu`` reads
-it."""
+it; so does ``mesh_ranks_allowed``, the most ranks the door's mesh
+entries may run."""
 
 from __future__ import annotations
 
@@ -57,6 +58,28 @@ def set_entry_device(device: str) -> None:
         raise ValueError(f"entry device must be 'cuda' or 'cpu', got "
                          f"{device!r}")
     _ENTRY_DEVICE[0] = device
+
+
+_MESH_CPU_RANKS = [1]
+
+
+def set_mesh_cpu_ranks(n: int) -> None:
+    """How many CPU ranks the JNI door's mesh entries may run (read by
+    ``jni_entry.initialize`` from SPARK_RAPIDS_TPU_CPU_DEVICES; 1 by
+    default, as the JAX package's CPU backend has one device)."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"mesh CPU ranks must be at least 1, got {n}")
+    _MESH_CPU_RANKS[0] = n
+
+
+def mesh_ranks_allowed() -> int:
+    """The most ranks a mesh entry may run on the entries' device: the
+    CPU ranks set at initialize on the CPU, one rank per card on the
+    card (NCCL gives every rank its own GPU)."""
+    if entry_device() == "cpu":
+        return _MESH_CPU_RANKS[0]
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def is_integrated_gpu() -> bool:

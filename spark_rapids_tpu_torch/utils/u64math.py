@@ -1,7 +1,7 @@
 """u64 lane arithmetic for the device numeric engines (Ryu in
 ops/ftos_device.py, Eisel-Lemire in ops/stod_device.py): 128-bit
-products from 32-bit limbs, count-leading-zeros, and the unsigned shift
-and compare that int64 lanes need.
+products from 32-bit limbs, count-leading-zeros, and the unsigned shift,
+compare and remainder that int64 lanes need.
 
 Torch has no shift or compare for uint64, so a u64 value rides in the
 int64 with the same bits (ops/hash.py does the same): products and sums
@@ -31,6 +31,16 @@ def shr(x: torch.Tensor, s: Union[int, torch.Tensor]) -> torch.Tensor:
 def ult(a: torch.Tensor, b) -> torch.Tensor:
     """a < b as u64 values."""
     return (a ^ _SIGN) < (b ^ _SIGN)
+
+
+def urem(x: torch.Tensor, b: int) -> torch.Tensor:
+    """x mod b for u64 bits held in int64, b an int in [1, 2^31]: the
+    remainder in 32-bit halves, ((hi mod b)(2^32 mod b) + lo mod b) mod
+    b, with hi and lo non-negative, so no product passes 2^62."""
+    if not 1 <= b <= 1 << 31:
+        raise ValueError(f"urem divisor {b} outside [1, 2^31]")
+    hi, lo = shr(x, 32), x & M32
+    return ((hi % b) * ((1 << 32) % b) + lo % b) % b
 
 
 def umul128(a: torch.Tensor, b: torch.Tensor

@@ -56,7 +56,12 @@ and the rest of the JVM door (shim/jni_entry): convert_to_rows and
 convert_from_rows through the entries on the card, byte-equal to the
 same entries on the CPU with B1, B2 and B3 each launched once, the bulk
 string ingest and readback on the card, device_attr_is_integrated
-false on the card, and chip_smoke.py's jvm_door phase at a small size.
+false on the card, and chip_smoke.py's jvm_door phase at a small size;
+and the mesh programs: the JVM door's mesh entries at one rank over
+NCCL against the single-device queries, and two rank processes sharing
+the card over gloo (the exchange and the distributed join against one
+process's, the aggregate, q5 op by op and fused, q72), chip_smoke.py's
+step 23 at a small size.
 Float SUM/MEAN on the card add with atomics in a varying order, so they
 are held to chip_smoke.close_float_sums's bound; every other output is
 byte-equal.
@@ -1569,3 +1574,35 @@ def test_jvm_door_phase_on_card_small(cuda):
     assert res["max_abs_err"] == {"to_rows_var": 0, "to_rows": 0,
                                   "from_rows": 0}
     assert JE.live_handles() == 0
+
+
+@pytest.mark.gpu
+def test_mesh_entry_world_one_over_nccl(cuda):
+    """The JVM door's mesh entries at one rank over NCCL on the card,
+    each list equal to the single-device q5 / q72 on the same data, a
+    second call on the started rank, and the refusal past the card
+    count (chip_smoke.mesh_m1's checks at a small size)."""
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.shim import jni_entry as JE
+    from spark_rapids_tpu_torch.shim import jni_mesh
+    JE._INITIALIZED = False
+    res = C.mesh_m1("cuda", C.MESH_M1_SMALL)
+    assert res["backend"] == "nccl" and not jni_mesh._POOLS
+    assert res["q5"]["ranks"][0]["doublings"] >= 1
+    assert res["q5"]["warm_ranks"][0]["doublings"] == 0
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_over_gloo(cuda):
+    """Two rank processes on one card over gloo (gloo moves the CUDA
+    tensors through the host itself): the exchange and the distributed join against
+    one process's, the aggregate, and q5 (op by op and fused) and q72
+    against the single-process queries (chip_smoke.mesh_m2's checks at
+    a small size)."""
+    import chip_smoke as C
+    res = C.mesh_m2("cuda", C.MESH_M2_SMALL)
+    for r in res["ranks"]:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        assert r["join"]["doublings"] >= 1
+        assert r["exchange"]["all_to_all"] == 3
+        assert r["q5_fused"]["graphs"] == 1

@@ -65,12 +65,15 @@ def both(specs):
 
 
 def test_entry_names_are_the_jax_set_less_the_mesh_programs():
+    """The port's entries are the JAX module's, the mesh programs
+    (flagship_q5_mesh, flagship_q72_mesh) included: none is subtracted
+    any more."""
     def names(mod, private):
         return {n for n, f in vars(mod).items()
                 if inspect.isfunction(f) and f.__module__ == mod.__name__
                 and n.startswith("_") == private}
-    assert names(J, False) == names(JJ, False) - {"flagship_q5_mesh",
-                                                  "flagship_q72_mesh"}
+    assert names(J, False) == names(JJ, False)
+    assert {"flagship_q5_mesh", "flagship_q72_mesh"} <= names(J, False)
     # the JAX module's helpers too; the port adds four of its own
     assert names(J, True) - names(JJ, True) == {
         "_device", "_upload", "_unpack_validity", "_bracketed"}

@@ -1,6 +1,9 @@
 """PyTorch port: every package of the port binds the public names its
 JAX counterpart's ``__init__`` binds, less the ones a later ROADMAP step
-brings (``LATER``, each with its step).
+brings (``LATER``, each with its step; none is left), and every class
+bound in both packages' ``__init__`` has in the port each public
+attribute (method, property, static or class method) that the JAX
+class defines.
 
 The names a package binds are read from its ``__init__.py`` source
 (imports, assignments, definitions, including inside ``try`` blocks), so
@@ -17,9 +20,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the JAX package's __init__ files that a later step brings
-LATER = {
-    "plan": {"fused_pipeline_fn": "A10(b), step 3(b)"},
-}
+LATER = {}
 # JAX packages the port does not have yet
 LATER_PACKAGES = {}
 
@@ -85,14 +86,40 @@ def test_port_package_binds_the_reference_names(pkg):
     assert unresolved == []
 
 
-@pytest.mark.parametrize("pkg", sorted(LATER))
+@pytest.mark.parametrize("pkg", packages(), ids=lambda p: p or "<root>")
 def test_later_names_are_still_missing_from_the_port(pkg):
     """A name listed as coming later is really missing: when its step
     lands, the list shrinks with it."""
+    later = set(LATER.get(pkg, {}))
     want = bound_names(init_of("spark_rapids_tpu", pkg))
     have = bound_names(init_of("spark_rapids_tpu_torch", pkg))
-    assert set(LATER[pkg]) <= want
-    assert not set(LATER[pkg]) & have
+    assert later <= want
+    assert not later & have
+
+
+@pytest.mark.parametrize("pkg", packages(), ids=lambda p: p or "<root>")
+def test_port_classes_have_the_reference_methods(pkg):
+    """For every class both packages' ``__init__`` bind under one name,
+    the port's class (with its bases) has every public attribute the
+    JAX class defines itself."""
+    import inspect
+    suffix = f".{pkg}" if pkg else ""
+    ref = importlib.import_module("spark_rapids_tpu" + suffix)
+    port = importlib.import_module("spark_rapids_tpu_torch" + suffix)
+    names = bound_names(init_of("spark_rapids_tpu", pkg)) & bound_names(
+        init_of("spark_rapids_tpu_torch", pkg))
+    missing = {}
+    for name in sorted(names):
+        jc, pc = getattr(ref, name, None), getattr(port, name, None)
+        if not (inspect.isclass(jc) and inspect.isclass(pc)
+                and jc.__module__.startswith("spark_rapids_tpu.")):
+            continue
+        have = set().union(*(vars(k) for k in pc.__mro__))
+        lack = sorted(n for n in vars(jc)
+                      if not n.startswith("_") and n not in have)
+        if lack:
+            missing[name] = lack
+    assert missing == {}
 
 
 def test_the_bindings_named_in_queue_c_resolve():
