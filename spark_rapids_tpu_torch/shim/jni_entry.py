@@ -1347,18 +1347,20 @@ def all_timezone_ids() -> List[str]:
 
 
 # ----------------------------------------- device telemetry over JNI
-# (``device``: None = the card, "cpu" = the host's one device)
+# (``device``: None = the entries' device, the one ``initialize`` chose;
+# "cpu" = the host's one device)
 
 
 def telemetry_device_count(device=None) -> int:
     from spark_rapids_tpu_torch.utils import telemetry
-    return telemetry.get_device_count(device)
+    return telemetry.get_device_count(_device(device))
 
 
 def telemetry_snapshot_packed(index: int, device=None) -> List[int]:
     """NVML.getSnapshotPacked: [memTotal, memUsed, memFree, util%,
     powerW, clockMhz, tempC]; -1 = metric not supported here."""
     from spark_rapids_tpu_torch.utils import telemetry
+    device = _device(device)
     out = [-1] * 7
     try:
         mem = telemetry.get_memory_info(index, device)
@@ -1384,7 +1386,7 @@ def telemetry_snapshot_packed(index: int, device=None) -> List[int]:
 
 def telemetry_device_name(index: int, device=None) -> str:
     from spark_rapids_tpu_torch.utils import telemetry
-    info = telemetry.get_device_info(index, device)
+    info = telemetry.get_device_info(index, _device(device))
     return f"{info.platform}:{info.kind}"
 
 

@@ -39,31 +39,39 @@ def disabled() -> bool:
 
 
 def library_path(name: str, sources: Sequence[str],
-                 flags: Sequence[str] = ()) -> Path:
-    """Where lib<name> built from native/<sources> lives once built."""
+                 flags: Sequence[str] = (), root: Path = NATIVE_SRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Where lib<name> built from <root>/<sources> (or absolute source
+    paths) lives once built."""
     digest = hashlib.sha256(" ".join((*_FLAGS, *flags)).encode())
     for src in sources:
-        digest.update((NATIVE_SRC / src).read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        digest.update((root / src).read_bytes())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_library(name: str, main_source: str,
                   headers: Sequence[str] = (),
-                  flags: Sequence[str] = ()) -> Path:
-    """Compile native/<main_source> (which includes native/<headers>)
-    with g++ unless it is built already; return the library's path.
-    Raises ``subprocess.CalledProcessError`` or ``OSError`` when g++
-    fails or is missing."""
-    path = library_path(name, (main_source, *headers), flags)
+                  flags: Sequence[str] = (), libs: Sequence[str] = (),
+                  root: Path = NATIVE_SRC,
+                  build_dir: Path = BUILD_DIR) -> Path:
+    """Compile <root>/<main_source> (which includes <root>/<headers>)
+    with g++ into <build_dir> unless it is built already; return the
+    library's path.  ``flags`` go before the source, ``libs`` (the
+    linker's -L/-l/-Wl options) after it; both are hashed into the
+    name.  Raises ``subprocess.CalledProcessError`` (g++'s output in
+    its ``stderr``) or ``OSError`` when g++ fails or is missing."""
+    path = library_path(name, (main_source, *headers), (*flags, *libs),
+                        root, build_dir)
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(
         f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         subprocess.run(["g++", *_FLAGS, *flags, "-o", str(tmp),
-                        str(NATIVE_SRC / main_source)],
-                       check=True, capture_output=True, timeout=300)
+                        str(root / main_source), *libs],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
         os.replace(tmp, path)
     finally:
         if tmp.exists():
